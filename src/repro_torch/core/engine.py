@@ -1,0 +1,807 @@
+"""Cohort-stepped fleet engine — the port of the cohort mode of
+``repro/core/jaxsim.py`` for fleet bodies.
+
+The reference runs each lane of a fleet as a ``lax.while_loop`` of
+``_cohort_body`` under ``jax.vmap``.  Here the lane axis is written out:
+every ``EngState`` leaf leads with ``[L, ...]``, ``_cohort_body``
+advances all lanes at once, and ``sweep.run_while`` reproduces the
+vmapped while-loop (the body runs on every lane, and the lanes whose
+``cond`` was already false keep their state).  Only fleet bodies exist
+in the port: the quiet-iteration ``lax.cond`` gates of the reference's
+single-lane body, the one-event engine, the multipass PPCC chain, the
+delta-maintained relations and telemetry are not ported.
+
+Each iteration processes the cohort of slots whose next event falls in
+the quantum ``[t_min, t_min + cohort_dt]``: PPCC through the fused
+cohort step (``ppcc.cohort_step_fused``), whose pairwise relations come
+from the cohort-step megakernel on the card; 2PL and OCC through their
+batched adapters; FCFS resource reservation and the OCC validation are
+one scan launch each (``kernels.ops``).
+
+Random numbers come from ``core.rng``, the bit-exact twin of the
+reference's ``jax.random`` stream: each lane carries its own key.  A
+lane started from the same seed and runtime parameters therefore
+produces the same state, leaf for leaf, as the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import bitset as B
+from . import ppcc as P
+from . import rng
+from .types import SimParams
+from ..device import resolve
+from ..kernels import ops as kops
+from ..kernels import ref as kref
+from ..kernels.ref import INF        # float32(1e30): an idle slot's time
+
+HALF_INF = 5.000000075237331e29      # float32(1e30) * 0.5: "idle" test
+
+# Op-axis draw quantum: samplers always draw bucket(max_ops, OP_QUANTUM)
+# ops and slice, so the random stream does not depend on the op bucket.
+OP_QUANTUM = 20
+
+# event kinds
+EV_ATTEMPT, EV_DISK_DONE, EV_FLUSH_DONE, EV_TIMEOUT, EV_RESTART = range(5)
+# phases
+PH_READ, PH_BLOCKED, PH_WC_LOCK, PH_WC_PREC, PH_FLUSH, PH_RESTART, PH_OFF \
+    = range(7)
+
+
+class RtParams(NamedTuple):
+    """Workload axes that are runtime values, one entry per lane
+    (``[L]`` tensors), below the engine's static buckets."""
+    d: torch.Tensor           # int32 live item count (<= cfg.d)
+    write_prob: torch.Tensor  # float32
+    len_lo: torch.Tensor      # int32 txn length bounds (len_hi <= max_ops)
+    len_hi: torch.Tensor
+    cpus: torch.Tensor        # int32 live pool sizes (<= cfg.cpus/disks)
+    disks: torch.Tensor
+    zipf_theta: torch.Tensor  # float32 hot-spot skew (0 = uniform)
+
+
+def rt_of(p: SimParams, lanes: int = 1, device=None) -> RtParams:
+    """The runtime-axis values of a parameter setting, for ``lanes``
+    lanes."""
+    dev = resolve(device)
+
+    def full(v, dtype):
+        return torch.full((lanes,), v, dtype=dtype, device=dev)
+
+    i32, f32 = torch.int32, torch.float32
+    return RtParams(
+        d=full(p.db_size, i32), write_prob=full(p.write_prob, f32),
+        len_lo=full(max(2, p.txn_size_mean - p.txn_size_spread), i32),
+        len_hi=full(p.txn_size_mean + p.txn_size_spread, i32),
+        cpus=full(p.num_cpus, i32), disks=full(p.num_disks, i32),
+        zipf_theta=full(getattr(p, "zipf_theta", 0.0), f32))
+
+
+class EngState(NamedTuple):
+    """Engine state of L lanes (the reference's ``EngState`` with a lane
+    axis, without its ``rel`` and ``tm`` leaves)."""
+    now: torch.Tensor          # f32[L]
+    key: torch.Tensor          # int32[L, 2] threefry key words
+    pstate: P.PPCCState        # protocol state
+    dirty: torch.Tensor        # int32[L, n, W] OCC validation bitmap
+    kinds: torch.Tensor        # int8[L, n, max_ops] op kinds (-1 pad)
+    items: torch.Tensor        # int32[L, n, max_ops]
+    op_idx: torch.Tensor       # int32[L, n]
+    phase: torch.Tensor        # int8[L, n]
+    next_time: torch.Tensor    # f32[L, n]
+    next_kind: torch.Tensor    # int8[L, n]
+    deadline: torch.Tensor     # f32[L, n] block timeout deadline
+    flush_left: torch.Tensor   # int32[L, n]
+    cpu_free: torch.Tensor     # f32[L, C]
+    disk_free: torch.Tensor    # f32[L, K]
+    commits: torch.Tensor      # int32[L]
+    aborts: torch.Tensor
+    blocks: torch.Tensor
+    ops_done: torch.Tensor
+    iters: torch.Tensor
+    pool_kinds: torch.Tensor   # int8[L, P, max_ops] pre-sampled txn pool
+    pool_items: torch.Tensor   # int32[L, P, max_ops]
+    pool_next: torch.Tensor    # int32[L] next pool row to hand out
+    rt: RtParams               # runtime workload axes (loop-invariant)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngCfg:
+    protocol: str
+    n: int                       # MPL slots (static bucket)
+    d: int                       # item-bit bucket (live count is rt.d)
+    max_ops: int                 # op-list capacity (static bucket)
+    ops_draw: int                # sampler draw width (see OP_QUANTUM)
+    cpus: int                    # resource-pool buckets (live: rt.cpus/disks)
+    disks: int
+    cpu_mean: float
+    cpu_spread: float
+    io_mean: float
+    io_spread: float
+    block_timeout: float
+    restart_mean: float
+    horizon: float
+    max_iters: int
+    cohort_dt: float
+    pool: int = 0                # >0: pre-sample this many transactions
+                                 # per lane at init and pop on commit
+    order: str = "index"         # PPCC selection priority: index | degree
+    megakernel: bool = False     # route the cohort-step relations and the
+                                 # two scans through kernels.ops (the CUDA
+                                 # kernels on the card); False runs their
+                                 # plain versions inline
+    device: str = "cuda"
+
+
+def default_cohort_dt(p: SimParams) -> float:
+    """Half a mean read cycle (CPU burst + disk access)."""
+    return 0.5 * (p.cpu_burst_mean + p.io_time_mean)
+
+
+def make_cfg(p: SimParams, protocol: str, max_iters: int = 400_000,
+             cohort_dt: float = None, n_slots: int = None, pool: int = 0,
+             order: str = "index", megakernel: bool = None,
+             device=None) -> EngCfg:
+    """The engine configuration of ``engine_parts``."""
+    if protocol not in ("ppcc", "2pl", "occ"):
+        raise ValueError(f"unknown protocol: {protocol!r}")
+    dev = resolve(device)
+    if megakernel is None:
+        megakernel = dev.type == "cuda"
+    if cohort_dt is None:
+        cohort_dt = default_cohort_dt(p)
+    if n_slots is None:
+        n_slots = p.mpl
+    if n_slots < p.mpl:
+        raise ValueError(f"n_slots={n_slots} < mpl={p.mpl}")
+    max_ops = p.txn_size_mean + p.txn_size_spread
+    return EngCfg(
+        protocol=protocol, n=n_slots, d=p.db_size, max_ops=max_ops,
+        ops_draw=B.bucket(max_ops, OP_QUANTUM),
+        cpus=p.num_cpus, disks=p.num_disks,
+        cpu_mean=p.cpu_burst_mean, cpu_spread=p.cpu_burst_spread,
+        io_mean=p.io_time_mean, io_spread=p.io_time_spread,
+        block_timeout=p.block_timeout, restart_mean=p.restart_delay_mean,
+        horizon=p.horizon, max_iters=max_iters, cohort_dt=float(cohort_dt),
+        pool=pool, order=order, megakernel=megakernel, device=str(dev))
+
+
+def check_rt(p: SimParams, rt: RtParams) -> None:
+    """Reject runtime values that overflow their static buckets."""
+    bounds = (("d", rt.d, p.db_size),
+              ("len_hi", rt.len_hi, p.txn_size_mean + p.txn_size_spread),
+              ("cpus", rt.cpus, p.num_cpus),
+              ("disks", rt.disks, p.num_disks))
+    for name, val, cap in bounds:
+        hi = int(val.max())
+        if hi > cap:
+            raise ValueError(
+                f"rt.{name}={hi} exceeds its static bucket {cap}")
+
+
+def _lane(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-lane ``[L]`` vector shaped to broadcast against ``ndim``
+    dims."""
+    return x.view(-1, *([1] * (ndim - 1)))
+
+
+# --------------------------------------------------------------------------
+# workload sampling
+# --------------------------------------------------------------------------
+
+def _zipf_cdf(cfg: EngCfg, rt: RtParams) -> torch.Tensor:
+    """float32[L, d] CDF over item ranks for Zipf(``rt.zipf_theta``);
+    ranks past the live ``rt.d`` get zero weight."""
+    dev = rt.d.device
+    ranks = torch.arange(cfg.d, dtype=torch.float32, device=dev) + 1.0
+    live = torch.arange(cfg.d, device=dev)[None, :] < rt.d[:, None]
+    w = torch.where(live, ranks[None, :] ** (-rt.zipf_theta[:, None]), 0.0)
+    return torch.cumsum(w, 1) / torch.clamp(w.sum(1, keepdim=True),
+                                            min=1e-30)
+
+
+def _zipf_map(cdf: torch.Tensor, raw: torch.Tensor, rt: RtParams
+              ) -> torch.Tensor:
+    """Remap uniform item draws ``raw`` (``[L, ...]`` in [0, rt.d))
+    through the Zipf CDF; at ``zipf_theta == 0`` ``raw`` is returned as
+    drawn."""
+    d = _lane(rt.d, raw.dim())
+    u = raw.to(torch.float32) / d.to(torch.float32)
+    z = torch.searchsorted(cdf, u.reshape(raw.shape[0], -1).contiguous(),
+                           right=True).reshape(raw.shape).to(raw.dtype)
+    z = torch.minimum(z, d - 1)
+    return torch.where(_lane(rt.zipf_theta, raw.dim()) > 0, z, raw)
+
+
+def sample_txn(key: torch.Tensor, cfg: EngCfg, rt: RtParams):
+    """One transaction per key: keys ``[L, S, 2]`` -> ``(kinds
+    int8[L, S, max_ops], items int32[L, S, max_ops])``, -1 pads.
+
+    Writes target a random previously-read, not-yet-written item, picked
+    as the reference's ``jax.random.categorical`` picks it
+    (``rng.categorical_pick``).  All draws use the ``cfg.ops_draw``
+    width."""
+    D = cfg.ops_draw
+    dev = key.device
+    kl, kw, ki = rng.split(key, 3).unbind(-2)
+    length = rng.randint(kl, (), _lane(rt.len_lo, 2),
+                         _lane(rt.len_hi, 2) + 1)                  # [L, S]
+    want_w = rng.uniform(kw, (D,)) < _lane(rt.write_prob, 3)      # [L,S,D]
+    k1, k2 = rng.split(rng.split(ki, D), 2).unbind(-2)           # [L,S,D,2]
+    item_r_all = _zipf_map(_zipf_cdf(cfg, rt),
+                           rng.randint(k2, (), 0, _lane(rt.d, 3)), rt)
+
+    ar = torch.arange(D, device=dev)
+    shape = tuple(key.shape[:-1])
+    read_items = torch.zeros(shape + (D,), dtype=torch.int32, device=dev)
+    n_read = torch.zeros(shape, dtype=torch.int64, device=dev)
+    written = torch.zeros(shape + (D,), dtype=torch.bool, device=dev)
+    kinds, items = [], []
+    for j in range(D):
+        avail = (ar < n_read[..., None]) & ~written
+        n_avail = avail.sum(-1)
+        do_write = want_w[..., j] & (n_avail > 0)
+        wpick = rng.categorical_pick(k1[..., j, :],
+                                     avail | (n_avail == 0)[..., None])
+        item_w = read_items.gather(-1, wpick[..., None])[..., 0]
+        item_r = item_r_all[..., j]
+        items.append(torch.where(do_write, item_w, item_r))
+        kinds.append(torch.where(j < length, do_write.to(torch.int8), -1)
+                     .to(torch.int8))
+        keep = do_write | (j >= length)
+        appended = read_items.scatter(-1, n_read[..., None],
+                                      item_r[..., None])
+        read_items = torch.where(keep[..., None], read_items, appended)
+        n_read = torch.where(keep, n_read, n_read + 1)
+        written = written | (do_write[..., None] & (ar == wpick[..., None]))
+    return (torch.stack(kinds, -1)[..., :cfg.max_ops],
+            torch.stack(items, -1)[..., :cfg.max_ops].to(torch.int32))
+
+
+def sample_txns(key: torch.Tensor, cfg: EngCfg, rt: RtParams, n: int):
+    """``n`` transactions per lane at once: keys ``[L, 2]`` -> ``(kinds
+    int8[L, n, max_ops], items int32[L, n, max_ops])``.
+
+    Same model as ``sample_txn``, with every draw hoisted out of the
+    per-op loop (the write pick is a cumsum rank of a uniform)."""
+    Lw = cfg.ops_draw
+    dev = key.device
+    kl, kw, kp, kr = rng.split(key, 4).unbind(-2)
+    length = rng.randint(kl, (n,), _lane(rt.len_lo, 2),
+                         _lane(rt.len_hi, 2) + 1)                  # [L, n]
+    want_w = rng.uniform(kw, (n, Lw)) < _lane(rt.write_prob, 3)
+    read_cand = _zipf_map(_zipf_cdf(cfg, rt),
+                          rng.randint(kr, (n, Lw), 0, _lane(rt.d, 3)), rt)
+    pick_u = rng.uniform(kp, (n, Lw))
+
+    ar = torch.arange(Lw, device=dev)
+    lanes = key.shape[0]
+    read_items = torch.zeros((lanes, n, Lw), dtype=torch.int32, device=dev)
+    n_read = torch.zeros((lanes, n), dtype=torch.int64, device=dev)
+    written = torch.zeros((lanes, n, Lw), dtype=torch.bool, device=dev)
+    kinds, items = [], []
+    for j in range(Lw):
+        avail = (ar < n_read[..., None]) & ~written
+        n_avail = avail.sum(-1, dtype=torch.int32)
+        do_write = want_w[..., j] & (n_avail > 0) & (j < length)
+        target = torch.floor(pick_u[..., j] * n_avail.to(torch.float32)
+                             ).to(torch.int32) + 1
+        wpick = (torch.cumsum(avail, -1) == target[..., None]
+                 ).to(torch.int8).argmax(-1)
+        item_w = read_items.gather(-1, wpick[..., None])[..., 0]
+        item_r = read_cand[..., j]
+        items.append(torch.where(do_write, item_w, item_r))
+        kinds.append(torch.where(j < length, do_write.to(torch.int8), -1)
+                     .to(torch.int8))
+        is_read = ~do_write & (j < length)
+        pos = torch.clamp(n_read, max=Lw - 1)[..., None]
+        cur = read_items.gather(-1, pos)[..., 0]
+        read_items = read_items.scatter(
+            -1, pos, torch.where(is_read, item_r, cur)[..., None])
+        n_read = n_read + is_read
+        written = written | (do_write[..., None] & (ar == wpick[..., None]))
+    return (torch.stack(kinds, -1)[..., :cfg.max_ops],
+            torch.stack(items, -1)[..., :cfg.max_ops].to(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# resource pools and protocol adapters
+# --------------------------------------------------------------------------
+
+def _reserve(cfg: EngCfg, cpu_free, disk_free, t_req, cpu_dur, io_dur,
+             cpu_m, disk_m):
+    """FCFS reservation of every lane's cohort: the scan kernel on the
+    card (``megakernel``), else its plain version."""
+    fn = kops.reserve_cohort if cfg.megakernel else kref.reserve_cohort_ref
+    return fn(cpu_free, disk_free, t_req, cpu_dur, io_dur, cpu_m, disk_m)
+
+
+def _try_ops_cohort(cfg: EngCfg, ps: P.PPCCState, item, is_write, ready):
+    """Batched read-phase step of 2PL or OCC over a cohort of pending
+    ops: (state, verdict, selected, block-reason), as the reference's
+    ``jaxsim._try_ops_cohort``."""
+    n = ps.n
+    dev = item.device
+    if cfg.protocol == "2pl":
+        # lock-table ops only interact when they target the same item
+        # with a write involved; keep the lowest ready claimant per item
+        idx = torch.arange(n, device=dev)
+        eye = torch.eye(n, dtype=torch.bool, device=dev)
+        same = (item[:, :, None] == item[:, None, :]) & \
+            (is_write[:, :, None] | is_write[:, None, :]) & ~eye
+        lower = idx[None, :] < idx[:, None]
+        sel = ready & ~(same & ready[:, None, :] & lower).any(2)
+        others = ps.active[:, None, :] & ~eye
+        x_held = (B.item_cols(ps.write_set, item) & others).any(2)
+        s_held = (B.item_cols(ps.read_set, item) & others).any(2)
+        ok = torch.where(is_write, ~x_held & ~s_held, ~x_held) & sel
+        ps2 = ps._replace(
+            read_set=B.or_rowwise(ps.read_set, item, ok & ~is_write),
+            write_set=B.or_rowwise(ps.write_set, item, ok & is_write))
+        verdict = torch.where(ok, P.PROCEED, P.BLOCK).to(torch.int32)
+        reason = torch.where(sel & ~ok, P.R_LOCK, P.R_NONE).to(torch.int32)
+        return ps2, verdict, sel, reason
+    # occ: ops never read other slots' protocol state — all independent
+    sel = ready
+    ps2 = ps._replace(
+        read_set=B.or_rowwise(ps.read_set, item, sel & ~is_write),
+        write_set=B.or_rowwise(ps.write_set, item, sel & is_write))
+    zeros = torch.zeros_like(item)
+    return ps2, zeros + P.PROCEED, sel, zeros
+
+
+def _wc_cohort(cfg: EngCfg, ps: P.PPCCState, dirty, wc_m):
+    """Batched wait-to-commit step of 2PL or OCC: (state, flush,
+    wait_lock, wait_prec, abort) masks."""
+    zeros = torch.zeros_like(wc_m)
+    if cfg.protocol == "2pl":
+        return ps, wc_m, zeros, zeros, zeros
+    fail = B.overlap_rows(ps.read_set, dirty)
+    return ps, wc_m & ~fail, zeros, zeros, wc_m & fail
+
+
+def _begin_txn(cfg: EngCfg, s: EngState, mpl: torch.Tensor) -> EngState:
+    """Begin the first ``mpl[l]`` slots of every lane at ``now = 0``, in
+    slot order, as the reference's ``init`` loop of ``_begin_txn``
+    calls: slot i takes ``key, k1, k2 = split(key, 3)``, samples its
+    transaction from ``k1``, draws its first CPU burst from ``k2`` and
+    reserves a CPU FCFS.  The key advances only where ``i < mpl``."""
+    n, dev = cfg.n, s.now.device
+    key = s.key
+    k1s, k2s = [], []
+    for i in range(n):
+        nxt, k1, k2 = rng.split(key, 3).unbind(-2)
+        k1s.append(k1)
+        k2s.append(k2)
+        key = torch.where((i < mpl)[:, None], nxt, key)
+    m = torch.arange(n, device=dev)[None, :] < mpl[:, None]      # [L, n]
+    kinds, items = sample_txn(torch.stack(k1s, 1), cfg, s.rt)
+    dur = rng.uniform(torch.stack(k2s, 1), (), cfg.cpu_mean - cfg.cpu_spread,
+                      cfg.cpu_mean + cfg.cpu_spread)
+    zero = torch.zeros_like(dur)
+    cpu_free, disk_free, cpu_done, _ = _reserve(
+        cfg, s.cpu_free, s.disk_free, zero, dur, zero, m,
+        torch.zeros_like(m))
+    return s._replace(
+        key=key,
+        kinds=torch.where(m[..., None], kinds, s.kinds),
+        items=torch.where(m[..., None], items, s.items),
+        op_idx=torch.where(m, 0, s.op_idx),
+        pstate=P.begin_many(s.pstate, m),
+        phase=torch.where(m, PH_READ, s.phase),
+        flush_left=torch.where(m, 0, s.flush_left),
+        cpu_free=cpu_free, disk_free=disk_free,
+        next_time=torch.where(m, cpu_done, s.next_time),
+        next_kind=torch.where(m, EV_ATTEMPT, s.next_kind))
+
+
+def init(cfg: EngCfg, seed, mpl, rt: RtParams) -> EngState:
+    """The engine state of L lanes: lane l runs seed ``seed[l]`` with
+    ``mpl[l]`` active slots and runtime axes ``rt`` (``[L]`` leaves)."""
+    dev = torch.device(cfg.device)
+    seed = torch.as_tensor(seed, dtype=torch.int32, device=dev).reshape(-1)
+    mpl = torch.as_tensor(mpl, dtype=torch.int32, device=dev).reshape(-1)
+    lanes, n, mo = seed.shape[0], cfg.n, cfg.max_ops
+    key = rng.PRNGKey(seed)
+    if cfg.pool:
+        key, kp = rng.split(key, 2).unbind(-2)
+        pool_kinds, pool_items = sample_txns(kp, cfg, rt, cfg.pool)
+    else:
+        pool_kinds = torch.zeros((lanes, 0, mo), dtype=torch.int8,
+                                 device=dev)
+        pool_items = torch.zeros((lanes, 0, mo), dtype=torch.int32,
+                                 device=dev)
+    # pool entries past the live size hold free_at = INF: FCFS argmin
+    # never picks them while a live server exists
+    f32, i32 = torch.float32, torch.int32
+    live = torch.where(torch.arange(cfg.cpus, device=dev)[None, :]
+                       < rt.cpus[:, None], 0.0, INF).to(f32)
+    live_d = torch.where(torch.arange(cfg.disks, device=dev)[None, :]
+                         < rt.disks[:, None], 0.0, INF).to(f32)
+    zl = torch.zeros(lanes, dtype=i32, device=dev)
+    zn = torch.zeros((lanes, n), dtype=i32, device=dev)
+    s = EngState(
+        now=torch.zeros(lanes, dtype=f32, device=dev), key=key,
+        pstate=P.init_state(lanes, n, cfg.d, device=dev),
+        dirty=B.zeros(lanes, n, cfg.d, device=dev),
+        kinds=torch.full((lanes, n, mo), -1, dtype=torch.int8, device=dev),
+        items=torch.zeros((lanes, n, mo), dtype=i32, device=dev),
+        op_idx=zn, phase=torch.full((lanes, n), PH_OFF, dtype=torch.int8,
+                                    device=dev),
+        next_time=torch.full((lanes, n), INF, dtype=f32, device=dev),
+        next_kind=torch.zeros((lanes, n), dtype=torch.int8, device=dev),
+        deadline=torch.zeros((lanes, n), dtype=f32, device=dev),
+        flush_left=zn, cpu_free=live, disk_free=live_d,
+        commits=zl, aborts=zl, blocks=zl, ops_done=zl, iters=zl,
+        pool_kinds=pool_kinds, pool_items=pool_items, pool_next=zl, rt=rt)
+    return _begin_txn(cfg, s, mpl)
+
+
+def cond(cfg: EngCfg, s: EngState) -> torch.Tensor:
+    """bool[L]: the lane's while-loop goes on."""
+    return (s.now <= cfg.horizon) & (s.iters < cfg.max_iters) & \
+        (s.next_time.min(1).values < HALF_INF)
+
+
+# --------------------------------------------------------------------------
+# the cohort body
+# --------------------------------------------------------------------------
+
+class Cohort(NamedTuple):
+    """The classification of one iteration's cohort, per lane and slot."""
+    t0: torch.Tensor            # f32[L] quantum start
+    ready: torch.Tensor         # bool[L, n] slot's event falls in the quantum
+    te: torch.Tensor            # f32[L, n] per-slot event time
+    n_ops: torch.Tensor         # [L, n] ops in the slot's transaction
+    done_reading: torch.Tensor  # bool[L, n]
+    is_disk: torch.Tensor       # bool[L, n] disk read completes
+    is_fl: torch.Tensor         # bool[L, n] flush write completes
+    is_rs: torch.Tensor         # bool[L, n] restart delay ends
+    to_expired: torch.Tensor    # bool[L, n] block / lock wait times out
+    read_m: torch.Tensor        # bool[L, n] read-phase op attempts
+    wc_m: torch.Tensor          # bool[L, n] wait-to-commit attempts
+    cur_item: torch.Tensor      # int32[L, n] pending op's item
+    cur_w: torch.Tensor         # bool[L, n] pending op writes
+
+
+def _classify(cfg: EngCfg, s: EngState) -> Cohort:
+    t0 = s.next_time.min(1).values
+    ready = (s.next_time <= (t0 + cfg.cohort_dt)[:, None]) & \
+        (s.next_time < HALF_INF)
+    te = torch.where(ready, s.next_time, t0[:, None])
+    kind, phase = s.next_kind, s.phase
+    n_ops = (s.kinds >= 0).sum(2)
+    done_reading = s.op_idx >= n_ops
+    in_wc = (phase == PH_WC_LOCK) | (phase == PH_WC_PREC)
+    still_wait = (phase == PH_BLOCKED) | (phase == PH_WC_LOCK)
+    is_att = ready & (kind == EV_ATTEMPT)
+    is_to = ready & (kind == EV_TIMEOUT)
+    expired = still_wait & (s.deadline <= te)
+    att = is_att | (is_to & ~expired)
+    op_i = torch.clamp(s.op_idx, max=cfg.max_ops - 1).to(torch.int64)
+    return Cohort(
+        t0=t0, ready=ready, te=te, n_ops=n_ops, done_reading=done_reading,
+        is_disk=ready & (kind == EV_DISK_DONE),
+        is_fl=ready & (kind == EV_FLUSH_DONE),
+        is_rs=ready & (kind == EV_RESTART),
+        to_expired=is_to & expired,
+        read_m=att & ~(done_reading | in_wc),
+        wc_m=att & (done_reading | in_wc),
+        cur_item=s.items.gather(2, op_i[..., None])[..., 0],
+        cur_w=s.kinds.gather(2, op_i[..., None])[..., 0] == 1)
+
+
+def megastep_args(cfg: EngCfg, s: EngState) -> tuple:
+    """The arguments the PPCC body passes to
+    ``kernels.ops.megastep_relations`` for state ``s``."""
+    c = _classify(cfg, s)
+    ps = s.pstate
+    return (ps.read_set, ps.write_set, s.dirty, c.cur_item, c.cur_w,
+            ps.active, c.read_m, ps.haslocks)
+
+
+def _draw_bounds(cfg: EngCfg):
+    """(lo, hi), float32[3, 1] on the engine's device: the bounds of the
+    body's three uniform draws — CPU burst, disk access, restart delay.
+    Made once per engine, so the body copies nothing from the host."""
+    lo = (cfg.cpu_mean - cfg.cpu_spread, cfg.io_mean - cfg.io_spread,
+          0.5 * cfg.restart_mean)
+    hi = (cfg.cpu_mean + cfg.cpu_spread, cfg.io_mean + cfg.io_spread,
+          1.5 * cfg.restart_mean)
+    return tuple(torch.tensor(b, dtype=torch.float32,
+                              device=cfg.device)[:, None] for b in (lo, hi))
+
+
+def _cohort_body(cfg: EngCfg, s: EngState, bounds) -> EngState:
+    """One cohort iteration of every lane — the reference's
+    ``jaxsim._cohort_body`` for ``fleet=True`` engines.  ``bounds`` is
+    ``_draw_bounds(cfg)``."""
+    n = cfg.n
+    i32, i8 = torch.int32, torch.int8
+    c = _classify(cfg, s)
+    t0, te, phase = c.t0, c.te, s.phase
+    t0c = t0[:, None]
+    n_ops, done_reading = c.n_ops, c.done_reading
+    is_disk, is_fl, is_rs = c.is_disk, c.is_fl, c.is_rs
+    read_m, wc_m, to_expired = c.read_m, c.wc_m, c.to_expired
+    cur_item, cur_w = c.cur_item, c.cur_w
+
+    # per-iteration randomness: one threefry pass for the three uniforms
+    key, kc, kd, kr, kt = rng.split(s.key, 5).unbind(-2)
+    dur_cpu, dur_io, delay = rng.uniform(
+        torch.stack([kc, kd, kr], 1), (n,), *bounds).unbind(1)
+
+    # ---------------- read-phase + wait-to-commit cohorts --------------
+    if cfg.protocol == "ppcc":
+        rel = None
+        if cfg.megakernel:
+            ps = s.pstate
+            rel = kops.megastep_relations(
+                ps.read_set, ps.write_set, s.dirty, cur_item, cur_w,
+                ps.active, read_m, ps.haslocks)
+        fs = P.cohort_step_fused(s.pstate, cur_item, cur_w, read_m, wc_m,
+                                 order=cfg.order, relations=rel)
+        ps2 = fs.state
+        verdict, sel = fs.verdict, fs.selected
+        flush_m = wc_m & fs.won & fs.can_commit
+        wait_prec_m = wc_m & fs.won & ~fs.can_commit
+        wait_lock_m = wc_m & ~fs.won
+        wc_abort = torch.zeros_like(wc_m)
+    else:
+        ps1, verdict, sel, _ = _try_ops_cohort(cfg, s.pstate, cur_item,
+                                               cur_w, read_m)
+        ps2, flush_m, wait_lock_m, wait_prec_m, wc_abort = \
+            _wc_cohort(cfg, ps1, s.dirty, wc_m)
+    deferred = read_m & ~sel
+    proceed = sel & (verdict == P.PROCEED)
+    v_block = sel & (verdict == P.BLOCK)
+    v_abort = sel & (verdict == P.ABORT)
+    op2 = s.op_idx + proceed.to(i32)
+    was_last = proceed & (op2 >= n_ops)
+    rd_disk = proceed & ~cur_w
+    wr_cpu = proceed & cur_w & ~was_last
+    wr_wc = proceed & cur_w & was_last
+    n_w = B.popcount(ps2.write_set)
+    flush_io = flush_m & (n_w > 0)
+    flush_zero = flush_m & (n_w == 0)
+
+    # ---------------- flush completions ----------------
+    left = s.flush_left - is_fl.to(i32)
+    flush_more = is_fl & (left > 0)
+    flush_done = is_fl & (left <= 0)
+
+    # ---------------- commits / aborts ----------------
+    commit_pre = flush_zero | flush_done
+    if cfg.protocol == "occ":
+        # re-validate at commit, against the dirty map and the writes of
+        # the lower same-iteration committers that passed (one scan)
+        fn = kops.occ_validate if cfg.megakernel else kref.occ_validate_ref
+        occ_fail = fn(commit_pre, ps2.read_set, s.dirty, ps2.write_set)
+    else:
+        occ_fail = torch.zeros_like(commit_pre)
+    commit_now = commit_pre & ~occ_fail
+    abort_now = to_expired | v_abort | wc_abort | occ_fail
+
+    # ---------------- leave + re-begin ----------------
+    begin_m = commit_now | is_rs
+    dirty = s.dirty
+    ps = ps2
+    if cfg.protocol == "occ":
+        union = B.or_reduce(torch.where(commit_now[..., None], ps.write_set,
+                                        0), axis=1)
+        receivers = ps.active & ~commit_now & ~abort_now
+        dirty = torch.where(receivers[..., None], dirty | union[:, None, :],
+                            dirty)
+        dirty = B.clear_rows(dirty, commit_now | abort_now)
+    if cfg.protocol == "ppcc":
+        ps5 = P.begin_many(P.abort_many(P.commit_many(ps, commit_now),
+                                        abort_now), begin_m)
+    else:
+        # 2pl / occ never write prec, class bits or locks
+        gone = commit_now | abort_now
+        ps5 = ps._replace(
+            read_set=B.clear_rows(ps.read_set, gone | begin_m),
+            write_set=B.clear_rows(ps.write_set, gone | begin_m),
+            active=(ps.active & ~gone) | begin_m)
+
+    pool_next = s.pool_next
+    if cfg.pool:
+        # the c-th committing slot (slot order) takes pool row
+        # (pool_next + c) mod P
+        rank = torch.cumsum(commit_now, 1) - 1
+        take = (pool_next[:, None] + torch.where(commit_now, rank, 0)) \
+            % cfg.pool
+        gidx = take[..., None].expand(-1, -1, cfg.max_ops)
+        fresh_kinds = s.pool_kinds.gather(1, gidx)
+        fresh_items = s.pool_items.gather(1, gidx)
+        pool_next = ((pool_next + commit_now.sum(1)) % cfg.pool).to(i32)
+    else:
+        fresh_kinds, fresh_items = sample_txns(kt, cfg, s.rt, n)
+    new_kinds = torch.where(commit_now[..., None], fresh_kinds, s.kinds)
+    new_items = torch.where(commit_now[..., None], fresh_items, s.items)
+
+    # ---------------- resource reservations (one scan) -----------------
+    cpu_req = wr_cpu | (is_disk & ~done_reading) | begin_m
+    disk_req = rd_disk | flush_more | flush_io
+    cpu_free, disk_free, cpu_done, disk_done = _reserve(
+        cfg, s.cpu_free, s.disk_free, te, dur_cpu.contiguous(),
+        dur_io.contiguous(), cpu_req, disk_req)
+
+    # ---------------- transitions (masks are pairwise disjoint) --------
+    nt, nk = s.next_time, s.next_kind
+    ph, dl, fl = s.phase, s.deadline, left
+
+    def put(m, arr, val):
+        return torch.where(m, val, arr)
+
+    # deferred read ops: retry next iteration at their own event time
+    nt = put(deferred, nt, te)
+    nk = put(deferred, nk, EV_ATTEMPT)
+    # read proceeded -> disk read
+    nt = put(rd_disk, nt, disk_done)
+    nk = put(rd_disk, nk, EV_DISK_DONE)
+    ph = put(rd_disk, ph, PH_READ)
+    # write proceeded, not last -> next CPU burst
+    nt = put(wr_cpu, nt, cpu_done)
+    nk = put(wr_cpu, nk, EV_ATTEMPT)
+    ph = put(wr_cpu, ph, PH_READ)
+    # last write proceeded -> enter wait-to-commit immediately
+    nt = put(wr_wc, nt, te)
+    nk = put(wr_wc, nk, EV_ATTEMPT)
+    ph = put(wr_wc, ph, PH_READ)
+    # read-phase block
+    was_blocked = phase == PH_BLOCKED
+    new_dl = torch.where(was_blocked, s.deadline, te + cfg.block_timeout)
+    dl = put(v_block, dl, new_dl)
+    ph = put(v_block, ph, PH_BLOCKED)
+    nt = put(v_block, nt, new_dl)
+    nk = put(v_block, nk, EV_TIMEOUT)
+    # wait-to-commit routing
+    ph = put(flush_m, ph, PH_FLUSH)
+    fl = put(flush_m, fl, n_w)
+    nt = put(flush_io, nt, disk_done)
+    nk = put(flush_io, nk, EV_FLUSH_DONE)
+    first_lock = phase != PH_WC_LOCK
+    lock_dl = torch.where(first_lock, te + cfg.block_timeout, s.deadline)
+    dl = put(wait_lock_m, dl, lock_dl)
+    ph = put(wait_lock_m, ph, PH_WC_LOCK)
+    nt = put(wait_lock_m, nt, lock_dl)
+    nk = put(wait_lock_m, nk, EV_TIMEOUT)
+    ph = put(wait_prec_m, ph, PH_WC_PREC)
+    nt = put(wait_prec_m, nt, INF)
+    nk = put(wait_prec_m, nk, EV_ATTEMPT)
+    # disk completions
+    disk_cpu = is_disk & ~done_reading
+    nt = put(disk_cpu, nt, cpu_done)
+    nk = put(disk_cpu, nk, EV_ATTEMPT)
+    disk_wc = is_disk & done_reading
+    nt = put(disk_wc, nt, te)
+    nk = put(disk_wc, nk, EV_ATTEMPT)
+    # flush continues
+    nt = put(flush_more, nt, disk_done)
+    nk = put(flush_more, nk, EV_FLUSH_DONE)
+    # aborts -> restart later
+    ph = put(abort_now, ph, PH_RESTART)
+    nt = put(abort_now, nt, te + delay)
+    nk = put(abort_now, nk, EV_RESTART)
+    # begins (fresh after commit / reuse after restart delay)
+    ph = put(begin_m, ph, PH_READ)
+    fl = put(begin_m, fl, 0)
+    nt = put(begin_m, nt, cpu_done)
+    nk = put(begin_m, nk, EV_ATTEMPT)
+    op_new = put(begin_m, op2, 0)
+
+    # wake waiters on any commit/abort
+    any_leave = (commit_now | abort_now).any(1, keepdim=True)
+    waiting = (ph == PH_BLOCKED) | (ph == PH_WC_LOCK) | (ph == PH_WC_PREC)
+    nt = torch.where(any_leave & waiting, torch.minimum(nt, t0c), nt)
+
+    new_block = v_block & ~was_blocked
+    return s._replace(
+        now=t0, iters=s.iters + 1, key=key,
+        pstate=ps5, dirty=dirty, kinds=new_kinds, items=new_items,
+        op_idx=op_new, phase=ph.to(i8), next_time=nt, next_kind=nk.to(i8),
+        deadline=dl, flush_left=fl, cpu_free=cpu_free, disk_free=disk_free,
+        commits=s.commits + commit_now.sum(1, dtype=i32),
+        aborts=s.aborts + abort_now.sum(1, dtype=i32),
+        blocks=s.blocks + new_block.sum(1, dtype=i32),
+        ops_done=s.ops_done + proceed.sum(1, dtype=i32),
+        pool_next=pool_next)
+
+
+def engine_parts(p: SimParams, protocol: str, max_iters: int = 400_000,
+                 cohort_dt: float = None, n_slots: int = None,
+                 pool: int = 0, order: str = "index",
+                 megakernel: bool = None, device=None):
+    """``(init, cond, step)`` of a fleet engine for ``protocol``.
+
+    ``init(seed, mpl, rt)`` takes per-lane ``[L]`` seeds, MPLs and
+    runtime axes (``rt=None``: ``p``'s own values for every lane);
+    ``cond(s)`` is the per-lane loop condition and ``step(s)`` one
+    cohort body over all lanes.  ``megakernel=None`` runs the CUDA
+    kernels on the card and their plain versions on the CPU.  The
+    default ``device`` is the card; ``device="cpu"`` runs on the CPU."""
+    cfg = make_cfg(p, protocol, max_iters=max_iters, cohort_dt=cohort_dt,
+                   n_slots=n_slots, pool=pool, order=order,
+                   megakernel=megakernel, device=device)
+    bounds = _draw_bounds(cfg)
+
+    def init_fn(seed, mpl=None, rt: RtParams = None) -> EngState:
+        seed = torch.as_tensor(seed).reshape(-1)
+        if mpl is None:
+            mpl = torch.full_like(seed, p.mpl)
+        if rt is None:
+            rt = rt_of(p, seed.shape[0], cfg.device)
+        else:
+            check_rt(p, rt)
+        return init(cfg, seed, mpl, rt)
+
+    def cond_fn(s: EngState) -> torch.Tensor:
+        return cond(cfg, s)
+
+    def step_fn(s: EngState) -> EngState:
+        return _cohort_body(cfg, s, bounds)
+
+    init_fn.cfg = cond_fn.cfg = step_fn.cfg = cfg
+    return init_fn, cond_fn, step_fn
+
+
+# --------------------------------------------------------------------------
+# state conversion to and from the reference's numpy view
+# --------------------------------------------------------------------------
+
+_WORDS = {"key", "read_set", "write_set", "dirty"}   # uint32 in the reference
+
+
+def state_from_numpy(tree, device=None) -> EngState:
+    """The port's ``EngState`` from a reference ``EngState`` whose leaves
+    are numpy arrays (``jax.tree.map(np.asarray, s)``): a single lane
+    gains a lane axis of 1, ``uint32`` words are viewed as ``int32``,
+    and the reference's ``rel``/``tm`` leaves are dropped."""
+    dev = resolve(device)
+    single = np.ndim(tree.now) == 0
+
+    def conv(name, x):
+        a = np.array(x)
+        if name in _WORDS:
+            a = a.view(np.int32)
+        if single:
+            a = a[None]
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    fields = {}
+    for name in EngState._fields:
+        val = getattr(tree, name)
+        if name == "pstate":
+            fields[name] = P.PPCCState(*(conv(f, getattr(val, f))
+                                         for f in P.PPCCState._fields))
+        elif name == "rt":
+            fields[name] = RtParams(*(conv(f, getattr(val, f))
+                                      for f in RtParams._fields))
+        else:
+            fields[name] = conv(name, val)
+    return EngState(**fields)
+
+
+def state_to_numpy(s: EngState) -> EngState:
+    """The port's ``EngState`` with numpy leaves in the reference's
+    dtypes (``int32`` words viewed back as ``uint32``); the lane axis
+    stays."""
+    def conv(name, x):
+        a = x.detach().cpu().numpy()
+        return a.view(np.uint32) if name in _WORDS else a
+
+    fields = {}
+    for name in EngState._fields:
+        val = getattr(s, name)
+        if name in ("pstate", "rt"):
+            fields[name] = type(val)(*(conv(f, getattr(val, f))
+                                       for f in val._fields))
+        else:
+            fields[name] = conv(name, val)
+    return EngState(**fields)
