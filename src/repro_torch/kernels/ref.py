@@ -97,3 +97,109 @@ def occ_validate_ref(commit_pre: torch.Tensor, read_bits: torch.Tensor,
         acc = acc | torch.where((c & ~fail)[:, None], write_bits[:, i], 0)
         fails.append(fail)
     return torch.stack(fails, 1)
+
+
+# ---- the batch scheduler's kernels (csrc/conflict.cu, csrc/admit.cu) ----
+
+PLAIN_BLOCK_BYTES = 1 << 30    # largest [rows, N, W] word block at once
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bool[N, M]: row i of ``a`` meets row j of ``b`` (int32 words
+    ``[N, W]``, ``[M, W]``).  Rows of ``a`` go in blocks whose ``[rows, M,
+    W]`` AND stays within ``PLAIN_BLOCK_BYTES``: at N = M = 4,096,
+    W = 1,024 the whole broadcast would be 68 GB."""
+    n, w = a.shape
+    m = b.shape[0]
+    rows = max(1, PLAIN_BLOCK_BYTES // max(1, m * w * 4))
+    out = torch.empty((n, m), dtype=torch.bool, device=a.device)
+    for i0 in range(0, n, rows):
+        out[i0:i0 + rows] = ((a[i0:i0 + rows, None, :] & b[None]) != 0
+                             ).any(-1)
+    return out
+
+
+def conflict_matrix_ref(read_bits: torch.Tensor, write_bits: torch.Tensor
+                        ) -> torch.Tensor:
+    """``raw[i, j]``: read row i meets write row j — words ``int32[N, W]``
+    -> ``bool[N, N]``, ``repro.kernels.ref.conflict_matrix_ref``."""
+    return _overlap(read_bits, write_bits)
+
+
+def conflict_fused_ref(read_bits: torch.Tensor, write_bits: torch.Tensor):
+    """``(raw, ww, raw_deg, ww_deg)``: both relations and their int32 row
+    degrees, the diagonal counted — ``ref.conflict_fused_ref``."""
+    raw = _overlap(read_bits, write_bits)
+    ww = _overlap(write_bits, write_bits)
+    return (raw, ww, raw.sum(1, dtype=torch.int32),
+            ww.sum(1, dtype=torch.int32))
+
+
+def conflict_fused_full_ref(read_bits: torch.Tensor,
+                            write_bits: torch.Tensor):
+    """``(raw, ww, raw_deg, war_deg, ww_deg, diag_raw, diag_ww)``:
+    ``conflict_fused_ref`` plus raw's column degrees and both diagonals —
+    ``ref.conflict_fused_full_ref``."""
+    raw, ww, raw_deg, ww_deg = conflict_fused_ref(read_bits, write_bits)
+    return (raw, ww, raw_deg, raw.sum(0, dtype=torch.int32), ww_deg,
+            raw.diagonal().clone(), ww.diagonal().clone())
+
+
+def ppcc_admit_ref(raw: torch.Tensor, valid: torch.Tensor,
+                   seq: torch.Tensor):
+    """PPCC admission in the order ``seq``: one step of the ``lax.scan``
+    of ``repro.sched.scheduler.ppcc_tick`` per transaction.  ``raw`` is
+    ``bool[n, n]`` with its diagonal cleared, ``valid`` ``bool[n]``,
+    ``seq`` ``int32[n]``.  Returns ``(admitted, preceding, preceded,
+    prec[n, n])``."""
+    n = raw.shape[0]
+    dev = raw.device
+    admitted = torch.zeros(n, dtype=torch.bool, device=dev)
+    preceding = torch.zeros_like(admitted)
+    preceded = torch.zeros_like(admitted)
+    prec = torch.zeros((n, n), dtype=torch.bool, device=dev)
+    for i in seq.tolist():
+        r_i = raw[i] & admitted                      # i -> j arcs (RAW)
+        w_i = raw[:, i] & admitted                   # k -> i arcs (WAR)
+        any_r, any_w = r_i.any(), w_i.any()
+        ok = (valid[i] & ~(any_r & any_w) & ~(r_i & preceding).any()
+              & ~(w_i & preceded).any())
+        admitted[i] = ok                             # in place: r_i and
+        preceding[i] = ok & any_r                    # w_i are copies
+        preceding |= w_i & ok
+        preceded[i] = ok & any_w
+        preceded |= r_i & ok
+        prec[i, :] = torch.where(ok, r_i, prec[i, :])
+        prec[:, i] = torch.where(ok, w_i, prec[:, i])
+    return admitted, preceding, preceded, prec
+
+
+def twopl_admit_ref(raw: torch.Tensor, ww: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+    """2PL admission in index order: ``i`` is admitted unless
+    ``(raw | raw^T | ww)`` off the diagonal meets an admitted ``j`` — the
+    scan of ``scheduler.twopl_tick``.  Returns ``admitted bool[n]``."""
+    n = raw.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=raw.device)
+    conflict = (raw | raw.T | ww) & ~eye
+    admitted = torch.zeros(n, dtype=torch.bool, device=raw.device)
+    for i in range(n):
+        ok = valid[i] & ~(conflict[i] & admitted).any()
+        admitted[i] = ok
+    return admitted
+
+
+def occ_admit_ref(raw: torch.Tensor, ww: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """OCC backward validation in index order: ``i`` survives unless
+    ``raw | ww`` meets an earlier survivor — the scan of
+    ``scheduler.occ_tick``.  Returns ``survivors bool[n]``."""
+    n = raw.shape[0]
+    bad = raw | ww
+    idx = torch.arange(n, device=raw.device)
+    survivors = torch.zeros(n, dtype=torch.bool, device=raw.device)
+    for i in range(n):
+        earlier = idx < i
+        ok = valid[i] & ~(bad[i] & survivors & earlier).any()
+        survivors[i] = ok
+    return survivors

@@ -154,3 +154,140 @@ def test_body_never_waits_for_the_device(cuda, proto):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# ---- the batch scheduler's kernels (csrc/conflict.cu, csrc/admit.cu) ----
+
+CONFLICT = ("conflict_matrix", "conflict_fused", "conflict_fused_full")
+
+
+def _words(gen, n, w, dev):
+    """Random int32 words, each bit set with probability 1/8, and write
+    words a subset of them."""
+    def bits():
+        return torch.randint(-2 ** 31, 2 ** 31, (n, w), generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+    read = bits() & bits() & bits()
+    write = read & bits()
+    return read.to(dev), write.to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 33, 255, 300])
+@pytest.mark.parametrize("w", [1, 3, 1024])
+def test_conflict_kernels_match_plain(cuda, n, w):
+    from repro_torch.kernels import conflict as kconf
+    gen = torch.Generator().manual_seed(n * 7 + w)
+    read, write = _words(gen, n, w, cuda)
+    for name in CONFLICT:
+        got = getattr(kconf, name)(read, write)
+        want = getattr(ref, f"{name}_ref")(read, write)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert len(got) == len(want), name
+        for k, (g, x) in enumerate(zip(got, want)):
+            assert g.dtype == x.dtype and torch.equal(g, x), (name, k)
+
+
+def test_conflict_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import conflict as kconf
+    words = torch.zeros((8, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kconf.conflict_fused(words.to(torch.int64), words)
+    with pytest.raises(ValueError):
+        kconf.conflict_fused(words, words[:, :1].contiguous())
+    with pytest.raises(ValueError):
+        kconf.conflict_matrix(words.cpu(), words.cpu())
+
+
+def _admit_inputs(gen, n, dev):
+    from repro_torch.sched import workload as W
+    rng = np.random.default_rng(n)
+    rw, ww = W.ycsb_batch(n=n, d=max(64, 8 * n), seed=n)
+    read = torch.from_numpy(rw.view(np.int32)).to(dev)
+    write = torch.from_numpy(ww.view(np.int32)).to(dev)
+    raw, ww_, *_ = ref.conflict_fused_ref(read, write)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    seq = torch.randperm(n, generator=gen).to(torch.int32).to(dev)
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    return raw, ww_, valid, seq, raw & ~eye
+
+
+@pytest.mark.parametrize("n", [1, 33, 255, 300, 1500])
+def test_admit_kernels_match_plain(cuda, n):
+    from repro_torch.kernels import admit as kadm
+    gen = torch.Generator().manual_seed(n)
+    raw, ww, valid, seq, raw_off = _admit_inputs(gen, n, cuda)
+    got = kadm.ppcc_admit(raw_off, valid, seq)
+    want = ref.ppcc_admit_ref(raw_off, valid, seq)
+    torch.cuda.synchronize()
+    for name, g, x in zip(("admitted", "preceding", "preceded", "prec"), got,
+                          want):
+        assert torch.equal(g, x), name
+    for name in ("twopl_admit", "occ_admit"):
+        g = getattr(kadm, name)(raw, ww, valid)
+        x = getattr(ref, f"{name}_ref")(raw, ww, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(g, x), name
+    if n > 1:
+        assert got[0].any() and not got[0].all()
+
+
+@pytest.mark.parametrize("mode", ("ppcc", "ppcc_degree", "2pl", "occ"))
+def test_tick_kernel_path_equals_plain_path(cuda, mode):
+    """Three ticks of the drain loop on the card equal the same drain on
+    CPU copies of the words (the plain versions), record for record, and
+    each tick on the card launches one conflict kernel and one admission
+    scan."""
+    from repro_torch.sched import workload as W
+    rw, ww = W.ycsb_batch(n=700, d=4096, seed=3)
+    read = torch.from_numpy(rw.view(np.int32))
+    write = torch.from_numpy(ww.view(np.int32))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        ops.reset_launches()
+        steps, repeat = W.drain(read.to(dev), write.to(dev), mode, 3)
+        counts = ops.launch_counts()
+        recs = [W.tick_record(r.admitted.cpu().numpy(),
+                              r.aborted.cpu().numpy(),
+                              r.commit_rank.cpu().numpy(), st,
+                              r.state.prec.cpu().numpy(),
+                              r.state.preceding.cpu().numpy(),
+                              r.state.preceded.cpu().numpy())
+                for r, st in steps + ([(repeat, None)] if repeat else [])]
+        runs.append(recs)
+        if dev.type == "cpu":
+            assert sum(counts.values()) == 0
+            continue
+        scan = {"ppcc": "ppcc_admit", "2pl": "twopl_admit",
+                "occ": "occ_admit"}[W.MODES[mode][0]]
+        assert counts[scan] == len(recs)
+        if mode == "ppcc_degree":
+            assert counts["conflict_fused_full"] == 3     # repeat: carried
+            assert counts["conflict_fused"] == 3          # tick_stats
+        else:
+            assert counts["conflict_fused"] == 6
+    assert runs[0] == runs[1]
+
+
+def test_carry_hit_launches_nothing(cuda):
+    """A degree tick whose words and valid mask equal its carry's launches
+    no conflict kernel, only the admission scan, and equals a fresh
+    tick."""
+    from repro_torch.sched import scheduler as S
+    from repro_torch.sched import workload as W
+    rw, ww = W.ycsb_batch(n=500, d=2048, seed=4)
+    read = torch.from_numpy(rw.view(np.int32)).to(cuda)
+    write = torch.from_numpy(ww.view(np.int32)).to(cuda)
+    valid = torch.ones(500, dtype=torch.bool, device=cuda)
+    fresh, carry = S.tick(read, write, valid, order="degree",
+                          return_carry=True)
+    ops.reset_launches()
+    hit = S.tick(read, write, valid, order="degree", carry=carry)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["conflict_fused_full"] == counts["conflict_fused"] == 0
+    assert counts["ppcc_admit"] == 1
+    for name in ("admitted", "commit_rank"):
+        assert torch.equal(getattr(hit, name), getattr(fresh, name)), name
+    assert torch.equal(hit.state.prec, fresh.state.prec)
