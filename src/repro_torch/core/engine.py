@@ -8,8 +8,8 @@ advances all lanes at once, and ``sweep.run_while`` reproduces the
 vmapped while-loop (the body runs on every lane, and the lanes whose
 ``cond`` was already false keep their state).  Only fleet bodies exist
 in the port: the quiet-iteration ``lax.cond`` gates of the reference's
-single-lane body, the one-event engine, the multipass PPCC chain, the
-delta-maintained relations and telemetry are not ported.
+single-lane body, the one-event engine and the multipass PPCC chain are
+not ported.
 
 Each iteration processes the cohort of slots whose next event falls in
 the quantum ``[t_min, t_min + cohort_dt]``: PPCC through the fused
@@ -17,6 +17,15 @@ cohort step (``ppcc.cohort_step_fused``), whose pairwise relations come
 from the cohort-step megakernel on the card; 2PL and OCC through their
 batched adapters; FCFS resource reservation and the OCC validation are
 one scan launch each (``kernels.ops``).
+
+``EngCfg.delta`` (PPCC only) carries the four relations in the state
+(``EngState.rel``) instead: init seeds them from one megastep launch,
+and each iteration recomputes only the rows of the slots it dirtied, in
+``ceil(n / delta_k)`` row-slab launches (``_delta_update``).
+``EngCfg.telemetry`` folds each iteration's commits, aborts, blocks and
+waits into the ``obs.metrics`` accumulators (``EngState.tm``) and, with
+``trace_every > 0``, samples a per-lane ring buffer.  Off, ``rel`` and
+``tm`` are zero-size leaves and the results are the same bit for bit.
 
 Random numbers come from ``core.rng``, the bit-exact twin of the
 reference's ``jax.random`` stream: each lane carries its own key.  A
@@ -39,6 +48,7 @@ from ..device import resolve
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from ..kernels.ref import INF        # float32(1e30): an idle slot's time
+from ..obs import metrics as M
 
 HALF_INF = 5.000000075237331e29      # float32(1e30) * 0.5: "idle" test
 
@@ -84,7 +94,7 @@ def rt_of(p: SimParams, lanes: int = 1, device=None) -> RtParams:
 
 class EngState(NamedTuple):
     """Engine state of L lanes (the reference's ``EngState`` with a lane
-    axis, without its ``rel`` and ``tm`` leaves)."""
+    axis)."""
     now: torch.Tensor          # f32[L]
     key: torch.Tensor          # int32[L, 2] threefry key words
     pstate: P.PPCCState        # protocol state
@@ -108,6 +118,12 @@ class EngState(NamedTuple):
     pool_items: torch.Tensor   # int32[L, P, max_ops]
     pool_next: torch.Tensor    # int32[L] next pool row to hand out
     rt: RtParams               # runtime workload axes (loop-invariant)
+    rel: P.Relations           # bool[L, n, n] carried relations when
+                               # cfg.delta (else [L, 0, 0]); equal to
+                               # compute_relations of pstate and the
+                               # op cursor the next body will see
+    tm: M.Telemetry            # telemetry when cfg.telemetry (else
+                               # zero-size leaves)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +151,12 @@ class EngCfg:
                                  # two scans through kernels.ops (the CUDA
                                  # kernels on the card); False runs their
                                  # plain versions inline
+    delta: bool = False          # ppcc: carry the relations, update only
+                                 # the dirty rows per iteration
+    delta_k: int = 0             # row-slab capacity of one launch
+    telemetry: bool = False      # carry the obs.metrics accumulators
+    trace_every: int = 0         # >0: sample the ring buffer this often
+    trace_len: int = 256         # ring-buffer rows per lane
     device: str = "cuda"
 
 
@@ -146,8 +168,12 @@ def default_cohort_dt(p: SimParams) -> float:
 def make_cfg(p: SimParams, protocol: str, max_iters: int = 400_000,
              cohort_dt: float = None, n_slots: int = None, pool: int = 0,
              order: str = "index", megakernel: bool = None,
-             device=None) -> EngCfg:
-    """The engine configuration of ``engine_parts``."""
+             delta: bool = False, delta_k: int = 0,
+             telemetry: bool = False, trace_every: int = 0,
+             trace_len: int = 256, device=None) -> EngCfg:
+    """The engine configuration of ``engine_parts``.  ``delta`` applies
+    to PPCC only; ``delta_k <= 0`` picks ``bucket(max(1, n // 4), 8)``,
+    the reference's default slab."""
     if protocol not in ("ppcc", "2pl", "occ"):
         raise ValueError(f"unknown protocol: {protocol!r}")
     dev = resolve(device)
@@ -159,6 +185,8 @@ def make_cfg(p: SimParams, protocol: str, max_iters: int = 400_000,
         n_slots = p.mpl
     if n_slots < p.mpl:
         raise ValueError(f"n_slots={n_slots} < mpl={p.mpl}")
+    if delta and delta_k <= 0:
+        delta_k = B.bucket(max(1, n_slots // 4), 8)
     max_ops = p.txn_size_mean + p.txn_size_spread
     return EngCfg(
         protocol=protocol, n=n_slots, d=p.db_size, max_ops=max_ops,
@@ -168,7 +196,10 @@ def make_cfg(p: SimParams, protocol: str, max_iters: int = 400_000,
         io_mean=p.io_time_mean, io_spread=p.io_time_spread,
         block_timeout=p.block_timeout, restart_mean=p.restart_delay_mean,
         horizon=p.horizon, max_iters=max_iters, cohort_dt=float(cohort_dt),
-        pool=pool, order=order, megakernel=megakernel, device=str(dev))
+        pool=pool, order=order, megakernel=megakernel,
+        delta=delta and protocol == "ppcc", delta_k=delta_k,
+        telemetry=telemetry, trace_every=trace_every, trace_len=trace_len,
+        device=str(dev))
 
 
 def check_rt(p: SimParams, rt: RtParams) -> None:
@@ -425,6 +456,7 @@ def init(cfg: EngCfg, seed, mpl, rt: RtParams) -> EngState:
                          < rt.disks[:, None], 0.0, INF).to(f32)
     zl = torch.zeros(lanes, dtype=i32, device=dev)
     zn = torch.zeros((lanes, n), dtype=i32, device=dev)
+    trace_len = cfg.trace_len if cfg.trace_every > 0 else 0
     s = EngState(
         now=torch.zeros(lanes, dtype=f32, device=dev), key=key,
         pstate=P.init_state(lanes, n, cfg.d, device=dev),
@@ -438,8 +470,23 @@ def init(cfg: EngCfg, seed, mpl, rt: RtParams) -> EngState:
         deadline=torch.zeros((lanes, n), dtype=f32, device=dev),
         flush_left=zn, cpu_free=live, disk_free=live_d,
         commits=zl, aborts=zl, blocks=zl, ops_done=zl, iters=zl,
-        pool_kinds=pool_kinds, pool_items=pool_items, pool_next=zl, rt=rt)
-    return _begin_txn(cfg, s, mpl)
+        pool_kinds=pool_kinds, pool_items=pool_items, pool_next=zl, rt=rt,
+        rel=P.empty_relations(lanes, n if cfg.delta else 0, dev),
+        tm=M.init_telemetry(lanes, n if cfg.telemetry else 0, trace_len,
+                            dev))
+    s = _begin_txn(cfg, s, mpl)
+    if cfg.delta:
+        # seed the carried-relations invariant at the first body's cursor
+        c = _classify(cfg, s)
+        ps = s.pstate
+        if cfg.megakernel:
+            rel = P.Relations(*kops.megastep_relations(
+                ps.read_set, ps.write_set, s.dirty, c.cur_item, c.cur_w,
+                ps.active, c.read_m, ps.haslocks)[:4])
+        else:
+            rel = P.compute_relations(ps, c.cur_item, c.cur_w)
+        s = s._replace(rel=rel)
+    return s
 
 
 def cond(cfg: EngCfg, s: EngState) -> torch.Tensor:
@@ -505,22 +552,68 @@ def megastep_args(cfg: EngCfg, s: EngState) -> tuple:
             ps.active, c.read_m, ps.haslocks)
 
 
-def _draw_bounds(cfg: EngCfg):
-    """(lo, hi), float32[3, 1] on the engine's device: the bounds of the
-    body's three uniform draws — CPU burst, disk access, restart delay.
-    Made once per engine, so the body copies nothing from the host."""
+def _body_consts(cfg: EngCfg):
+    """(lo, hi, edges) on the engine's device: float32[3, 1] bounds of
+    the body's three uniform draws — CPU burst, disk access, restart
+    delay — and the telemetry's histogram edges as float32.  Made once
+    per engine, so the body copies nothing from the host."""
     lo = (cfg.cpu_mean - cfg.cpu_spread, cfg.io_mean - cfg.io_spread,
           0.5 * cfg.restart_mean)
     hi = (cfg.cpu_mean + cfg.cpu_spread, cfg.io_mean + cfg.io_spread,
           1.5 * cfg.restart_mean)
-    return tuple(torch.tensor(b, dtype=torch.float32,
-                              device=cfg.device)[:, None] for b in (lo, hi))
+    f32 = torch.float32
+    return (torch.tensor(lo, dtype=f32, device=cfg.device)[:, None],
+            torch.tensor(hi, dtype=f32, device=cfg.device)[:, None],
+            torch.as_tensor(M.EDGES, dtype=f32, device=cfg.device))
 
 
-def _cohort_body(cfg: EngCfg, s: EngState, bounds) -> EngState:
+def _rowslab_rows(cfg: EngCfg, ps: P.PPCCState, rel: P.Relations, item,
+                  is_write, slab, valid):
+    """The row-slab kernel on the card (``megakernel``), else its plain
+    version."""
+    fn = kops.rowslab_relations if cfg.megakernel else kref.rowslab_ref
+    return fn(ps.read_set, ps.write_set, rel.writers_at, rel.readers_at,
+              item, is_write, ps.active, slab, valid)
+
+
+def _delta_update(cfg: EngCfg, s: EngState, ps5: P.PPCCState, cur_item,
+                  cur_w, new_kinds, new_items, op_new) -> P.Relations:
+    """The carried relations for the next iteration's cursor: find the
+    slots whose words or op cursor changed and recompute only their
+    rows, ``delta_k`` slots per row-slab launch, scattering rows and
+    mirrored columns back.
+
+    The reference drains each lane's dirty set in a ``while_loop`` of
+    ``ceil(m / K)`` chunks.  Here every iteration runs the fixed
+    ``ceil(n / K)`` chunks with no host read: chunk c of a lane with at
+    most ``c * K`` dirty slots is all-invalid, its rows are zero and the
+    scatter drops them.  Later chunks' mirrored columns repair the stale
+    entries between dirty slots of earlier chunks, so the result is the
+    full recompute's."""
+    n, k = cfg.n, cfg.delta_k
+    nxt_i = torch.clamp(op_new, max=cfg.max_ops - 1).to(torch.int64)
+    nxt_item = new_items.gather(2, nxt_i[..., None])[..., 0]
+    nxt_w = new_kinds.gather(2, nxt_i[..., None])[..., 0] == 1
+    dirty_m = P.dirty_slots(s.pstate, ps5, cur_item, nxt_item, cur_w,
+                            nxt_w)
+    chunks = -(-n // k)
+    ids, _, _ = P.dirty_slab(dirty_m, chunks * k)
+    slabs = ids.view(-1, chunks, k).transpose(0, 1).contiguous()
+    valids = slabs < n
+    # one padded buffer for the whole drain: each chunk reads the tables
+    # the earlier chunks wrote and scatters its rows and columns in place
+    buf = P.padded_relations(s.rel)
+    for slab, valid in zip(slabs, valids):
+        rel = P.unpadded_relations(buf)
+        rows = _rowslab_rows(cfg, ps5, rel, nxt_item, nxt_w, slab, valid)
+        P.scatter_padded_(buf, torch.stack(rows), slab, valid)
+    return P.unpadded_relations(buf)
+
+
+def _cohort_body(cfg: EngCfg, s: EngState, consts) -> EngState:
     """One cohort iteration of every lane — the reference's
-    ``jaxsim._cohort_body`` for ``fleet=True`` engines.  ``bounds`` is
-    ``_draw_bounds(cfg)``."""
+    ``jaxsim._cohort_body`` for ``fleet=True`` engines.  ``consts`` is
+    ``_body_consts(cfg)``."""
     n = cfg.n
     i32, i8 = torch.int32, torch.int8
     c = _classify(cfg, s)
@@ -533,13 +626,18 @@ def _cohort_body(cfg: EngCfg, s: EngState, bounds) -> EngState:
 
     # per-iteration randomness: one threefry pass for the three uniforms
     key, kc, kd, kr, kt = rng.split(s.key, 5).unbind(-2)
+    lo, hi, edges = consts
     dur_cpu, dur_io, delay = rng.uniform(
-        torch.stack([kc, kd, kr], 1), (n,), *bounds).unbind(1)
+        torch.stack([kc, kd, kr], 1), (n,), lo, hi).unbind(1)
 
     # ---------------- read-phase + wait-to-commit cohorts --------------
     if cfg.protocol == "ppcc":
         rel = None
-        if cfg.megakernel:
+        if cfg.delta:
+            # the carried relations already equal this iteration's full
+            # recompute: only the per-quantum reductions run
+            rel = P.relations_inputs(s.rel, read_m, s.pstate.haslocks)
+        elif cfg.megakernel:
             ps = s.pstate
             rel = kops.megastep_relations(
                 ps.read_set, ps.write_set, s.dirty, cur_item, cur_w,
@@ -547,14 +645,16 @@ def _cohort_body(cfg: EngCfg, s: EngState, bounds) -> EngState:
         fs = P.cohort_step_fused(s.pstate, cur_item, cur_w, read_m, wc_m,
                                  order=cfg.order, relations=rel)
         ps2 = fs.state
-        verdict, sel = fs.verdict, fs.selected
+        verdict, sel, reason, degree = fs.verdict, fs.selected, fs.reason, \
+            fs.degree
         flush_m = wc_m & fs.won & fs.can_commit
         wait_prec_m = wc_m & fs.won & ~fs.can_commit
         wait_lock_m = wc_m & ~fs.won
         wc_abort = torch.zeros_like(wc_m)
     else:
-        ps1, verdict, sel, _ = _try_ops_cohort(cfg, s.pstate, cur_item,
-                                               cur_w, read_m)
+        ps1, verdict, sel, reason = _try_ops_cohort(cfg, s.pstate, cur_item,
+                                                    cur_w, read_m)
+        degree = torch.zeros_like(reason)
         ps2, flush_m, wait_lock_m, wait_prec_m, wc_abort = \
             _wc_cohort(cfg, ps1, s.dirty, wc_m)
     deferred = read_m & ~sel
@@ -701,7 +801,85 @@ def _cohort_body(cfg: EngCfg, s: EngState, bounds) -> EngState:
     waiting = (ph == PH_BLOCKED) | (ph == PH_WC_LOCK) | (ph == PH_WC_PREC)
     nt = torch.where(any_leave & waiting, torch.minimum(nt, t0c), nt)
 
+    rel = s.rel
+    if cfg.delta:
+        rel = _delta_update(cfg, s, ps5, cur_item, cur_w, new_kinds,
+                            new_items, op_new)
+
     new_block = v_block & ~was_blocked
+
+    tm = s.tm
+    if cfg.telemetry:
+        f32 = torch.float32
+        # wait episodes: open on a block / wc-lock / wc-prec entry
+        # (wait_from = INF: none open), close, folding the span into
+        # wait_acc, in the quantum the slot is processed out of waiting
+        entering = (v_block | wait_lock_m | wait_prec_m) & \
+            (tm.wait_from > HALF_INF)
+        wfrom = torch.where(entering, te, tm.wait_from)
+        exiting = c.ready & (wfrom < HALF_INF) & ~waiting
+        wacc = torch.where(exiting, tm.wait_acc + (te - wfrom), tm.wait_acc)
+        wfrom = torch.where(exiting, INF, wfrom)
+
+        # commit folds: other slots go to a one-past-the-end bin, dropped
+        def fold(hist, idx, width):
+            add = torch.zeros((hist.shape[0], width + 1), dtype=i32,
+                              device=hist.device)
+            add.scatter_add_(1, idx.to(torch.int64),
+                             torch.ones_like(idx, dtype=i32))
+            return hist + add[:, :width]
+
+        def bins(v):
+            return torch.searchsorted(edges, v.contiguous(), right=True)
+
+        lat_hist = fold(tm.lat_hist, torch.where(
+            commit_now, bins(te - tm.first_start), M.NBINS), M.NBINS)
+        wait_hist = fold(tm.wait_hist, torch.where(
+            commit_now, bins(wacc), M.NBINS), M.NBINS)
+        restart_hist = fold(tm.restart_hist, torch.where(
+            commit_now, torch.clamp(tm.restarts, max=M.RBINS - 1),
+            M.RBINS), M.RBINS)
+        first_start = torch.where(commit_now, te, tm.first_start)
+        wacc = torch.where(commit_now, 0.0, wacc)
+        restarts = torch.where(commit_now, 0,
+                               tm.restarts + abort_now.to(i32))
+
+        # abort causes: a priority-masked partition, so each aborting
+        # slot is charged to exactly one cause
+        rest = abort_now
+        cause_counts = []
+        for cm in (to_expired & was_blocked, to_expired & ~was_blocked,
+                   v_abort, wc_abort, occ_fail):
+            cause_counts.append((rest & cm).sum(1, dtype=i32))
+            rest = rest & ~cm
+        abort_causes = tm.abort_causes + torch.stack(cause_counts, 1)
+        block_causes = tm.block_causes + torch.stack([
+            (new_block & (reason == P.R_LOCK)).sum(1, dtype=i32),
+            (new_block & (reason == P.R_RULE)).sum(1, dtype=i32),
+            (wait_lock_m & first_lock).sum(1, dtype=i32)], 1)
+
+        trace = tm.trace
+        if cfg.trace_every > 0:
+            # each lane writes its own ring row: frozen lanes count no
+            # iterations, so lanes sit at different positions
+            do = (s.iters % cfg.trace_every) == 0
+            pos = (s.iters // cfg.trace_every) % cfg.trace_len
+            row = torch.stack([
+                t0, c.ready.sum(1).to(f32), (ph == PH_BLOCKED).sum(1).to(f32),
+                waiting.sum(1).to(f32),
+                (s.commits + commit_now.sum(1, dtype=i32)).to(f32),
+                (s.aborts + abort_now.sum(1, dtype=i32)).to(f32),
+                sel.sum(1).to(f32),
+                torch.where(read_m, degree, 0).sum(1).to(f32)], 1)
+            at = pos.to(torch.int64)[:, None, None].expand(
+                -1, 1, row.shape[1])
+            old = trace.gather(1, at)
+            trace = trace.scatter(1, at, torch.where(
+                do[:, None, None], row[:, None, :], old))
+        tm = M.Telemetry(first_start, wfrom, wacc, restarts, lat_hist,
+                         wait_hist, restart_hist, abort_causes,
+                         block_causes, trace)
+
     return s._replace(
         now=t0, iters=s.iters + 1, key=key,
         pstate=ps5, dirty=dirty, kinds=new_kinds, items=new_items,
@@ -711,25 +889,31 @@ def _cohort_body(cfg: EngCfg, s: EngState, bounds) -> EngState:
         aborts=s.aborts + abort_now.sum(1, dtype=i32),
         blocks=s.blocks + new_block.sum(1, dtype=i32),
         ops_done=s.ops_done + proceed.sum(1, dtype=i32),
-        pool_next=pool_next)
+        pool_next=pool_next, rel=rel, tm=tm)
 
 
 def engine_parts(p: SimParams, protocol: str, max_iters: int = 400_000,
                  cohort_dt: float = None, n_slots: int = None,
                  pool: int = 0, order: str = "index",
-                 megakernel: bool = None, device=None):
+                 megakernel: bool = None, delta: bool = False,
+                 delta_k: int = 0, telemetry: bool = False,
+                 trace_every: int = 0, trace_len: int = 256, device=None):
     """``(init, cond, step)`` of a fleet engine for ``protocol``.
 
     ``init(seed, mpl, rt)`` takes per-lane ``[L]`` seeds, MPLs and
     runtime axes (``rt=None``: ``p``'s own values for every lane);
     ``cond(s)`` is the per-lane loop condition and ``step(s)`` one
     cohort body over all lanes.  ``megakernel=None`` runs the CUDA
-    kernels on the card and their plain versions on the CPU.  The
-    default ``device`` is the card; ``device="cpu"`` runs on the CPU."""
+    kernels on the card and their plain versions on the CPU.  ``delta``,
+    ``delta_k``, ``telemetry``, ``trace_every`` and ``trace_len`` are
+    the reference's options of the same names.  The default ``device``
+    is the card; ``device="cpu"`` runs on the CPU."""
     cfg = make_cfg(p, protocol, max_iters=max_iters, cohort_dt=cohort_dt,
                    n_slots=n_slots, pool=pool, order=order,
-                   megakernel=megakernel, device=device)
-    bounds = _draw_bounds(cfg)
+                   megakernel=megakernel, delta=delta, delta_k=delta_k,
+                   telemetry=telemetry, trace_every=trace_every,
+                   trace_len=trace_len, device=device)
+    consts = _body_consts(cfg)
 
     def init_fn(seed, mpl=None, rt: RtParams = None) -> EngState:
         seed = torch.as_tensor(seed).reshape(-1)
@@ -745,7 +929,7 @@ def engine_parts(p: SimParams, protocol: str, max_iters: int = 400_000,
         return cond(cfg, s)
 
     def step_fn(s: EngState) -> EngState:
-        return _cohort_body(cfg, s, bounds)
+        return _cohort_body(cfg, s, consts)
 
     init_fn.cfg = cond_fn.cfg = step_fn.cfg = cfg
     return init_fn, cond_fn, step_fn
@@ -761,8 +945,8 @@ _WORDS = {"key", "read_set", "write_set", "dirty"}   # uint32 in the reference
 def state_from_numpy(tree, device=None) -> EngState:
     """The port's ``EngState`` from a reference ``EngState`` whose leaves
     are numpy arrays (``jax.tree.map(np.asarray, s)``): a single lane
-    gains a lane axis of 1, ``uint32`` words are viewed as ``int32``,
-    and the reference's ``rel``/``tm`` leaves are dropped."""
+    gains a lane axis of 1 and ``uint32`` words are viewed as
+    ``int32``."""
     dev = resolve(device)
     single = np.ndim(tree.now) == 0
 
@@ -774,15 +958,15 @@ def state_from_numpy(tree, device=None) -> EngState:
             a = a[None]
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    nested = {"pstate": P.PPCCState, "rt": RtParams, "rel": P.Relations,
+              "tm": M.Telemetry}
     fields = {}
     for name in EngState._fields:
         val = getattr(tree, name)
-        if name == "pstate":
-            fields[name] = P.PPCCState(*(conv(f, getattr(val, f))
-                                         for f in P.PPCCState._fields))
-        elif name == "rt":
-            fields[name] = RtParams(*(conv(f, getattr(val, f))
-                                      for f in RtParams._fields))
+        if name in nested:
+            cls = nested[name]
+            fields[name] = cls(*(conv(f, getattr(val, f))
+                                 for f in cls._fields))
         else:
             fields[name] = conv(name, val)
     return EngState(**fields)
@@ -799,7 +983,7 @@ def state_to_numpy(s: EngState) -> EngState:
     fields = {}
     for name in EngState._fields:
         val = getattr(s, name)
-        if name in ("pstate", "rt"):
+        if name in ("pstate", "rt", "rel", "tm"):
             fields[name] = type(val)(*(conv(f, getattr(val, f))
                                        for f in val._fields))
         else:

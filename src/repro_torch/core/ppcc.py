@@ -209,6 +209,99 @@ def relations_inputs(rel: Relations, ready: torch.Tensor,
     return (rel.dep, rel.ww, rel.writers_at, rel.readers_at, deg, lockhit)
 
 
+# --------------------------------------------------------------------------
+# delta-maintained relations: the engine carries the four relations across
+# iterations and recomputes only the dirty rows (then mirrors the
+# symmetric dep/ww rows into their columns)
+# --------------------------------------------------------------------------
+
+def empty_relations(lanes: int, n: int = 0, device=None) -> Relations:
+    """``[L, n, n]`` all-False relations; ``n = 0`` when the delta path
+    is off (keeps the engine state's structure constant)."""
+    z = torch.zeros((lanes, n, n), dtype=torch.bool, device=device)
+    return Relations(z, z, z, z)
+
+
+def dirty_slots(old: PPCCState, new: PPCCState, old_item: torch.Tensor,
+                new_item: torch.Tensor, old_isw: torch.Tensor,
+                new_isw: torch.Tensor) -> torch.Tensor:
+    """bool[L, n]: slots whose relation rows may differ between the old
+    and new (state, op cursor) pairs — a bit of the slot's own words
+    changed, its pending (item, kind) changed, or the bit of its item is
+    in the union of all slots' word changes (a third slot joined or left
+    its party)."""
+    delta = (old.read_set ^ new.read_set) | (old.write_set ^ new.write_set)
+    rowchange = B.any_bit(delta)
+    cursor = (old_item != new_item) | (old_isw != new_isw)
+    union = B.or_reduce(delta, axis=1)                   # int32[L, W]
+    w, b = B.word_bit(new_item)
+    member = ((union.gather(1, w) >> b) & 1).bool()
+    return rowchange | cursor | member
+
+
+def dirty_slab(dirty: torch.Tensor, k: int):
+    """Gather each lane's dirty-row ids into a ``k``-slot slab: (slab
+    int32[L, k] — ids ascending, padded with n; valid bool[L, k]; count
+    int32[L] — the true dirty count, > k on overflow).  Built from cumsum
+    positions and a scatter, with no host read."""
+    lanes, n = dirty.shape
+    pos = torch.cumsum(dirty, 1, dtype=torch.int64) - 1
+    # ids past the slab, and clean slots, land in the dropped column k
+    at = torch.where(dirty & (pos < k), pos, k)
+    ids = torch.arange(n, dtype=torch.int32, device=dirty.device)
+    slab = torch.full((lanes, k + 1), n, dtype=torch.int32,
+                      device=dirty.device)
+    slab = slab.scatter(1, at, ids.expand(lanes, n))[:, :k]
+    return slab, slab < n, dirty.sum(1, dtype=torch.int32)
+
+
+def padded_relations(rel: Relations) -> torch.Tensor:
+    """The four relations in one ``bool[4, L, n+1, n+1]`` buffer (dep, ww,
+    writers_at, readers_at), with a padded row and column n that take
+    the writes of invalid slab entries (``scatter_padded_``)."""
+    lanes, n = rel.dep.shape[0], rel.dep.shape[1]
+    buf = torch.zeros((4, lanes, n + 1, n + 1), dtype=torch.bool,
+                      device=rel.dep.device)
+    for dst, src in zip(buf, rel):
+        dst[:, :n, :n] = src
+    return buf
+
+
+def unpadded_relations(buf: torch.Tensor) -> Relations:
+    """``Relations`` views of a ``padded_relations`` buffer."""
+    n = buf.shape[2] - 1
+    return Relations(*buf[:, :, :n, :n].unbind(0))
+
+
+def scatter_padded_(buf: torch.Tensor, rows: torch.Tensor,
+                    slab: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Write a row slab's ``bool[4, L, K, n]`` row blocks (dep, ww,
+    writers_at, readers_at) into a ``padded_relations`` buffer, in
+    place: rows for all four, then the mirrored columns of the symmetric
+    dep/ww, so a column write wins at ``[a, b]`` for two slab ids a and
+    b.  Invalid entries write row and column n, so no two writes race on
+    a live entry.  Returns ``buf``."""
+    _, lanes, k, n = rows.shape
+    tgt = torch.where(valid, slab, n).to(torch.int64)
+    buf.scatter_(2, tgt[None, :, :, None].expand(4, lanes, k, n), rows)
+    buf[:2].scatter_(3, tgt[None, :, None, :].expand(2, lanes, n, k),
+                     rows[:2].transpose(2, 3))
+    return buf
+
+
+def scatter_relations(rel: Relations, dep_rows: torch.Tensor,
+                      ww_rows: torch.Tensor, wat_rows: torch.Tensor,
+                      rat_rows: torch.Tensor, slab: torch.Tensor,
+                      valid: torch.Tensor) -> Relations:
+    """Write a row slab's ``[L, K, n]`` row blocks back into the carried
+    ``[L, n, n]`` relations: rows for all four, then the mirrored
+    columns of dep/ww (``scatter_padded_``).  Invalid entries are
+    dropped.  The results are views of one padded buffer."""
+    buf = padded_relations(rel)
+    rows = torch.stack((dep_rows, ww_rows, wat_rows, rat_rows))
+    return unpadded_relations(scatter_padded_(buf, rows, slab, valid))
+
+
 def cohort_step_fused(s: PPCCState, item: torch.Tensor,
                       is_write: torch.Tensor, ready: torch.Tensor,
                       wc_mask: torch.Tensor, *, order: str = "index",

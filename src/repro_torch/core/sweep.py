@@ -17,6 +17,7 @@ card.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +31,8 @@ from ..device import resolve
 
 PROTOCOLS = ("ppcc", "2pl", "occ")
 METRICS = ("commits", "aborts", "blocks", "ops_done", "iters")
+TELEMETRY = ("lat_hist", "wait_hist", "restart_hist", "abort_causes",
+             "block_causes", "trace")
 CHECK_EVERY = 32     # body iterations between host reads of "any lane on"
 
 
@@ -71,13 +74,20 @@ class Fleet:
     After a run, ``final[proto]`` holds the final ``EngState`` of every
     lane and ``body_iters[proto]`` counts the body iterations run on the
     protocol's batch since construction.
+
+    ``delta=True`` carries the PPCC relations and updates only the dirty
+    rows per iteration; ``telemetry=True`` adds each protocol's
+    per-lane ``telemetry`` block (``TELEMETRY``) to the results.  Both
+    leave every metric unchanged.
     """
 
     def __init__(self, p: SimParams, protocols: Sequence[str] = PROTOCOLS,
                  n_slots: Optional[int] = None, max_iters: int = 400_000,
                  cohort_dt: Optional[float] = None,
                  pool: Optional[int] = None, order: str = "index",
-                 megakernel: Optional[bool] = None, device=None):
+                 megakernel: Optional[bool] = None, delta: bool = False,
+                 delta_k: int = 0, telemetry: bool = False,
+                 trace_every: int = 0, trace_len: int = 256, device=None):
         if n_slots is None:
             n_slots = slot_bucket(p.mpl)
         if pool is None:
@@ -88,11 +98,15 @@ class Fleet:
         self.protocols = tuple(protocols)
         self.n_slots = n_slots
         self.device = resolve(device)
+        self.telemetry = telemetry
         self.parts = {
             proto: E.engine_parts(p, proto, max_iters=max_iters,
                                   cohort_dt=cohort_dt, n_slots=n_slots,
                                   pool=pool, order=order,
-                                  megakernel=megakernel, device=self.device)
+                                  megakernel=megakernel, delta=delta,
+                                  delta_k=delta_k, telemetry=telemetry,
+                                  trace_every=trace_every,
+                                  trace_len=trace_len, device=self.device)
             for proto in self.protocols}
         self.body_iters = {proto: 0 for proto in self.protocols}
         self.final: Dict[str, E.EngState] = {}
@@ -100,7 +114,8 @@ class Fleet:
     def run_lanes(self, seeds, mpls, rts: E.RtParams
                   ) -> Dict[str, Dict[str, np.ndarray]]:
         """Run flat lane vectors: ``{protocol: {metric: array[L]}}``
-        (``METRICS`` and ``now``)."""
+        (``METRICS``, ``now`` and, with telemetry, ``telemetry``: ``{leaf:
+        array[L, ...]}``)."""
         seeds = torch.as_tensor(seeds, dtype=torch.int32,
                                 device=self.device).reshape(-1)
         mpls = torch.as_tensor(mpls, dtype=torch.int32,
@@ -116,6 +131,9 @@ class Fleet:
             self.body_iters[proto] += iters
             res = {k: getattr(s, k).cpu().numpy() for k in METRICS}
             res["now"] = s.now.cpu().numpy()
+            if self.telemetry:
+                res["telemetry"] = {k: getattr(s.tm, k).cpu().numpy()
+                                    for k in TELEMETRY}
             out[proto] = res
         return out
 
@@ -125,21 +143,33 @@ class Fleet:
         m, s = mpls.shape[0], seeds.shape[0]
         rts = E.rt_of(self.params, m * s, self.device)
         flat = self.run_lanes(np.tile(seeds, m), np.repeat(mpls, s), rts)
-        return {proto: {k: v.reshape(m, s) for k, v in res.items()}
+        return {proto: _fold(res, lambda v: v.reshape((m, s) + v.shape[1:]))
                 for proto, res in flat.items()}
+
+
+def _fold(res, fn):
+    """Apply ``fn`` to every array of a result dict, telemetry block
+    included (its arrays keep their trailing axes)."""
+    return {k: _fold(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in res.items()}
 
 
 def run_fleet(fig: int, mpl_grid: Sequence[int], seeds: Sequence[int],
               horizon: float, protocols: Sequence[str] = PROTOCOLS,
               n_slots: Optional[int] = None, max_iters: int = 400_000,
-              device=None) -> Tuple[Dict[str, Dict[str, np.ndarray]], Fleet]:
+              delta: bool = False, delta_k: int = 0,
+              telemetry: bool = False, trace_every: int = 0,
+              trace_len: int = 256, device=None
+              ) -> Tuple[Dict[str, Dict[str, np.ndarray]], Fleet]:
     """One paper figure's (MPL × seed) grid: ``({protocol: {metric:
     np.ndarray[M, S]}}, fleet)``."""
     p = paper_figure_params(fig).with_(horizon=horizon)
     if n_slots is None:
         n_slots = slot_bucket(max(mpl_grid))
     fleet = Fleet(p, protocols=protocols, n_slots=n_slots,
-                  max_iters=max_iters, device=device)
+                  max_iters=max_iters, delta=delta, delta_k=delta_k,
+                  telemetry=telemetry, trace_every=trace_every,
+                  trace_len=trace_len, device=device)
     return fleet(list(mpl_grid), list(seeds)), fleet
 
 
@@ -159,21 +189,36 @@ def grid_lanes(figs: Sequence[int], mpl_grid: Sequence[int],
     return seed_l, mpl_l, rt_l
 
 
+def lanes_sha256(seeds, mpls, rt) -> str:
+    """sha256 of flat lane vectors (``grid_lanes``' output, tensors or
+    arrays): seeds, MPLs, then each ``RtParams`` leaf, as little-endian
+    bytes of their dtypes.  Two packages that build the same lanes give
+    the same digest."""
+    h = hashlib.sha256()
+    for a in (seeds, mpls, *rt):
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        h.update(np.ascontiguousarray(a, a.dtype.newbyteorder("<")).tobytes())
+    return h.hexdigest()
+
+
 def run_grid(figs: Sequence[int] = GRID_FIGS,
              mpl_grid: Sequence[int] = (5, 10, 25, 50, 75, 100, 150),
              seeds: Sequence[int] = (0, 1), horizon: float = 20_000.0,
              protocols: Sequence[str] = PROTOCOLS,
              n_slots: Optional[int] = None, max_iters: int = 400_000,
              fleet: Optional[Fleet] = None, megakernel: Optional[bool] = None,
-             device=None
+             delta: bool = False, delta_k: int = 0, telemetry: bool = False,
+             trace_every: int = 0, trace_len: int = 256, device=None
              ) -> Tuple[Dict[int, Dict[str, Dict[str, np.ndarray]]], Fleet]:
     """Every paper figure's grid in one lane batch per protocol.
 
     The fleet's static buckets cover all the figures
     (``grid_cover_params``: 500-item words, 20-op lists, 16/32 resource
     pools) and each figure's lanes carry its live values.  Returns
-    ``({fig: {protocol: {metric: np.ndarray[M, S]}}}, fleet)``.  Pass
-    ``fleet`` from an earlier call to reuse it.
+    ``({fig: {protocol: {metric: np.ndarray[M, S]}}}, fleet)``, with a
+    ``telemetry`` block of ``[M, S, ...]`` arrays per protocol when
+    ``telemetry`` is on.  Pass ``fleet`` from an earlier call to reuse
+    it.
     """
     figs = tuple(figs)
     if fleet is None:
@@ -182,11 +227,14 @@ def run_grid(figs: Sequence[int] = GRID_FIGS,
             n_slots = slot_bucket(max(mpl_grid))
         fleet = Fleet(cover, protocols=protocols, n_slots=n_slots,
                       max_iters=max_iters, megakernel=megakernel,
+                      delta=delta, delta_k=delta_k, telemetry=telemetry,
+                      trace_every=trace_every, trace_len=trace_len,
                       device=device)
     seed_l, mpl_l, rt_l = grid_lanes(figs, mpl_grid, seeds, fleet.device)
     flat = fleet.run_lanes(seed_l, mpl_l, rt_l)
     shape = (len(figs), len(mpl_grid), len(seeds))
-    out = {fig: {proto: {k: v.reshape(shape)[i] for k, v in res.items()}
+    out = {fig: {proto: _fold(res, lambda v, i=i:
+                              v.reshape(shape + v.shape[1:])[i])
                  for proto, res in flat.items()}
            for i, fig in enumerate(figs)}
     return out, fleet

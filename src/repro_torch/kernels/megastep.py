@@ -1,15 +1,20 @@
-"""Launch wrapper of the cohort-step megakernel (``csrc/megastep.cu``).
+"""Launch wrappers of the cohort-step megakernel (``csrc/megastep.cu``)
+and the row-slab kernel (``csrc/rowslab.cu``).
 
-The kernel replaces ``repro/kernels/megastep.py::_megastep_kernel``: one
-launch computes every pairwise relation of a fused PPCC cohort step for
-all lanes of a fleet, one CTA per lane, with the lane's packed words and
-op data resident in shared memory and the party matrix packed to bits
-there.  Its plain version is ``kernels.ref.megastep_ref``; the source
-file states the kernel's byte bound and design.
+``megastep`` replaces ``repro/kernels/megastep.py::_megastep_kernel``:
+one launch computes every pairwise relation of a fused PPCC cohort step
+for all lanes of a fleet, one CTA per lane, with the lane's packed words
+and op data resident in shared memory and the party matrix packed to
+bits there.  ``rowslab`` replaces ``_rowslab_kernel``: for K dirty slots
+of every lane it recomputes only their relation rows, against the
+carried op tables with the fresh slab rows substituted.  Their plain
+versions are ``kernels.ref.megastep_ref`` and ``kernels.ref.rowslab_ref``;
+each source file states its kernel's byte bound, design and
+shared-memory footprint.
 
-``megastep`` takes CUDA tensors only and raises on anything the kernel
-does not take; ``kernels.ops.megastep_relations`` is the dispatcher the
-engine calls.  ``launches`` counts launches, and nothing else.
+Both take CUDA tensors only and raise on anything their kernel does not
+take; ``kernels.ops`` holds the dispatchers the engine calls.
+``launches`` counts launches of each kernel, and nothing else.
 """
 from __future__ import annotations
 
@@ -20,9 +25,10 @@ import torch
 from . import build
 
 SMEM_MAX = 232_448           # bytes of shared memory one CTA may use (H100)
-launches = 0
+launches = {"megastep": 0, "rowslab": 0}
 
 _fn = None
+_slab_fn = None
 
 
 def _launcher():
@@ -48,7 +54,6 @@ def megastep(read_bits, write_bits, dirty_bits, item, is_write, active,
     ``bool[L, n]``, all contiguous on one CUDA device.  Outputs are
     allocated here with ``torch.empty`` and written whole by the kernel.
     """
-    global launches
     dev = read_bits.device
     if dev.type != "cuda":
         raise ValueError(f"megastep runs on CUDA tensors, got {dev}")
@@ -79,5 +84,72 @@ def megastep(read_bits, write_bits, dirty_bits, item, is_write, active,
             haslocks, *rel, deg, lockhit, dirty_hit)), lanes, n, w, stream)
         if rc:
             raise RuntimeError(f"megastep launch failed: cudaError {rc}")
-        launches += 1
+        launches["megastep"] += 1
     return (*rel, deg, lockhit, dirty_hit)
+
+
+def _slab_launcher():
+    global _slab_fn
+    if _slab_fn is None:
+        lib = build.load("rowslab")
+        fn = lib.rowslab_launch
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + \
+            [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.rowslab_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.rowslab_smem_bytes.restype = ctypes.c_longlong
+        _slab_fn = (fn, lib.rowslab_smem_bytes)
+    return _slab_fn
+
+
+def rowslab(read_bits, write_bits, writers_at, readers_at, item, is_write,
+            active, slab, valid):
+    """One launch → ``(dep_rows, ww_rows, wat_rows, rat_rows)``, each
+    ``bool[L, K, n]``, for every lane, bit-equal to ``ref.rowslab_ref``.
+
+    Words are ``int32[L, n, W]``, ``item`` ``int32[L, n]``, flags
+    ``bool[L, n]``, ``slab`` ``int32[L, K]`` and ``valid`` ``bool[L, K]``,
+    contiguous on one CUDA device; the carried tables ``bool[L, n, n]``
+    may be strided views (the engine's padded relation buffer) whose
+    rows are contiguous, both with the same strides.  Outputs are
+    allocated here and written whole by the kernel.
+    """
+    dev = read_bits.device
+    if dev.type != "cuda":
+        raise ValueError(f"rowslab runs on CUDA tensors, got {dev}")
+    lanes, n, w = read_bits.shape
+    k = slab.shape[-1]
+    for name, t in (("read_bits", read_bits), ("write_bits", write_bits)):
+        build.check_arg("rowslab", name, t, torch.int32, (lanes, n, w), dev)
+    for name, t in (("writers_at", writers_at), ("readers_at", readers_at)):
+        if t.device != dev or t.dtype != torch.bool or \
+                tuple(t.shape) != (lanes, n, n) or t.stride() != \
+                writers_at.stride() or (n > 1 and t.stride(2) != 1):
+            raise ValueError(
+                f"rowslab: {name} must be a torch.bool tensor of shape "
+                f"{(lanes, n, n)} on {dev} with contiguous rows and the "
+                f"strides of writers_at, got {t.dtype} {tuple(t.shape)} "
+                f"strides {t.stride()} on {t.device}")
+    build.check_arg("rowslab", "item", item, torch.int32, (lanes, n), dev)
+    for name, t in (("is_write", is_write), ("active", active)):
+        build.check_arg("rowslab", name, t, torch.bool, (lanes, n), dev)
+    build.check_arg("rowslab", "slab", slab, torch.int32, (lanes, k), dev)
+    build.check_arg("rowslab", "valid", valid, torch.bool, (lanes, k), dev)
+    fn, smem_bytes = _slab_launcher()
+    need = smem_bytes(n, w, k)
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"rowslab: n={n}, W={w}, K={k} needs {need} B of shared memory "
+            f"per CTA, more than {SMEM_MAX}")
+    rows = [torch.empty((lanes, k, n), dtype=torch.bool, device=dev)
+            for _ in range(4)]
+    if lanes and n and k:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(t.data_ptr() for t in (
+            read_bits, write_bits, writers_at, readers_at, item, is_write,
+            active, slab, valid, *rows)), lanes, n, w, k,
+            writers_at.stride(0), writers_at.stride(1), stream)
+        if rc:
+            raise RuntimeError(f"rowslab launch failed: cudaError {rc}")
+        launches["rowslab"] += 1
+    return tuple(rows)

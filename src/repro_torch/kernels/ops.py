@@ -1,8 +1,9 @@
 """Dispatchers the engine and the scheduler call for their kernels.
 
-A CUDA tensor goes to the hand-written kernel (``kernels.megastep``,
-``kernels.scan``, ``kernels.conflict``, ``kernels.admit``), a CPU tensor
-to the kernel's plain version (``kernels.ref``).  There is no fallback:
+A CUDA tensor goes to the hand-written kernel (``kernels.megastep`` for
+the megastep and row-slab kernels, ``kernels.scan``, ``kernels.conflict``,
+``kernels.admit``), a CPU tensor to the kernel's plain version
+(``kernels.ref``).  There is no fallback:
 a failed build or launch on the card raises.  ``launch_counts`` reads
 the wrappers' launch counters and ``reset_launches`` sets them to 0.
 """
@@ -32,6 +33,16 @@ def megastep_relations(read_bits, write_bits, dirty_bits, item, is_write,
         else ref.megastep_ref
     return fn(read_bits, write_bits, dirty_bits, item, is_write, active,
               ready, haslocks)
+
+
+def rowslab_relations(read_bits, write_bits, writers_at, readers_at, item,
+                      is_write, active, slab, valid):
+    """Row-slab kernel: ``(dep_rows, ww_rows, wat_rows, rat_rows)`` of
+    the K slab slots of every lane in one launch."""
+    fn = _megastep.rowslab if _route(read_bits, "rowslab_relations") \
+        else ref.rowslab_ref
+    return fn(read_bits, write_bits, writers_at, readers_at, item,
+              is_write, active, slab, valid)
 
 
 def reserve_cohort(cpu_free, disk_free, t_req, cpu_dur, io_dur, cpu_m,
@@ -96,12 +107,12 @@ def occ_admit(raw, ww, valid):
 
 def launch_counts() -> dict:
     """Kernel launches since the last ``reset_launches``."""
-    return {"megastep": _megastep.launches, **_scan.launches,
-            **_conflict.launches, **_admit.launches}
+    return {**_megastep.launches, **_scan.launches, **_conflict.launches,
+            **_admit.launches}
 
 
 def reset_launches() -> None:
-    _megastep.launches = 0
-    for counts in (_scan.launches, _conflict.launches, _admit.launches):
+    for counts in (_megastep.launches, _scan.launches, _conflict.launches,
+                   _admit.launches):
         for k in counts:
             counts[k] = 0

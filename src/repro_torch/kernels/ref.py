@@ -12,6 +12,14 @@ import torch
 INF = 1.0000000150474662e30        # float32(1e30), the engine's idle time
 
 
+def _item_table(bits: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """bool[L, m, n]: ``[l, i, k]`` = bit ``items[l, i]`` of row k."""
+    lanes, n = bits.shape[0], bits.shape[1]
+    cols = torch.gather(bits.transpose(1, 2), 1,
+                        (items >> 5)[:, :, None].expand(lanes, -1, n))
+    return ((cols >> (items & 31)[:, :, None]) & 1).bool()
+
+
 def megastep_ref(read_bits: torch.Tensor, write_bits: torch.Tensor,
                  dirty_bits: torch.Tensor, item: torch.Tensor,
                  is_write: torch.Tensor, active: torch.Tensor,
@@ -26,16 +34,8 @@ def megastep_ref(read_bits: torch.Tensor, write_bits: torch.Tensor,
     ``repro.kernels.ref.megastep_ref`` with a lane axis."""
     n = read_bits.shape[1]
     eye = torch.eye(n, dtype=torch.bool, device=read_bits.device)
-    w_idx, b_idx = item >> 5, item & 31
-    gather_idx = w_idx[:, :, None].expand(read_bits.shape[0], n, n)
-
-    def table(bits):
-        # [l, i, k] = bit item_i of row k
-        cols = torch.gather(bits.transpose(1, 2), 1, gather_idx)
-        return ((cols >> b_idx[:, :, None]) & 1).bool()
-
-    writers_at = table(write_bits)
-    readers_at = table(read_bits)
+    writers_at = _item_table(write_bits, item)
+    readers_at = _item_table(read_bits, item)
     others = torch.where(is_write[:, :, None], readers_at, writers_at)
     party = (others & active[:, None, :] & ~eye) | eye
     dep = (party[:, :, None, :] & party[:, None, :, :]).any(-1)
@@ -48,6 +48,54 @@ def megastep_ref(read_bits: torch.Tensor, write_bits: torch.Tensor,
     lockhit = (ww & haslocks[:, None, :]).any(2)
     dirty_hit = ((read_bits & dirty_bits) != 0).any(-1)
     return dep, ww, writers_at, readers_at, deg, lockhit, dirty_hit
+
+
+def rowslab_ref(read_bits: torch.Tensor, write_bits: torch.Tensor,
+                writers_at: torch.Tensor, readers_at: torch.Tensor,
+                item: torch.Tensor, is_write: torch.Tensor,
+                active: torch.Tensor, slab: torch.Tensor,
+                valid: torch.Tensor):
+    """The dirty-row slab of every lane: ``(dep_rows, ww_rows, wat_rows,
+    rat_rows)``, each ``bool[L, K, n]``, the rows of a full recompute of
+    the relations for the K slot ids ``slab[l]`` (``int32[L, K]``;
+    entries where ``valid`` is False may be any id and give zero rows).
+
+    ``writers_at``/``readers_at`` are the carried ``bool[L, n, n]`` op
+    tables; the fresh rows of the slab slots are substituted in before
+    the party rows are formed, so the dep rows are a full recompute's
+    whenever every other row of the carried tables is current.  Words
+    are ``int32[L, n, W]``, ``item`` ``int32[L, n]``, flags ``bool[L,
+    n]`` — ``repro.kernels.ref.rowslab_ref`` with a lane axis."""
+    lanes, n = read_bits.shape[0], read_bits.shape[1]
+    dev = read_bits.device
+    sl = slab.clamp(0, n - 1).to(torch.int64)
+    s_item = item.gather(1, sl)                              # [L, K]
+    wat_rows = _item_table(write_bits, s_item)               # [L, K, n]
+    rat_rows = _item_table(read_bits, s_item)
+    # substitute the fresh rows; invalid entries write the dropped row n
+    tgt = torch.where(valid, sl, n)[:, :, None].expand(-1, -1, n)
+
+    def substitute(table, rows):
+        padded = torch.nn.functional.pad(table, (0, 0, 0, 1))
+        return padded.scatter(1, tgt, rows)[:, :n]
+
+    wat2 = substitute(writers_at, wat_rows)
+    rat2 = substitute(readers_at, rat_rows)
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    others = torch.where(is_write[:, :, None], rat2, wat2)
+    party = (others & active[:, None, :] & ~eye) | eye       # [L, n, n]
+    party_s = party.gather(1, sl[:, :, None].expand(-1, -1, n))
+    dep_rows = (party_s[:, :, None, :] & party[:, None, :, :]).any(-1)
+    same_item = s_item[:, :, None] == item[:, None, :]
+    either_w = is_write.gather(1, sl)[:, :, None] | is_write[:, None, :]
+    eye_s = sl[:, :, None] == torch.arange(n, device=dev)[None, None, :]
+    dep_rows = (dep_rows | (same_item & either_w)) & ~eye_s
+    ws = write_bits.gather(1, sl[:, :, None].expand(-1, -1,
+                                                    write_bits.shape[2]))
+    ww_rows = ((ws[:, :, None, :] & write_bits[:, None, :, :]) != 0
+               ).any(-1) & ~eye_s
+    v = valid[:, :, None]
+    return dep_rows & v, ww_rows & v, wat_rows & v, rat_rows & v
 
 
 def reserve_cohort_ref(cpu_free: torch.Tensor, disk_free: torch.Tensor,

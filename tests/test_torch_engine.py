@@ -12,7 +12,9 @@
 Run ``python tests/test_torch_engine.py --write-golden`` to regenerate
 ``src/repro_torch/golden/run_grid_h20000.json``: the JAX reference's
 default ``run_grid()`` on the CPU, the per-lane metrics that
-``chip_smoke.py`` holds the port's run on the card to.
+``chip_smoke.py`` holds the port's runs on the card to; ``--write-golden
+--horizon 5000`` writes ``run_grid_h5000.json``, the same grid at the
+horizon of ``chip_smoke.py``'s phase 3.
 """
 import json
 import sys
@@ -35,13 +37,21 @@ from repro_torch.core import ppcc as TP  # noqa: E402
 from repro_torch.core import sweep as TS  # noqa: E402
 from repro_torch.core import types as TT  # noqa: E402
 
+GOLDEN_DIR = Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
+    / "golden"
 GOLDEN = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
           / "golden" / "run_grid_h20000.json")
 
 
-def write_golden(path: Path = GOLDEN) -> None:
-    """Run the reference ``run_grid()`` with its defaults and write the
-    per-lane metrics, figure-major (lane ``f*M*S + m*S + s``)."""
+def golden_path(horizon: float) -> Path:
+    """The golden of ``run_grid()`` at ``horizon``, its other defaults."""
+    return GOLDEN_DIR / f"run_grid_h{int(horizon)}.json"
+
+
+def write_golden(horizon: float = None) -> Path:
+    """Run the reference ``run_grid()`` with its defaults (``horizon``
+    replaced when given) and write the per-lane metrics, figure-major
+    (lane ``f*M*S + m*S + s``).  Returns the file written."""
     import inspect
 
     import jax
@@ -53,8 +63,12 @@ def write_golden(path: Path = GOLDEN) -> None:
                 inspect.signature(sweep.run_grid).parameters.items()
                 if k in ("figs", "mpl_grid", "seeds", "horizon",
                          "protocols")}
+    command = "python tests/test_torch_engine.py --write-golden"
+    if horizon is not None:
+        defaults["horizon"] = float(horizon)
+        command += f" --horizon {int(horizon)}"
     t0 = time.perf_counter()
-    out, _ = sweep.run_grid()
+    out, _ = sweep.run_grid(horizon=defaults["horizon"])
     seconds = time.perf_counter() - t0
     figs = list(defaults["figs"])
     lanes = {}
@@ -66,9 +80,10 @@ def write_golden(path: Path = GOLDEN) -> None:
             lanes[proto][metric] = [v.item() for v in flat]
     doc = {
         "what": "per-lane metrics of the JAX reference repro.core.sweep."
-                "run_grid() with its defaults, lanes figure-major "
-                "(lane f*M*S + m*S + s)",
-        "command": "python tests/test_torch_engine.py --write-golden",
+                "run_grid() with its defaults"
+                + ("" if horizon is None else " but the horizon")
+                + ", lanes figure-major (lane f*M*S + m*S + s)",
+        "command": command,
         "jax": jax.__version__,
         "backend": jax.default_backend(),
         "cpu_seconds": round(seconds, 1),
@@ -79,8 +94,10 @@ def write_golden(path: Path = GOLDEN) -> None:
         "protocols": list(defaults["protocols"]),
         "lanes": lanes,
     }
+    path = golden_path(defaults["horizon"])
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(doc, indent=1) + "\n")
+    return path
 
 
 # --------------------------------------------------------------------------
@@ -93,7 +110,7 @@ def _assert_state(port: E.EngState, ref, lanes=None, tag=""):
     got = E.state_to_numpy(port)
     for name in E.EngState._fields:
         g, w = getattr(got, name), getattr(ref, name)
-        pairs = (zip(g._fields, g, w) if name in ("pstate", "rt")
+        pairs = (zip(g._fields, g, w) if isinstance(g, tuple)
                  else [(name, g, w)])
         for leaf, a, b in pairs:
             a = np.atleast_1d(a if lanes is None else a[lanes])
@@ -219,6 +236,27 @@ def test_run_grid_matches_reference():
     assert fleet.n_slots == 64
 
 
+@pytest.mark.parametrize("horizon", [None, 5000.0])
+def test_golden_describes_run_grid(horizon):
+    """The committed grid goldens hold ``run_grid()`` at its defaults
+    (``horizon`` replaced): 168 lanes per protocol, each metric."""
+    import inspect
+    defaults = {k: v.default for k, v in
+                inspect.signature(TS.run_grid).parameters.items()}
+    path = golden_path(defaults["horizon"] if horizon is None else horizon)
+    doc = json.loads(path.read_text())
+    for k in ("figs", "mpl_grid", "seeds", "protocols"):
+        assert doc[k] == list(defaults[k]), k
+    assert doc["horizon"] == (horizon or defaults["horizon"])
+    n_lanes = len(doc["figs"]) * len(doc["mpl_grid"]) * len(doc["seeds"])
+    for proto in doc["protocols"]:
+        lanes = doc["lanes"][proto]
+        assert sorted(lanes) == sorted(TS.METRICS + ("now",))
+        assert all(len(v) == n_lanes for v in lanes.values())
+        assert sum(lanes["commits"]) > 0
+        assert max(lanes["now"]) > doc["horizon"]
+
+
 def test_entry_points_want_the_card_unless_asked():
     """With no CUDA device, the default device raises instead of
     falling back to the CPU."""
@@ -229,9 +267,10 @@ def test_entry_points_want_the_card_unless_asked():
 
 
 if __name__ == "__main__":
-    if "--write-golden" in sys.argv[1:]:
-        sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-        write_golden()
-        print(f"wrote {GOLDEN}")
+    args = sys.argv[1:]
+    if args[:1] == ["--write-golden"] and len(args) in (1, 3) and \
+            (len(args) == 1 or args[1] == "--horizon"):
+        print(f"wrote {write_golden(float(args[2]) if args[2:] else None)}")
     else:
-        sys.exit("usage: python tests/test_torch_engine.py --write-golden")
+        sys.exit("usage: python tests/test_torch_engine.py --write-golden "
+                 "[--horizon H]")

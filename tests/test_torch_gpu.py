@@ -130,20 +130,25 @@ def test_kernel_path_equals_plain_path(cuda, proto):
     a, b = finals
     for name in E.EngState._fields:
         x, y = getattr(a, name), getattr(b, name)
-        pairs = zip(x, y) if name in ("pstate", "rt") else [(x, y)]
+        pairs = zip(x, y) if isinstance(x, tuple) else [(x, y)]
         for u, v in pairs:
             np.testing.assert_array_equal(u, v, err_msg=name)
 
 
+DELTA_TM = dict(delta=True, telemetry=True, trace_every=2, trace_len=8)
+
+
+@pytest.mark.parametrize("opts", [{}, DELTA_TM], ids=["plain", "delta_tm"])
 @pytest.mark.parametrize("proto", TS.PROTOCOLS)
-def test_body_never_waits_for_the_device(cuda, proto):
+def test_body_never_waits_for_the_device(cuda, proto, opts):
     """A batch iteration queues its work without a host-device sync
     (no ``.item()``, no blocking host-to-device copy), so host and card
-    overlap; only ``run_while``'s check every 32 iterations waits."""
+    overlap; only ``run_while``'s check every 32 iterations waits.  The
+    same holds with delta-maintained relations and telemetry on."""
     p = TT.grid_cover_params((6, 13)).with_(horizon=2000.0)
     seeds, mpls, rt = TS.grid_lanes((6, 13), (5, 50), (0, 1), cuda)
     init, cond, step = E.engine_parts(p, proto, n_slots=64, pool=512,
-                                      device=cuda)
+                                      **opts, device=cuda)
     s = init(seeds, mpls, rt)
     s = TS._select(cond(s), step(s), s)        # kernels built and loaded
     torch.cuda.synchronize()
@@ -154,6 +159,100 @@ def test_body_never_waits_for_the_device(cuda, proto):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("proto", TS.PROTOCOLS)
+def test_delta_telemetry_kernel_path_equals_plain_path(cuda, proto):
+    """With delta (PPCC) and telemetry on, 60 batch iterations through the
+    kernels leave every leaf, ``rel`` and ``tm`` included, equal to the
+    plain versions' run; the megastep runs once (the init's seeding) and
+    the row-slab kernel ceil(n/K) times per PPCC iteration."""
+    p = TT.grid_cover_params((6, 13)).with_(horizon=2000.0)
+    seeds, mpls, rt = TS.grid_lanes((6, 13), (5, 50), (0, 1), cuda)
+    finals = []
+    for mk in (True, False):
+        ops.reset_launches()
+        init, cond, step = E.engine_parts(p, proto, n_slots=64, pool=512,
+                                          megakernel=mk, **DELTA_TM,
+                                          device=cuda)
+        s = init(seeds, mpls, rt)
+        for _ in range(60):
+            s = TS._select(cond(s), step(s), s)
+        counts = ops.launch_counts()
+        if mk:
+            ppcc = proto == "ppcc"
+            assert counts["megastep"] == (1 if ppcc else 0)
+            assert counts["rowslab"] == (60 * 64 // 16 if ppcc else 0)
+            assert step.cfg.delta_k == 16 or not ppcc
+        else:
+            assert sum(counts.values()) == 0
+        finals.append(E.state_to_numpy(s))
+    a, b = finals
+    assert a.tm.lat_hist.sum() > 0
+    for name in E.EngState._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        pairs = zip(x, y) if isinstance(x, tuple) else [(x, y)]
+        for u, v in pairs:
+            np.testing.assert_array_equal(u, v, err_msg=name)
+
+
+def _rowslab_args(gen, lanes, n, d, k, dev):
+    """Random row-slab inputs: lane 0 a random valid slab, lane 1 an
+    all-invalid one, lane 2 the top min(k, n) ids; junk ids in [0, n]
+    fill the invalid entries."""
+    words = [TB.pack(_rand(gen, (lanes, n, d), p, "cpu")).to(dev)
+             for p in (0.03, 0.02)]
+    tables = [_rand(gen, (lanes, n, n), 0.1, dev) for _ in range(2)]
+    item = torch.randint(0, d, (lanes, n), generator=gen,
+                         dtype=torch.int32).to(dev)
+    flags = [_rand(gen, (lanes, n), q, dev) for q in (0.4, 0.8)]
+    m = min(k, n)
+    slab = torch.randint(0, n + 1, (lanes, k), generator=gen,
+                         dtype=torch.int32)
+    valid = torch.zeros((lanes, k), dtype=torch.bool)
+    slab[0, :m] = torch.randperm(n, generator=gen)[:m].sort().values
+    slab[2, :m] = torch.arange(n - m, n, dtype=torch.int32)
+    valid[0, :m] = valid[2, :m] = True
+    return (*words, *tables, item, *flags, slab.to(dev), valid.to(dev))
+
+
+@pytest.mark.parametrize("n,d", [(1, 30), (14, 100), (33, 100), (160, 500),
+                                 (300, 1000)])
+@pytest.mark.parametrize("k", [1, 4, 40, None])
+def test_rowslab_kernel_matches_plain(cuda, n, d, k):
+    from repro_torch.kernels import megastep as kmega
+    k = n if k is None else k
+    gen = torch.Generator().manual_seed(n * 13 + k)
+    args = _rowslab_args(gen, 3, n, d, k, cuda)
+    got = kmega.rowslab(*args)
+    want = ref.rowslab_ref(*args)
+    # the carried tables as row-strided views of padded buffers, as the
+    # engine's drain passes them
+    views = [torch.nn.functional.pad(t, (0, 1, 0, 1))[:, :n, :n]
+             for t in args[2:4]]
+    strided = kmega.rowslab(*args[:2], *views, *args[4:])
+    torch.cuda.synchronize()
+    for g, w, v, name in zip(got, want, strided, ("dep", "ww", "wat", "rat")):
+        assert g.shape == (3, k, n) and torch.equal(g, w), name
+        assert torch.equal(v, w), name
+        assert not g[1].any(), name                 # all-invalid slab
+
+
+def test_rowslab_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import megastep as kmega
+    gen = torch.Generator().manual_seed(5)
+    args = list(_rowslab_args(gen, 3, 16, 64, 4, cuda))
+    bad = list(args)
+    bad[7] = args[7].to(torch.int64)                 # slab dtype
+    with pytest.raises(ValueError):
+        kmega.rowslab(*bad)
+    bad = list(args)
+    bad[2] = args[2].cpu()                           # a CPU table
+    with pytest.raises(ValueError):
+        kmega.rowslab(*bad)
+    big = _rowslab_args(gen, 3, 1024, 4096, 8, cuda)   # shared memory
+    with pytest.raises(ValueError):
+        kmega.rowslab(*big)
 
 
 # ---- the batch scheduler's kernels (csrc/conflict.cu, csrc/admit.cu) ----
