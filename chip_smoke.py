@@ -16,7 +16,7 @@ Phases (any failure exits non-zero):
   3. the main path: repro_torch.core.sweep.run_grid() with its defaults but
      the horizon — Figs. 5-16 x 7 MPLs x 2 seeds = 168 lanes per protocol,
      n = 160 slots, 500 items, PPCC / 2PL / OCC, to horizon 5,000 (phase 6
-     runs the same grid to the default 20,000) — with every lane's metrics
+     runs the same grid to 10,000) — with every lane's metrics
      equal to the JAX reference's committed golden
      src/repro_torch/golden/run_grid_h5000.json, the megastep launch count
      equal to the PPCC body iterations, and the Theorem-1 invariants on the
@@ -46,10 +46,10 @@ Phases (any failure exits non-zero):
      kernel's 32-bit-logic formulation;
   6. the delta-maintained, instrumented fleet: run_grid(delta=True,
      telemetry=True, trace_every=8, trace_len=256) at run_grid's defaults
-     (horizon 20,000), with every lane's metrics equal to the JAX
-     reference's golden src/repro_torch/golden/run_grid_h20000.json, every
+     but the horizon (10,000), with every lane's metrics equal to the JAX
+     reference's golden src/repro_torch/golden/run_grid_h10000.json, every
      lane's telemetry (histograms, cause counts, ring buffer) equal to the
-     JAX reference's src/repro_torch/golden/telemetry_h20000.json, the
+     JAX reference's src/repro_torch/golden/telemetry_h10000.json, the
      megastep launched once (the init's seeding of the relations) and the
      row-slab kernel ceil(n/K) times per PPCC body iteration, the Theorem-1
      invariants on the final PPCC states, and every lane's carried
@@ -72,10 +72,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = SRC / "repro_torch" / "golden" / "run_grid_h20000.json"
-# phase 3's grid, cut in depth to horizon 5,000 so that the script with
-# phase 6's full-depth grid stays well inside its time limit
+# phases 3 and 6 run run_grid's default grid cut in depth, to horizon
+# 5,000 and 10,000, so that the script stays well inside its time limit
 PHASE3_GOLDEN = SRC / "repro_torch" / "golden" / "run_grid_h5000.json"
-TM_GOLDEN = SRC / "repro_torch" / "golden" / "telemetry_h20000.json"
+PHASE6_GOLDEN = SRC / "repro_torch" / "golden" / "run_grid_h10000.json"
+TM_GOLDEN = SRC / "repro_torch" / "golden" / "telemetry_h10000.json"
 SCHED_GOLDEN = SRC / "repro_torch" / "golden" / "sched_n4096_w1024.json"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 INT8_OPS_PER_S = 1.979e15        # H100 SXM dense int8 tensor cores (data sheet)
@@ -89,6 +90,21 @@ SLAB_EDGE_N = {1: 30, 14: 100, 33: 100, 160: 500, 300: 1000}   # n: items
 SLAB_EDGE_K = (1, 4, 40)         # and K = n
 CAPTURE_ITERS = 200              # body iterations before capturing inputs
 TM_RUN = dict(delta=True, telemetry=True, trace_every=8, trace_len=256)
+LM_GOLDEN = SRC / "repro_torch" / "golden" / "lm_full_width.json"
+LM_ARCHES = ("qwen3_0p6b", "rwkv6_3b")
+LM_KERNEL = {"dense": "flash_attention", "rwkv": "wkv_chunked"}
+PREFILL_B, PREFILL_S = 8, 1024
+DECODE_CHECK = {"qwen3_0p6b": 64, "rwkv6_3b": 128}   # prompt tokens decoded
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+# (b, Hq, Hkv, Sq, Sk, D, dtype, causal, window)
+FLASH_EDGES = [(2, 8, 8, 128, 128, 64, "bfloat16", True, 0),
+               (1, 8, 4, 100, 100, 16, "float32", True, 0),
+               (1, 8, 1, 128, 256, 128, "bfloat16", False, 0),
+               (1, 4, 2, 200, 130, 64, "float32", True, 32),
+               (2, 16, 16, 333, 333, 128, "bfloat16", False, 32),
+               (1, 8, 8, 64, 64, 128, "float32", True, 0)]
+WKV_EDGE_CHUNKS = (16, 64, 128)  # H = 48, D = 64, S = chunk and 8 chunk
 
 
 def fail(msg: str) -> None:
@@ -568,6 +584,382 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
     return table
 
 
+def lm_phase(torch, dev, smi, cuda_ms):
+    """Phase 7: LM serving at full width.  Returns (the kernel-table rows
+    of flash_attention and wkv_chunked, a function that takes the
+    device's busy share of a decode and a prefill step, to run after
+    every wall of the script)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv as kwkv
+    from repro_torch.launch import golden as G
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch import steps
+    from repro_torch.models import LM, convert
+
+    gold = json.loads(LM_GOLDEN.read_text())
+    tol = gold["tolerance"]
+    if gold["run"] != {"seed": G.SEED, "batch": G.B, "prompt": G.S,
+                       "steps": G.STEPS, "ids": G.N_IDS,
+                       "layers": G.LAYERS}:
+        fail(f"{LM_GOLDEN.name} was written for another run: {gold['run']}")
+    t7 = time.perf_counter()
+
+    # ---- (b) full width, 2 layers, float32, against the JAX golden
+    for arch in LM_ARCHES:
+        cfg = G.golden_config(arch)
+        rec = gold["models"][arch]
+        prompt, cont, ids = G.inputs(cfg)
+        if ids.tolist() != rec["ids"] or hashlib.sha256(
+                prompt.tobytes() + cont.tobytes()).hexdigest() != \
+                rec["prompt_sha256"]:
+            fail(f"[7] {arch}: the golden's tokens differ from this "
+                 f"machine's draw")
+        tree = convert.random_jax_tree(cfg, G.SEED)
+        if convert.tree_sha256(tree) != rec["weights_sha256"]:
+            fail(f"[7] {arch}: the seeded weights differ from the golden's "
+                 f"(the numpy generator differs here)")
+        lm = LM(cfg, device=dev)
+        lm.load_state_dict(convert.params_from_jax(cfg, tree))
+        del tree
+        ops.reset_launches()
+        got = G.port_run(lm, prompt, cont, ids)
+        torch.cuda.synchronize()
+        kernel = LM_KERNEL[cfg.family]
+        launched = ops.launch_counts()[kernel]
+        if launched != cfg.n_layers:
+            fail(f"[7] {arch} golden run: {kernel} launched {launched} "
+                 f"times, not once per layer of the prefill")
+        worst = 0.0
+        for key, val in got.items():
+            want = np.asarray(rec[key])
+            err = np.abs(val - want)
+            bad = err > tol["atol"] + tol["rtol"] * np.abs(want)
+            if bad.any():
+                fail(f"[7] {arch} {key}: max abs err {err.max():.3g} beyond "
+                     f"the golden's atol {tol['atol']}, rtol {tol['rtol']} "
+                     f"at {int(bad.sum())} entries")
+            worst = max(worst, float(err.max()))
+        log(f"[7] {arch} at full width ({cfg.d_model} wide, vocab "
+            f"{cfg.vocab}), {cfg.n_layers} layers, float32, seeded weights "
+            f"(sha256 equal): prefill of {G.B} x {G.S} and {G.STEPS} decode "
+            f"steps equal {LM_GOLDEN.name} at {G.N_IDS} ids and every "
+            f"logsumexp, max abs err {worst:.3g} (atol {tol['atol']}, rtol "
+            f"{tol['rtol']}; CPU port {tol['cpu_max_abs_err'][arch]:.3g})")
+        del lm, got
+
+    # ---- (c) full depth, bf16: the main path, counted
+    lms, toks = {}, {}
+    for arch in LM_ARCHES:
+        cfg = configs.get(arch)
+        gen = torch.Generator(dev).manual_seed(0)
+        lms[arch] = LM(cfg, device=dev).init(gen)
+        toks[arch] = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                                   generator=gen, device=dev)
+        n_par = sum(p.numel() for p in lms[arch].parameters())
+        log(f"[7] {arch}: {cfg.n_layers} layers, d={cfg.d_model}, "
+            f"{n_par / 1e9:.3f} G parameters in bf16 from a torch.Generator "
+            f"on the card")
+    captured = {}
+    real = {"flash_attention": kflash.flash_attention,
+            "wkv_chunked": kwkv.wkv_chunked}
+
+    def spy(mod, name):
+        def call(*args, **kw):
+            if name not in captured:
+                captured[name] = ([a.clone() for a in args], dict(kw))
+            return real[name](*args, **kw)
+        setattr(mod, name, call)
+
+    spy(kflash, "flash_attention")
+    spy(kwkv, "wkv_chunked")
+    main_out = {}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    try:
+        for arch in LM_ARCHES:
+            logits = steps.make_prefill_step(lms[arch])({"tokens": toks[arch]})
+            main_out[arch, "prefill"] = logits
+            for policy in ("ppcc", "2pl", "occ"):
+                main_out[arch, policy] = srv.serve(lms[arch], policy=policy)
+        torch.cuda.synchronize()
+    finally:
+        kflash.flash_attention = real["flash_attention"]
+        kwkv.wkv_chunked = real["wkv_chunked"]
+    lm_counts = ops.launch_counts()
+    want = {"flash_attention": configs.get("qwen3_0p6b").n_layers,
+            "wkv_chunked": configs.get("rwkv6_3b").n_layers}
+    got = {k: lm_counts[k] for k in want}
+    if got != want:
+        fail(f"[7] launches on the LM main path {got}, expected one per "
+             f"layer of each prefill {want}")
+    sched = {k: v for k, v in lm_counts.items() if v and k not in want}
+    if not sched.get("conflict_fused") or not sched.get("ppcc_admit"):
+        fail(f"[7] serve() launched no admission kernels: {sched}")
+    log(f"[7] main path (one prefill of {PREFILL_B} x {PREFILL_S} per model, "
+        f"serve() under ppcc, 2pl, occ per model): launches {got}, one per "
+        f"layer; admission kernels {sched}")
+    for arch in LM_ARCHES:
+        lg = main_out[arch, "prefill"]
+        if lg.shape != (PREFILL_B, configs.get(arch).vocab) or \
+                not bool(torch.isfinite(lg.float()).all()):
+            fail(f"[7] {arch} prefill logits {tuple(lg.shape)} not finite "
+                 f"or of the wrong shape")
+        for policy in ("ppcc", "2pl", "occ"):
+            out = main_out[arch, policy]
+            ref_s = gold["serve"]["policies"][policy]
+            if (out["ticks"], out["tokens"]) != (ref_s["ticks"],
+                                                 ref_s["tokens"]):
+                fail(f"[7] {arch} serve({policy}): ticks {out['ticks']}, "
+                     f"tokens {out['tokens']}; the reference's "
+                     f"{ref_s['ticks']}, {ref_s['tokens']}")
+        log(f"[7] {arch} serve() ticks and tokens equal the reference's "
+            f"under every policy: " + ", ".join(
+                f"{p} {main_out[arch, p]['ticks']}/"
+                f"{main_out[arch, p]['tokens']} in "
+                f"{main_out[arch, p]['wall']:.3f} s"
+                for p in ("ppcc", "2pl", "occ")))
+
+    # ---- walls: prefill, decode against prefill, serve
+    walls, drift = {}, {}
+
+    def decode_prompt(lm, prompt):
+        """(last logits of decoding ``prompt`` token by token, seconds per
+        step after the first)."""
+        caches = lm.init_caches(prompt.shape[0], prompt.shape[1])
+        with torch.inference_mode():
+            lg, caches = lm.decode_step(caches, prompt[:, :1], 0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i in range(1, prompt.shape[1]):
+                lg, caches = lm.decode_step(caches, prompt[:, i:i + 1], i)
+            torch.cuda.synchronize()
+        return lg.float(), (time.perf_counter() - t) / (prompt.shape[1] - 1)
+
+    def against_prefill(lm, prompt):
+        """(max |decode - prefill| of the last logits, the prefill's
+        largest magnitude, at least 1)."""
+        want_l = steps.make_prefill_step(lm)({"tokens": prompt}).float()
+        got_l, sec = decode_prompt(lm, prompt)
+        return (float((got_l - want_l).abs().max()),
+                max(1.0, float(want_l.abs().max())), sec)
+
+    for arch, lm in lms.items():
+        prefill = steps.make_prefill_step(lm)
+        reps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prefill({"tokens": toks[arch]})
+            torch.cuda.synchronize()
+            reps.append(time.perf_counter() - t)
+        walls[arch, "prefill"] = statistics.median(reps)
+        n = DECODE_CHECK[arch]
+        err, scale, walls[arch, "decode"] = against_prefill(
+            lm, toks[arch][:, :n])
+        drift[arch, "bf16"] = (err, scale)
+        out = srv.serve(lm, policy="ppcc")
+        walls[arch, "serve"] = out["wall"]
+        log(f"[7] {arch}: prefill {PREFILL_B} x {PREFILL_S} in "
+            f"{walls[arch, 'prefill'] * 1e3:.2f} ms "
+            f"({PREFILL_B * PREFILL_S / walls[arch, 'prefill']:.0f} tokens/s); "
+            f"decode {walls[arch, 'decode'] * 1e3:.3f} ms per step at batch "
+            f"{PREFILL_B}; serve(ppcc) {out['tokens']} tokens in "
+            f"{out['wall']:.3f} s ({out['tokens'] / out['wall']:.1f} "
+            f"tokens/s) [{smi}]")
+    # decode against prefill: the check in float32 (a float32 KV cache,
+    # the bf16 weights widened), where it ties the kernels to the
+    # recurrent decode; in bf16 the reference's own decode drifts from its
+    # prefill beyond 3e-2 with depth (PERF.md, PR 14), so it is reported
+    for arch, lm in lms.items():
+        n = DECODE_CHECK[arch]
+        cfg32 = lm.cfg.with_(param_dtype="float32", compute_dtype="float32",
+                             cache_dtype="float32")
+        lm32 = LM(cfg32, device=dev)
+        lm32.load_state_dict(lm.state_dict())
+        err, scale, _ = against_prefill(lm32, toks[arch][:, :n])
+        del lm32
+        torch.cuda.empty_cache()
+        if not err <= 3e-2 * scale:
+            fail(f"[7] {arch} float32: decode over {n} prompt tokens differs "
+                 f"from the prefill's last logits by {err:.4g} > 3e-2 x "
+                 f"{scale:.3g}")
+        b_err, b_scale = drift[arch, "bf16"]
+        log(f"[7] {arch} at full depth, decode over {n} prompt tokens "
+            f"against the prefill's last logits: float32 {err:.4g} "
+            f"(within 3e-2 x {scale:.3g}); bf16 {b_err:.4g} (largest logit "
+            f"{b_scale:.3g}; reported, not held)")
+
+    # ---- (a) kernels against their plain versions
+    errs = {"flash_attention": 0.0, "wkv_chunked": 0.0}
+
+    def hold(name, got, want, atol, rtol, what):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"[7] {name} at {what}: {g.dtype}{tuple(g.shape)} vs "
+                     f"{w.dtype}{tuple(w.shape)}")
+            d = (g.double() - w.double()).abs()
+            if bool((d > atol + rtol * w.double().abs()).any()):
+                fail(f"[7] {name} differs from its plain version at {what}: "
+                     f"max abs err {float(d.max()):.4g}")
+            errs[name] = max(errs[name], float(d.max()))
+
+    fargs, fkw = captured["flash_attention"]
+    wargs, wkw = captured["wkv_chunked"]
+    hold("flash_attention", real["flash_attention"](*fargs, **fkw),
+         ref.flash_attention_ref(*fargs, **fkw), 2e-2, 2e-2,
+         "the qwen3 prefill's layer-0 inputs")
+    hold("wkv_chunked", real["wkv_chunked"](*wargs, **wkw),
+         ref.wkv_chunked_ref(*wargs, **wkw), 1e-4, 1e-3,
+         "the rwkv6 prefill's layer-0 inputs")
+    main_err = dict(errs)
+    gen = torch.Generator().manual_seed(7)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for b, hq, hkv, sq, sk, d, dt, causal, window in FLASH_EDGES:
+        q, k, v = (torch.randn((b, n_, h, d), generator=gen).to(dts[dt])
+                   .to(dev).transpose(1, 2)
+                   for h, n_ in ((hq, sq), (hkv, sk), (hkv, sk)))
+        t_ = 2e-2 if dt == "bfloat16" else 1e-4
+        hold("flash_attention",
+             real["flash_attention"](q, k, v, causal=causal, window=window),
+             ref.flash_attention_ref(q, k, v, causal=causal, window=window),
+             t_, t_, f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Sk={sk} D={d} {dt} "
+             f"causal={causal} window={window}")
+    for c in WKV_EDGE_CHUNKS:
+        for s_ in (c, 8 * c):
+            for dt in ("bfloat16", "float32"):
+                r, k, v = ((torch.randn((1, s_, 48, 64), generator=gen) * 0.5)
+                           .to(dts[dt]).to(dev).transpose(1, 2)
+                           for _ in range(3))
+                lw = (-torch.exp(torch.randn((1, s_, 48, 64), generator=gen)
+                                 * 0.5 - 2)).to(dev).transpose(1, 2)
+                u = (torch.randn((48, 64), generator=gen) * 0.1).to(dev)
+                hold("wkv_chunked",
+                     real["wkv_chunked"](r, k, v, lw, u, chunk=c),
+                     ref.wkv_chunked_ref(r, k, v, lw, u, chunk=c), 1e-4,
+                     1e-3, f"H=48 S={s_} chunk={c} {dt}")
+    log(f"[7] flash_attention within 2e-2 (bf16) / 1e-4 (float32) of its "
+        f"plain version at the main-path inputs (max abs err "
+        f"{main_err['flash_attention']:.4g}) and {len(FLASH_EDGES)} edge "
+        f"shapes; wkv_chunked within atol 1e-4, rtol 1e-3 at the main-path "
+        f"inputs ({main_err['wkv_chunked']:.4g}) and chunks "
+        f"{WKV_EDGE_CHUNKS} x S in (chunk, 8 chunk) x (bf16, float32)")
+
+    # ---- kernel times at the main-path shapes
+    q, k, v = fargs
+    b, hq, s_q, d = q.shape
+    hkv = k.shape[1]
+    ms_f = cuda_ms(lambda: real["flash_attention"](*fargs, **fkw), 20)
+    plain_f = cuda_ms(lambda: ref.flash_attention_ref(*fargs, **fkw), 3)
+
+    def library():
+        try:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=hq != hkv)
+        except TypeError:                 # a torch without enable_gqa
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    torch.testing.assert_close(library().float(),
+                               real["flash_attention"](*fargs, **fkw).float(),
+                               atol=2e-2, rtol=2e-2)
+    lib_f = cuda_ms(library, 20)
+    esz = q.element_size()
+    f_bytes = (q.numel() * 2 + k.numel() + v.numel()) * esz
+    f_flops = 4 * b * hq * (s_q * (s_q + 1) // 2) * d   # QK^T and PV, i >= j
+    f_bound = max(f_bytes / HBM_BYTES_PER_S, f_flops / BF16_OPS_PER_S) * 1e3
+    f_by = "bytes" if f_bytes / HBM_BYTES_PER_S >= \
+        f_flops / BF16_OPS_PER_S else "operations"
+    f_core = f_flops / F32_OPS_PER_S * 1e3
+    r, k_, v_, lw, u = wargs
+    bw, hw, sw, dw = r.shape
+    chunk = wkw["chunk"]
+    ms_w = cuda_ms(lambda: real["wkv_chunked"](*wargs, **wkw), 20)
+    plain_w = cuda_ms(lambda: ref.wkv_chunked_ref(*wargs, **wkw), 3)
+    w_bytes = (3 * r.numel() * r.element_size() + lw.numel() * 4
+               + u.numel() * 4 + r.numel() * 4 + bw * hw * dw * dw * 4)
+    per_chunk = 2 * chunk * (chunk - 1) * dw + 4 * chunk * dw * dw
+    w_flops = bw * hw * (sw // chunk) * per_chunk
+    w_bound = max(w_bytes / HBM_BYTES_PER_S, w_flops / F32_OPS_PER_S) * 1e3
+    w_by = "bytes" if w_bytes / HBM_BYTES_PER_S >= \
+        w_flops / F32_OPS_PER_S else "operations"
+    log(f"[7] flash_attention at B={b} Hq={hq} Hkv={hkv} S={s_q} D={d} "
+        f"{str(q.dtype)[6:]} causal: {ms_f:.4f} ms (plain {plain_f:.4f} ms, "
+        f"SDPA {lib_f:.4f} ms; bound {f_bound:.5f} ms by {f_by}: "
+        f"{f_bytes / 1e6:.1f} MB at 3.35 TB/s against {f_flops / 1e9:.2f} "
+        f"GFLOP at the bf16 tensor-core 989 TFLOP/s; this float32 "
+        f"CUDA-core formulation's floor {f_core:.4f} ms at 67 TFLOP/s) "
+        f"[{smi}]")
+    log(f"[7] wkv_chunked at B={bw} H={hw} S={sw} D={dw} chunk={chunk} "
+        f"{str(r.dtype)[6:]} r/k/v: {ms_w:.4f} ms (plain {plain_w:.4f} ms; "
+        f"bound {w_bound:.5f} ms by {w_by}: {w_bytes / 1e6:.1f} MB at 3.35 "
+        f"TB/s against {w_flops / 1e9:.2f} GFLOP of float32 chunk products "
+        f"at 67 TFLOP/s; library call: none) [{smi}]")
+    rows = [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:83 "
+                     "(flash_attention; _flash_kernel at :30, pallas_call "
+                     "at :103)",
+         "launches": lm_counts["flash_attention"],
+         "max_abs_err": errs["flash_attention"], "ms": ms_f,
+         "plain_ms": plain_f, "bound_ms": f_bound, "bound_by": f_by,
+         "library_ms": lib_f, "cuda_core_floor_ms": f_core},
+        {"name": "wkv_chunked", "route": "cuda",
+         "source": "src/repro_torch/csrc/wkv.cu",
+         "replaces": "src/repro/kernels/wkv.py:72 (wkv_chunked; _wkv_kernel "
+                     "at :27, pallas_call at :81)",
+         "launches": lm_counts["wkv_chunked"],
+         "max_abs_err": errs["wkv_chunked"], "ms": ms_w, "plain_ms": plain_w,
+         "bound_ms": w_bound, "bound_by": w_by, "library_ms": None}]
+    del captured, fargs, wargs, q, k, v, r, k_, v_, lw, u
+    log(f"[7] phase 7 walls and checks in {time.perf_counter() - t7:.1f} s")
+
+    def busy_shares():
+        """Device kernel time of one decode and one prefill step from
+        torch.profiler, over the walls taken above."""
+        from torch.profiler import ProfilerActivity, profile
+        for arch, lm in lms.items():
+            n = DECODE_CHECK[arch]
+            caches = lm.init_caches(PREFILL_B, n)
+            tok = toks[arch][:, :1]
+            prefill = steps.make_prefill_step(lm)
+            for label, fn, reps in (
+                    ("decode", lambda: lm.decode_step(caches, tok, n // 2), 4),
+                    ("prefill", lambda: prefill({"tokens": toks[arch]}), 1)):
+                fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    with torch.inference_mode():
+                        for _ in range(reps):
+                            fn()
+                    torch.cuda.synchronize()
+                events = prof.key_averages()
+                dev_ms = sum(dev_time(e) for e in events) / reps / 1e3
+                wall_ms = walls[arch, label] * 1e3
+                top = sorted(((dev_time(e) / reps / 1e3, e.key)
+                              for e in events if dev_time(e) > 0),
+                             reverse=True)[:3]
+                if dev_ms > 0:
+                    log(f"[7] {arch} {label} step: {dev_ms:.3f} ms device "
+                        f"kernel time (profiled) over {wall_ms:.3f} ms wall "
+                        f"(unprofiled): device busy "
+                        f"{100 * dev_ms / wall_ms:.1f}%; largest: " + ", ".join(
+                            f"{k_[:40]} {v_:.3f} ms" for v_, k_ in top)
+                        + f" [{smi}]")
+                else:
+                    log(f"[7] {arch} {label} step: device time not measured "
+                        f"(profiler saw no device time)")
+
+    return rows, busy_shares
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -622,9 +1014,11 @@ def main() -> None:
     if float(defaults["horizon"]) != horizon:
         fail(f"run_grid's default horizon is not the golden's {horizon}")
     golden3 = json.loads(PHASE3_GOLDEN.read_text())
-    for k in ("figs", "mpl_grid", "seeds", "protocols"):
-        if golden3[k] != golden[k]:
-            fail(f"{PHASE3_GOLDEN.name}'s {k} is not {GOLDEN.name}'s")
+    golden6 = json.loads(PHASE6_GOLDEN.read_text())
+    for g_ in (PHASE3_GOLDEN, PHASE6_GOLDEN):
+        for k in ("figs", "mpl_grid", "seeds", "protocols"):
+            if json.loads(g_.read_text())[k] != golden[k]:
+                fail(f"{g_.name}'s {k} is not {GOLDEN.name}'s")
     # main-path states, captured after CAPTURE_ITERS body iterations of
     # each protocol's batch of the default grid
     cover = sweep.grid_cover_params(figs).with_(horizon=horizon)
@@ -800,8 +1194,8 @@ def main() -> None:
     # the two grids' walls are taken alike)
     tm_gold = json.loads(TM_GOLDEN.read_text())
     for key in ("figs", "mpl_grid", "seeds", "horizon", "protocols"):
-        if tm_gold[key] != golden[key]:
-            fail(f"{TM_GOLDEN.name}'s {key} is not {GOLDEN.name}'s")
+        if tm_gold[key] != golden6[key]:
+            fail(f"{TM_GOLDEN.name}'s {key} is not {PHASE6_GOLDEN.name}'s")
     if tm_gold["run"] != TM_RUN:
         fail(f"{TM_GOLDEN.name} was written with {tm_gold['run']}")
     digest = sweep.lanes_sha256(seed_l, mpl_l, rt_l)
@@ -814,17 +1208,19 @@ def main() -> None:
     ops.reset_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    out6, fleet6 = sweep.run_grid(**TM_RUN, device=dev)
+    out6, fleet6 = sweep.run_grid(horizon=golden6["horizon"], **TM_RUN,
+                                  device=dev)
     torch.cuda.synchronize()
     wall6 = time.perf_counter() - t
     counts6 = ops.launch_counts()
     body6 = fleet6.body_iters
     log(f"[6] run_grid({', '.join(f'{k}={v}' for k, v in TM_RUN.items())}): "
-        f"{len(seed_l)} lanes per protocol, horizon {horizon:g}, wall "
+        f"{len(seed_l)} lanes per protocol, horizon {golden6['horizon']:g}, "
+        f"wall "
         f"{wall6:.3f} s; body iterations {body6}; kernel launches "
         f"{ {k: v for k, v in counts6.items() if v} }")
-    lane_iters6 = check_lanes(out6, protocols, golden, "6", sweep)
-    log(f"[6] every lane of {protocols} equals {GOLDEN.name} in "
+    lane_iters6 = check_lanes(out6, protocols, golden6, "6", sweep)
+    log(f"[6] every lane of {protocols} equals {PHASE6_GOLDEN.name} in "
         f"{sweep.METRICS + ('now',)}")
     batch6 = sum(body6.values()) * len(seed_l)
     log(f"[6] lane-iterations: {lane_iters6} live "
@@ -883,6 +1279,10 @@ def main() -> None:
     log(f"[6] Theorem-1 invariants hold {inv}; every lane's carried "
         f"relations equal a full recompute of its final state and cursor")
     del out6, fleet6, fin6, full
+
+    # ---------------- phase 7: LM serving (walls before any profiler) ----
+    lm_rows, lm_busy = lm_phase(torch, dev, smi, lambda fn, reps: cuda_times(
+        fn, reps, torch))
 
     # ---------------- phase 4: times ----------------
     torch.cuda.synchronize()
@@ -1008,7 +1408,9 @@ def main() -> None:
         src_counts = counts6 if row["name"] == "rowslab" else counts
         rows.append({**row, "launches": src_counts[row["name"]]})
     rows += sched_rows
-    log(f"[done] all six phases in {time.perf_counter() - t_start:.1f} s")
+    lm_busy()
+    rows += lm_rows
+    log(f"[done] all seven phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,13 +11,14 @@ import torch
 
 
 def resolve(device=None) -> torch.device:
-    """``None`` -> ``cuda``; ``"cpu"`` only when asked; raise when CUDA
-    is asked for and missing."""
+    """``None`` -> ``cuda``; ``"cpu"`` only when asked (``"meta"``, for
+    shapes without storage, too); raise when CUDA is asked for and
+    missing."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device: {dev}")
     return dev

@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("megastep", "rowslab", "scan", "conflict", "admit")
+SOURCES = ("megastep", "rowslab", "scan", "conflict", "admit",
+           "flash_attention", "wkv")
 # sm_90a: Hopper.  --fmad=false: no multiply-add contraction anywhere, so
 # float results are the plain versions' to the bit.
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,9 +1,10 @@
-"""Dispatchers the engine and the scheduler call for their kernels.
+"""Dispatchers the engine, the scheduler and the language model call for
+their kernels.
 
 A CUDA tensor goes to the hand-written kernel (``kernels.megastep`` for
 the megastep and row-slab kernels, ``kernels.scan``, ``kernels.conflict``,
-``kernels.admit``), a CPU tensor to the kernel's plain version
-(``kernels.ref``).  There is no fallback:
+``kernels.admit``, ``kernels.flash_attention``, ``kernels.wkv``), a CPU
+tensor to the kernel's plain version (``kernels.ref``).  There is no fallback:
 a failed build or launch on the card raises.  ``launch_counts`` reads
 the wrappers' launch counters and ``reset_launches`` sets them to 0.
 """
@@ -11,9 +12,11 @@ from __future__ import annotations
 
 from . import admit as _admit
 from . import conflict as _conflict
+from . import flash_attention as _flash
 from . import megastep as _megastep
 from . import ref
 from . import scan as _scan
+from . import wkv as _wkv
 
 
 def _route(t, name: str) -> bool:
@@ -105,14 +108,33 @@ def occ_admit(raw, ww, valid):
     return fn(raw, ww, valid)
 
 
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    sm_scale: float = None):
+    """Flash attention: q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` ->
+    ``[B, Hq, Sq, D]`` in q's dtype."""
+    fn = _flash.flash_attention if _route(q, "flash_attention") \
+        else ref.flash_attention_ref
+    return fn(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+
+
+def wkv_chunked(r, k, v, log_w, u, *, chunk: int = 64, state0=None):
+    """Chunked WKV: r/k/v/log_w ``[B, H, S, D]``, u ``[H, D]`` -> (out
+    float32 ``[B, H, S, D]``, final state float32 ``[B, H, D, D]``)."""
+    fn = _wkv.wkv_chunked if _route(r, "wkv_chunked") \
+        else ref.wkv_chunked_ref
+    return fn(r, k, v, log_w, u, chunk=chunk, state0=state0)
+
+
+_COUNTERS = (_megastep.launches, _scan.launches, _conflict.launches,
+             _admit.launches, _flash.launches, _wkv.launches)
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last ``reset_launches``."""
-    return {**_megastep.launches, **_scan.launches, **_conflict.launches,
-            **_admit.launches}
+    return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 def reset_launches() -> None:
-    for counts in (_megastep.launches, _scan.launches, _conflict.launches,
-                   _admit.launches):
+    for counts in _COUNTERS:
         for k in counts:
             counts[k] = 0

@@ -2,10 +2,16 @@
 
 Each function computes exactly what its CUDA kernel computes, with the
 same lane axis and dtypes.  The CPU path of ``kernels.ops`` runs them,
-the CPU tests hold them bit-equal to the JAX reference, and
-``chip_smoke.py`` holds each kernel bit-equal to them on the card.
+the CPU tests hold them to the JAX reference, and ``chip_smoke.py``
+holds each kernel to them on the card: bit-equal for the integer and
+logic kernels, within a stated tolerance for the two float kernels of
+the language model (``flash_attention_ref``, ``wkv_chunked_ref``), whose
+sums the kernels take in another order.  ``wkv_ref`` is the sequential
+WKV recurrence, the oracle of both.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -251,3 +257,94 @@ def occ_admit_ref(raw: torch.Tensor, ww: torch.Tensor,
         ok = valid[i] & ~(bad[i] & survivors & earlier).any()
         survivors[i] = ok
     return survivors
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Softmax attention: q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]``
+    (any strides), query head h reading KV head h // (Hq / Hkv).  Scores
+    and weights in float32; key j is masked for query i unless ``i >= j``
+    (causal, indices from 0, aligned top-left when Sq != Sk) and
+    ``i - j < window`` (window > 0); a row with every key masked is 0.
+    Returns a contiguous ``[B, Hq, Sq, D]`` tensor in q's dtype."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if g > 1:
+        k = k.repeat_interleave(g, dim=1)
+        v = v.repeat_interleave(g, dim=1)
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    s_ = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= qpos - kpos < window
+    s_ = s_.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(s_, dim=-1).nan_to_num(0.0)      # fully-masked rows
+    return torch.einsum("bhst,bhtd->bhsd", w, v.float()).to(q.dtype)
+
+
+def wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_w: torch.Tensor, u: torch.Tensor, *,
+                    chunk: int = 64, state0: Optional[torch.Tensor] = None):
+    """Chunked RWKV6 WKV, the math of ``repro/kernels/wkv.py`` and of the
+    model's ``rwkv.wkv_chunked``: r/k/v/log_w ``[B, H, S, D]`` (any
+    strides; log_w float32), u ``[H, D]`` float32, ``S`` a multiple of
+    ``chunk``.  Per chunk: r against the carried state, the decayed
+    r k^T in the strict lower triangle centred by ``cum_last / 2``, the
+    ``u`` bonus on the diagonal, then the state update.  Returns (out
+    ``[B, H, S, D]`` float32, final state ``[B, H, D, D]`` float32)."""
+    b, h, s, d = r.shape
+    if s % chunk:
+        raise ValueError(f"wkv_chunked_ref: S={s} is not a multiple of "
+                         f"chunk={chunk}")
+    state = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+             if state0 is None else state0.float())
+    uu = u.float()[None, :, None, :]                          # [1,H,1,D]
+    tril = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=r.device).tril(-1)
+    outs = []
+    for c0 in range(0, s, chunk):
+        rq, kq, vq, wq = (x[:, :, c0:c0 + chunk].float()
+                          for x in (r, k, v, log_w))
+        cum = wq.cumsum(2)                    # inclusive cumulative decay
+        cum_excl = cum - wq
+        y_state = (rq * torch.exp(cum_excl)) @ state
+        last = cum[:, :, -1:]                 # [B,H,1,D]
+        c = last * 0.5
+        a = (rq * torch.exp(cum_excl - c)) @ (kq * torch.exp(c - cum)
+                                               ).transpose(-1, -2)
+        y_intra = torch.where(tril, a, 0.0) @ vq
+        y_diag = (rq * uu * kq).sum(-1, keepdim=True) * vq
+        outs.append(y_state + y_intra + y_diag)
+        k_dec = kq * torch.exp(last - cum)
+        state = torch.exp(last).transpose(-1, -2) * state + \
+            k_dec.transpose(-1, -2) @ vq
+    return torch.cat(outs, dim=2), state
+
+
+def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            log_w: torch.Tensor, u: torch.Tensor, head_dim: int,
+            state0: Optional[torch.Tensor] = None):
+    """Sequential (step-by-step) WKV6 recurrence, the gold semantics of
+    ``repro/kernels/ref.py::wkv_ref``: r/k/v ``[B, S, D]`` (D = H *
+    head_dim), log_w ``[B, S, D]`` float32, u ``[D]``.  Returns (out
+    ``[B, S, D]`` float32, final state ``[B, H, dk, dv]`` float32)."""
+    b, s, d = r.shape
+    h = d // head_dim
+    rr, kk, vv = (x.float().reshape(b, s, h, head_dim) for x in (r, k, v))
+    ww = torch.exp(log_w.float()).reshape(b, s, h, head_dim)
+    uu = u.float().reshape(h, head_dim)
+    state = (torch.zeros((b, h, head_dim, head_dim), dtype=torch.float32,
+                         device=r.device) if state0 is None else state0)
+    outs = []
+    for t in range(s):
+        kv = torch.einsum("bhk,bhv->bhkv", kk[:, t], vv[:, t])
+        outs.append(torch.einsum("bhk,bhkv->bhv", rr[:, t],
+                                 state + uu[None, :, :, None] * kv))
+        state = ww[:, t][..., None] * state + kv
+    return torch.stack(outs, 1).reshape(b, s, d), state

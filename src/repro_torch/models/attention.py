@@ -1,0 +1,195 @@
+"""GQA self-attention with RoPE and qk-norm: the port of
+``repro/models/attention.py``.
+
+Two branches of the reference's ``attention()`` are ported:
+
+* **decode** (``:294``): one new token; its k/v are written into the
+  cache at ``cache_pos`` and the token attends over the cached slots
+  through ``_sdpa`` (``:237``), plain torch as in the reference, which
+  computes it outside any Pallas kernel.
+* **full sequence, causal self-attention** (``:328`` and ``:342``): the
+  prefill and the backbone.  It goes through ``kernels.ops.
+  flash_attention``, the hand-written CUDA kernel on the card (the
+  reference names its Pallas ``flash_attention`` for this branch under
+  either ``attn_impl``) and its plain version on the CPU.  The kernel
+  reads q, k and v in the model's ``[B, S, H, Dh]`` layout through
+  strides and writes its output in that layout.
+
+Not ported yet (``NotImplementedError``, ROADMAP.md queue 1): the int8
+cache, the sliding-window ring cache, cross-attention and
+``kv_override`` (vlm), and the sharding pins ``_pin``/``_dax``.
+
+Query heads can be padded (``pad_q_heads``): the padded heads' rows of
+``wo`` are zeroed, so they are exact no-ops.  KV heads are replicated
+``kv_repeat`` times after projection with ``repeat_interleave`` (the
+reference's ``jnp.repeat``), so query head h reads KV head h // g.
+
+The decode branch updates the cache **in place** (the reference returns
+a new cache; its serving loop donates the old one), and returns it.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..kernels import ops
+from . import layers
+from .config import ModelConfig
+
+NEG = -1e30                       # the reference's masked score
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor               # [B, Smax, H_eff, Dh]  (cache dtype)
+    v: torch.Tensor
+    pos: torch.Tensor             # int32[Smax] absolute position per slot
+                                  # (-1 = empty)
+
+
+def effective_kv_heads(cfg: ModelConfig, kv_repeat: int) -> int:
+    return cfg.n_kv_heads * kv_repeat
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for an attention feature that waits for a later slice."""
+    if cfg.cache_dtype == "int8":
+        raise NotImplementedError(
+            f"cache_dtype={cfg.cache_dtype!r}: the int8 KV cache is not "
+            f"ported yet (ROADMAP.md, queue 1)")
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "sliding_window: the ring-buffer cache is not ported yet "
+            "(ROADMAP.md, queue 1)")
+    if cfg.act_constraints:
+        raise NotImplementedError(
+            "act_constraints: the sharding pins are not ported yet "
+            "(ROADMAP.md, queue 1)")
+
+
+class Attention(torch.nn.Module):
+    """``attn_init``: ``wq [d, Hq*Dh]``, ``wk``/``wv [d, Hkv*Dh]``,
+    ``wo [Hq*Dh, d]``, and ``q_norm``/``k_norm [Dh]`` with qk-norm."""
+
+    def __init__(self, cfg: ModelConfig, device, *, pad_q_heads: int = 0):
+        super().__init__()
+        d, dh = cfg.d_model, cfg.head_dim
+        hq = pad_q_heads or cfg.n_heads
+        hkv = cfg.n_kv_heads
+        dt = layers.dtype_of(cfg.param_dtype)
+        self.live_rows = min(cfg.n_heads, hq) * dh
+        self.wq = layers.param((d, hq * dh), dt, device)
+        self.wk = layers.param((d, hkv * dh), dt, device)
+        self.wv = layers.param((d, hkv * dh), dt, device)
+        self.wo = layers.param((hq * dh, d), dt, device)
+        if cfg.qk_norm:
+            self.q_norm = layers.param((dh,), dt, device)
+            self.k_norm = layers.param((dh,), dt, device)
+
+    def init(self, gen: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv):
+            layers.dense_init(w, gen)
+        layers.dense_init(self.wo, gen, scale=self.wo.shape[0] ** -0.5)
+        with torch.no_grad():
+            self.wo[self.live_rows:].zero_()     # padded heads: no-ops
+            if hasattr(self, "q_norm"):
+                self.q_norm.fill_(1)
+                self.k_norm.fill_(1)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               kv_repeat: int = 1, cache_dtype: str = "bfloat16",
+               device=None) -> KVCache:
+    """Zeroed bf16 (or float32/float16) cache; every slot empty."""
+    if cache_dtype == "int8":
+        raise NotImplementedError(
+            "the int8 KV cache is not ported yet (ROADMAP.md, queue 1)")
+    h = effective_kv_heads(cfg, kv_repeat)
+    dt = layers.dtype_of(cache_dtype)
+    shape = (batch, max_seq, h, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                   v=torch.zeros(shape, dtype=dt, device=device),
+                   pos=torch.full((max_seq,), -1, dtype=torch.int32,
+                                  device=device))
+
+
+def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, kv_repeat: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns q ``[B,S,Hq,Dh]``, k/v ``[B,S,H_eff,Dh]`` (self-attention,
+    RoPE on)."""
+    dh = cfg.head_dim
+    q = (x @ p.wq).unflatten(-1, (-1, dh))
+    k = (x @ p.wk).unflatten(-1, (-1, dh))
+    v = (x @ p.wv).unflatten(-1, (-1, dh))
+    if cfg.qk_norm:
+        q = layers.rmsnorm(q, p.q_norm, cfg.norm_eps)
+        k = layers.rmsnorm(k, p.k_norm, cfg.norm_eps)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if kv_repeat > 1:
+        k = k.repeat_interleave(kv_repeat, dim=2)
+        v = v.repeat_interleave(kv_repeat, dim=2)
+    return q, k, v
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Grouped scaled-dot-product attention (the reference's ``_sdpa``).
+
+    q ``[B,S,Hq,Dh]``, k/v ``[B,T,Hkv,Dh]`` with Hq = G * Hkv; mask
+    broadcastable to ``[B,1,1,S,T]`` (True = attend).  Scores in the
+    input dtype then float32; the softmax weights are cast to v's dtype
+    before the PV product, as the reference does."""
+    b, s, hq, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, s, hkv, g, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    scores = scores * (dh ** -0.5)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
+    return out.reshape(b, s, hq * dh)
+
+
+def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, kv_repeat: int = 1,
+              cache: Optional[KVCache] = None, cache_pos: Optional[int] = None,
+              return_cache: bool = False
+              ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Causal self-attention.
+
+    * full sequence (prefill, backbone): the flash kernel; with
+      ``return_cache`` the projected k/v become the cache.
+    * decode: x is ``[B, 1, d]``; ``cache`` holds the past and
+      ``cache_pos`` (an int) is the write slot, clamped into the cache as
+      ``dynamic_update_slice`` clamps it.
+    """
+    q, k, v = _project_qkv(p, cfg, x, positions, kv_repeat)
+    b, s = x.shape[0], x.shape[1]
+    new_cache = None
+
+    if cache is not None and cache_pos is not None and s == 1:
+        # --- decode step ---------------------------------------------------
+        slot = min(max(int(cache_pos), 0), cache.k.shape[1] - 1)
+        abs_pos = positions.reshape(()).to(torch.int32)
+        cache.pos[slot] = abs_pos
+        cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+        new_cache = cache
+        valid = (cache.pos >= 0) & (cache.pos <= abs_pos)
+        mask = valid[None, None, None, None, :]              # [1,1,1,1,T]
+        out = _sdpa(q, cache.k.to(q.dtype), cache.v.to(q.dtype), mask)
+    else:
+        # --- full sequence: the flash kernel, [B,H,S,D] views -------------
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=cfg.causal,
+                                window=cfg.sliding_window)
+        out = o.transpose(1, 2).reshape(b, s, -1)
+        if return_cache:
+            new_cache = KVCache(k=k, v=v, pos=positions.to(torch.int32)
+                                .reshape(-1).expand(k.shape[1]).clone())
+    y = out.to(x.dtype) @ p.wo
+    return y, new_cache

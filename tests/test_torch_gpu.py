@@ -390,3 +390,125 @@ def test_carry_hit_launches_nothing(cuda):
     for name in ("admitted", "commit_rank"):
         assert torch.equal(getattr(hit, name), getattr(fresh, name)), name
     assert torch.equal(hit.state.prec, fresh.state.prec)
+
+
+# ---------------------------------------------------------------------------
+# the language model's kernels: flash attention and the chunked WKV, held
+# to their plain versions within the tolerances of tests/test_kernels.py
+# (float sums in another order, expf against torch's exp)
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(gen, b, hq, hkv, s, t, d, dtype, dev, strided):
+    """q/k/v; ``strided``: ``[B, H, S, D]`` views of ``[B, S, H, D]``
+    tensors, as the model passes them."""
+    def make(h, n):
+        x = torch.randn((b, n, h, d), generator=gen).to(dtype).to(dev)
+        return x.transpose(1, 2) if strided else x.transpose(1, 2).contiguous()
+    return make(hq, s), make(hkv, t), make(hkv, t)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,d", [
+    (2, 4, 4, 128, 128, 64), (1, 8, 4, 100, 100, 16), (1, 8, 1, 128, 256, 128),
+    (2, 6, 3, 70, 130, 32), (1, 2, 2, 1, 1, 256), (1, 4, 2, 300, 200, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 32),
+                                           (False, 32)])
+def test_flash_kernel_matches_plain(cuda, b, hq, hkv, s, t, d, dtype, causal,
+                                    window):
+    from repro_torch.kernels import flash_attention as kflash
+    gen = torch.Generator().manual_seed(s * t + d)
+    q, k, v = _flash_inputs(gen, b, hq, hkv, s, t, d, dtype, cuda,
+                            strided=d != 16)
+    got = kflash.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as kflash
+    q = torch.zeros((1, 4, 8, 16), device=cuda)
+    with pytest.raises(ValueError):
+        kflash.flash_attention(q.cpu(), q.cpu(), q.cpu())
+    with pytest.raises(ValueError):                  # Hkv does not divide Hq
+        kflash.flash_attention(q, q[:, :3], q[:, :3])
+    with pytest.raises(ValueError):                  # D above 256
+        big = torch.zeros((1, 1, 4, 264), device=cuda)
+        kflash.flash_attention(big, big, big)
+    with pytest.raises(ValueError):                  # mixed dtypes
+        kflash.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):                  # strided last axis
+        kflash.flash_attention(q.transpose(2, 3), q, q)
+
+
+def _wkv_inputs(gen, b, h, s, d, dtype, dev):
+    r, k, v = ((torch.randn((b, s, h, d), generator=gen) * 0.5).to(dtype)
+               .to(dev).transpose(1, 2) for _ in range(3))
+    lw = (-torch.exp(torch.randn((b, s, h, d), generator=gen) * 0.5 - 2)
+          ).to(dev).transpose(1, 2)
+    u = (torch.randn((h, d), generator=gen) * 0.1).to(dev)
+    return r, k, v, lw, u
+
+
+@pytest.mark.parametrize("b,h,s,d,chunk", [
+    (1, 2, 64, 16, 16), (2, 3, 128, 32, 64), (1, 48, 128, 64, 128),
+    (2, 48, 1024, 64, 128), (1, 48, 128, 64, 16), (1, 48, 512, 64, 64),
+    (1, 4, 96, 64, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_matches_plain(cuda, b, h, s, d, chunk, dtype):
+    from repro_torch.kernels import wkv as kwkv
+    gen = torch.Generator().manual_seed(b * h * s + chunk)
+    args = _wkv_inputs(gen, b, h, s, d, dtype, cuda)
+    s0 = (torch.randn((b, h, d, d), generator=gen) * 0.1).to(cuda)
+    for state0 in (None, s0):
+        got = kwkv.wkv_chunked(*args, chunk=chunk, state0=state0)
+        want = ref.wkv_chunked_ref(*args, chunk=chunk, state0=state0)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3)
+
+
+def test_wkv_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import wkv as kwkv
+    gen = torch.Generator().manual_seed(0)
+    r, k, v, lw, u = _wkv_inputs(gen, 1, 2, 64, 16, torch.float32, cuda)
+    with pytest.raises(ValueError):                  # chunk does not divide S
+        kwkv.wkv_chunked(r, k, v, lw, u, chunk=48)
+    with pytest.raises(ValueError):                  # chunk above 128
+        kwkv.wkv_chunked(r, k, v, lw, u, chunk=256)
+    with pytest.raises(ValueError):                  # log_w not float32
+        kwkv.wkv_chunked(r, k, v, lw.bfloat16(), u)
+    with pytest.raises(ValueError):                  # head size 48
+        x = torch.zeros((1, 1, 16, 48), device=cuda)
+        kwkv.wkv_chunked(x, x, x, x, torch.zeros((1, 48), device=cuda))
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0p6b", "llama3p2_1b", "rwkv6_3b"])
+def test_lm_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke model in float32: prefill, backbone and decode through the
+    kernels on the card against the plain versions on the CPU."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import LM
+    cfg = configs.get_smoke(arch).with_(param_dtype="float32",
+                                        compute_dtype="float32")
+    cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = LM(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    tok = torch.randint(0, cfg.vocab, (2, 64),
+                        generator=torch.Generator().manual_seed(1))
+    ops.reset_launches()
+    got = steps.make_prefill_step(gpu)({"tokens": tok.to(cuda)})
+    kernel = "flash_attention" if cfg.family == "dense" else "wkv_chunked"
+    assert ops.launch_counts()[kernel] == cfg.n_layers
+    want = steps.make_prefill_step(cpu)({"tokens": tok})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    cg, cc = gpu.init_caches(2, 8), cpu.init_caches(2, 8)
+    for t in range(3):
+        lg, cg = gpu.decode_step(cg, tok[:, t:t + 1].to(cuda), t)
+        lc, cc = cpu.decode_step(cc, tok[:, t:t + 1], t)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)

@@ -1,0 +1,527 @@
+"""The port's language model (``repro_torch.models``, ``repro_torch.launch``)
+against the JAX reference (``repro.models``, ``repro.launch``), on the CPU.
+
+The same weights (the reference's own init, carried across by
+``convert.params_from_jax``) and the same numpy tokens go through both
+packages.  Tolerances: float32 1e-4, element by element, absolute and
+relative (sums taken in another order); bf16 3e-2 of the tensor's
+largest magnitude (at least 1), absolute: the two frameworks round to
+bf16 at different places (XLA keeps fused elementwise chains in float32),
+so two correct runs differ by a few bf16 steps of the residual stream's
+largest values, 0.047 at magnitude ~4 in the smoke configs, RWKV
+included, which has no attention; and the port's full-sequence
+attention keeps its softmax weights in float32 where the reference's
+``_sdpa`` casts them to bf16.  The serving loop's tick
+and token counts are held exactly to ``python -m repro.launch.serve``.
+
+Run ``JAX_PLATFORMS=cpu PYTHONPATH=src python tests/test_torch_lm.py
+--write-golden`` to regenerate ``src/repro_torch/golden/lm_full_width.json``
+(a few minutes of CPU): the reference's full-width, 2-layer float32 run
+of ``repro_torch.launch.golden`` for qwen3-0.6b and rwkv6-3b, the
+tolerance measured from the port's CPU run against it, and the
+reference's ``serve`` summaries, which ``chip_smoke.py`` holds the port
+to on the card.
+"""
+import dataclasses
+import hashlib
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
+from repro.models import LM as JLM  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch import golden as G  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.launch import steps as tsteps  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+
+GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "lm_full_width.json"
+ARCHS = ("qwen3_0p6b", "llama3p2_1b", "rwkv6_3b")
+B, S = 2, 32
+TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+F32 = dict(param_dtype="float32", compute_dtype="float32")
+
+
+def np32(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def close(got, want, tol):
+    """float32 (tol < 1e-2): element by element; bf16: the largest
+    difference within ``tol`` of the largest magnitude (at least 1)."""
+    got, want = np.asarray(got.float()), np32(want)
+    if tol < 1e-2:
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+        return
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    scale = max(1.0, float(np.abs(want).max()) if want.size else 0.0)
+    assert err <= tol * scale, f"max abs err {err} > {tol} x {scale}"
+
+
+def pair(cfg, seed=0):
+    """(JAX params, port LM on the CPU) with the reference's init."""
+    params = JLM(cfg).init(jax.random.PRNGKey(seed))
+    tree = jax.tree.map(np.array, params)
+    lm = LM(cfg, device="cpu")
+    lm.load_state_dict(convert.params_from_jax(cfg, tree))
+    return params, lm
+
+
+def cfg_of(arch, dtype):
+    cfg = configs.get_smoke(arch)
+    return cfg.with_(**F32) if dtype == "float32" else cfg
+
+
+def tokens(cfg, shape, seed=1):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, shape,
+                                                dtype=np.int32)
+
+
+# ---------------------------------------------------------------- layers
+
+def test_layers_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 3, 16), dtype=np.float32)
+    g = rng.standard_normal(16, dtype=np.float32)
+    pos = np.arange(5, dtype=np.int32)
+    close(tlayers.rmsnorm(torch.from_numpy(x), torch.from_numpy(g)),
+          jlayers.rmsnorm(jnp.asarray(x), jnp.asarray(g)), 1e-5)
+    close(tlayers.rope_frequencies(16, 1e6),
+          jlayers.rope_frequencies(16, 1e6), 1e-7)
+    close(tlayers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                             1e6),
+          jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6), 1e-5)
+    w = [rng.standard_normal(s, dtype=np.float32) * 0.2
+         for s in ((16, 24), (16, 24), (24, 16))]
+    mlp = tlayers.MLP(16, 24, torch.float32, "cpu")
+    mlp.load_state_dict(dict(zip(("wi_gate", "wi_up", "wo"),
+                                 map(torch.from_numpy, w))))
+    close(tlayers.mlp_apply(mlp, torch.from_numpy(x[:, :, 0])),
+          jlayers.mlp_apply(dict(zip(("wi_gate", "wi_up", "wo"),
+                                     map(jnp.asarray, w))),
+                            jnp.asarray(x[:, :, 0])), 1e-5)
+    # bf16 rounding points: rmsnorm casts back, rope returns x's dtype
+    xb = torch.from_numpy(x).bfloat16()
+    close(tlayers.rmsnorm(xb, torch.from_numpy(g)),
+          jlayers.rmsnorm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(g)),
+          1e-2)
+
+
+# ------------------------------------------------------------- attention
+
+@pytest.mark.parametrize("kv_repeat", [1, 2])
+def test_attention_prefill_and_decode_match(kv_repeat):
+    """Both ported branches: the full sequence with its returned cache,
+    then decode steps into a cache, one of them with a slot past the end
+    (``dynamic_update_slice`` clamps it to the last slot)."""
+    cfg = configs.get_smoke("qwen3_0p6b").with_(kv_repeat=kv_repeat, **F32)
+    p = JLM(cfg).init(jax.random.PRNGKey(2))["blocks"]["attn"]
+    p = jax.tree.map(lambda a: a[0], p)
+    att = tattn.Attention(cfg, "cpu")
+    att.load_state_dict({k: torch.from_numpy(np.array(v))
+                         for k, v in p.items()})
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((B, 12, cfg.d_model), dtype=np.float32)
+    pos = np.arange(12, dtype=np.int32)
+    y, cache = tattn.attention(att, cfg, torch.from_numpy(x),
+                               torch.from_numpy(pos), kv_repeat=kv_repeat,
+                               return_cache=True)
+    jy, jcache = jattn.attention(p, cfg, jnp.asarray(x), jnp.asarray(pos),
+                                 kv_repeat=kv_repeat, return_cache=True)
+    close(y, jy, 1e-5)
+    for a, b in zip(cache, (jcache.k, jcache.v, jcache.pos)):
+        close(a, b, 1e-5)
+    tc = tattn.init_cache(cfg, B, 8, kv_repeat=kv_repeat,
+                          cache_dtype="float32")
+    jc = jattn.init_cache(cfg, B, 8, kv_repeat=kv_repeat,
+                          cache_dtype="float32")
+    for step, slot in ((0, 0), (1, 1), (2, 2), (11, 11)):
+        xs = rng.standard_normal((B, 1, cfg.d_model), dtype=np.float32)
+        ps = np.asarray([step], np.int32)
+        ty, tc = tattn.attention(att, cfg, torch.from_numpy(xs),
+                                 torch.from_numpy(ps), kv_repeat=kv_repeat,
+                                 cache=tc, cache_pos=slot)
+        jy, jc = jattn.attention(p, cfg, jnp.asarray(xs), jnp.asarray(ps),
+                                 kv_repeat=kv_repeat, cache=jc,
+                                 cache_pos=jnp.int32(slot))
+        close(ty, jy, 1e-5)
+        for a, b in zip(tc, (jc.k, jc.v, jc.pos)):
+            close(a, b, 1e-5)
+
+
+# ------------------------------------------------------------ the model
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_matches_reference(arch, dtype):
+    """``_backbone``, the prefill (``LM.prefill`` for the dense family,
+    ``make_prefill_step`` for both) and ``decode_step`` with its caches,
+    past the cache's end included."""
+    cfg = cfg_of(arch, dtype)
+    tol = TOL[dtype]
+    params, lm = pair(cfg)
+    jlm = JLM(cfg)
+    tok = tokens(cfg, (B, S))
+    batch = {"tokens": jnp.asarray(tok)}
+    tbatch = {"tokens": torch.from_numpy(tok).long()}
+    pos = np.arange(S)
+    with torch.inference_mode():
+        x, _ = lm._backbone(lm._embed(tbatch), torch.from_numpy(pos))
+        jx, _ = jlm._backbone(params, jlm._embed(params, batch),
+                              jnp.asarray(pos), batch)
+        close(x, jx, tol)
+        close(tsteps.make_prefill_step(lm)(tbatch),
+              jax.jit(jsteps.make_prefill_step(cfg))(params, batch), tol)
+        if cfg.family == "dense":
+            logits, caches = lm.prefill(tbatch)
+            jlogits, jcaches = jlm.prefill(params, batch)
+            close(logits, jlogits, tol)
+            for a, b in zip(caches, (jcaches.k, jcaches.v, jcaches.pos)):
+                close(a, b, tol)
+        else:
+            with pytest.raises(NotImplementedError):
+                lm.prefill(tbatch)
+        caches = lm.init_caches(B, 8)
+        jcaches = jlm.init_caches(B, 8)
+        jstep = jax.jit(jsteps.make_serve_step(cfg))
+        step = tsteps.make_serve_step(lm)
+        nxt = tokens(cfg, (4, B, 1), seed=5)
+        for t, p_ in enumerate((0, 1, 2, 9)):
+            logits, caches = step(caches, torch.from_numpy(nxt[t]).long(),
+                                  p_)
+            jlogits, jcaches = jstep(params, jcaches, jnp.asarray(nxt[t]),
+                                     jnp.int32(p_))
+            close(logits, jlogits, tol)
+        for a, b in zip(caches, jax.tree.leaves(jcaches)):
+            close(a, b, tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_prefill(arch, dtype):
+    """Decoding a prompt token by token gives the full forward's logits
+    at the last position (``tests/test_arch_smoke.py:86`` for the port);
+    in float32 with a float32 KV cache (the default cache is bf16)."""
+    cfg = cfg_of(arch, dtype)
+    if dtype == "float32":
+        cfg = cfg.with_(cache_dtype="float32")
+    lm = LM(cfg, device="cpu").init(torch.Generator().manual_seed(4))
+    tok = torch.from_numpy(tokens(cfg, (B, 16), seed=6)).long()
+    want = tsteps.make_prefill_step(lm)({"tokens": tok})
+    caches = lm.init_caches(B, 16)
+    with torch.inference_mode():
+        for t in range(16):
+            got, caches = lm.decode_step(caches, tok[:, t:t + 1], t)
+    close(got, want.float().numpy(), TOL[dtype])
+
+
+# ---------------------------------------------- weights and initialisation
+
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_params_from_jax_every_config(arch):
+    """At full width: the reference's tree has the shapes the port
+    derives, and ``params_from_jax`` turns it into exactly the port's
+    ``state_dict`` keys, shapes and dtypes (zero-stride stand-ins, so no
+    memory is spent on the weights)."""
+    cfg = configs.get(arch)
+    shapes = jax.eval_shape(JLM(jconfigs.get(arch)).init,
+                            jax.random.PRNGKey(0))
+    flat = {tuple(k.key for k in path): (tuple(v.shape), v.dtype)
+            for path, v in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    assert {k: v[0] for k, v in flat.items()} == convert.jax_tree_shapes(cfg)
+    tree = {}
+    for path, (shape, dt) in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.lib.stride_tricks.as_strided(
+            np.zeros(1, dt), shape, (0,) * len(shape))
+    sd = convert.params_from_jax(cfg, tree)
+    want = LM(cfg, device="meta").state_dict()
+    assert sd.keys() == want.keys()
+    for k, v in want.items():
+        assert (tuple(sd[k].shape), sd[k].dtype) == (tuple(v.shape),
+                                                     v.dtype), k
+    with pytest.raises(ValueError):
+        bad = dict(tree, ln_f=np.zeros(3, np.float32))
+        convert.params_from_jax(cfg, bad)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_shapes_dtypes_padding_and_scale(arch):
+    """The port's own init: the reference's shapes and dtypes (leaf by
+    leaf against ``jax.eval_shape``), zeroed padded-head rows, ones for
+    norms, and the truncated normal's spread within 5%."""
+    cfg = configs.get_smoke(arch)
+    cfg = cfg.with_(rwkv_pad_heads=6) if cfg.family == "rwkv" \
+        else cfg.with_(pad_q_heads=6)
+    lm = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    shapes = jax.eval_shape(JLM(cfg).init, jax.random.PRNGKey(0))
+    sd = lm.state_dict()
+    for path, v in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        keys = [k.key for k in path]
+        for i in range(cfg.n_layers if keys[0] == "blocks" else 1):
+            name = ".".join(keys if keys[0] != "blocks"
+                            else ["blocks", str(i), *keys[1:]])
+            shape = v.shape[1:] if keys[0] == "blocks" else v.shape
+            assert tuple(sd[name].shape) == tuple(shape), name
+            assert str(sd[name].dtype).split(".")[-1] == str(v.dtype), name
+    blk = lm.blocks[0]
+    if cfg.family == "rwkv":
+        wo = blk.time.wo
+        assert wo.shape[0] > cfg.d_model
+        assert not wo[cfg.d_model:].any() and wo[:cfg.d_model].any()
+        assert (blk.time.w0 == -6).all() and (blk.time.mu_x == 0.5).all()
+    else:
+        wo = blk.attn.wo
+        live = cfg.n_heads * cfg.head_dim
+        assert wo.shape[0] == 6 * cfg.head_dim
+        assert not wo[live:].any() and wo[:live].any()
+    assert (blk.ln1 == 1).all() and (lm.ln_f == 1).all()
+    emb = lm.embed.float()
+    want = 0.98658 * cfg.d_model ** -0.5     # std of N(0,1) cut at +-3
+    assert abs(float(emb.std()) / want - 1) < 0.05
+    assert float(emb.abs().max()) <= 3 * cfg.d_model ** -0.5 * 1.01
+
+
+def test_registry_matches_reference_and_raises_for_unported():
+    for arch in configs.ARCH_NAMES:
+        assert dataclasses.asdict(configs.get(arch)) == \
+            dataclasses.asdict(jconfigs.get(arch))
+        assert dataclasses.asdict(configs.get_smoke(arch)) == \
+            dataclasses.asdict(jconfigs.get_smoke(arch))
+    assert configs.get("qwen3-0.6b") == configs.get("qwen3_0p6b")
+    with pytest.raises(KeyError, match="ROADMAP"):
+        configs.get("yi_34b")
+    with pytest.raises(KeyError, match="ROADMAP"):
+        configs.get_smoke("zamba2-1.2b")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LM(configs.get_smoke("qwen3_0p6b").with_(cache_dtype="int8"),
+           device="cpu")
+
+
+# -------------------------------------------------------------- serving
+
+POLICIES = ("ppcc", "2pl", "occ")
+
+
+def reference_serve(policies=POLICIES):
+    """``{policy: (ticks, tokens)}`` from the summary lines that ``python
+    -m repro.launch.serve --policy P`` prints at its defaults: the
+    module's ``main`` run as ``__main__`` once per policy, in one
+    subprocess, so JAX is imported and the decode step compiled once."""
+    code = ("import runpy, sys\n"
+            "for p in sys.argv[1:]:\n"
+            "    sys.argv = ['serve', '--policy', p]\n"
+            "    runpy.run_module('repro.launch.serve', run_name='__main__',"
+            " alter_sys=True)\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code, *policies], capture_output=True,
+        text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    found = re.findall(r"policy=(\S+) .*ticks=(\d+) tokens=(\d+)",
+                       out.stdout)
+    assert [f[0] for f in found] == list(policies), out.stdout
+    return {p: (int(t), int(n)) for p, t, n in found}
+
+
+@pytest.fixture(scope="module")
+def reference_counts():
+    return reference_serve()
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_serve_matches_reference(policy, reference_counts):
+    ticks, toks = reference_counts[policy]
+    for arch in ("qwen3_0p6b", "rwkv6_3b"):
+        lm = LM(configs.get_smoke(arch), device="cpu").init(
+            torch.Generator().manual_seed(0))
+        out = tserve.serve(lm, policy=policy)
+        assert (out["ticks"], out["tokens"]) == (ticks, toks), arch
+    gold = json.loads(GOLDEN.read_text())["serve"]["policies"][policy]
+    assert (gold["ticks"], gold["tokens"]) == (ticks, toks)
+
+
+def test_golden_describes_the_run():
+    gold = json.loads(GOLDEN.read_text())
+    assert gold["run"] == {"seed": G.SEED, "batch": G.B, "prompt": G.S,
+                           "steps": G.STEPS, "ids": G.N_IDS,
+                           "layers": G.LAYERS}
+    assert set(gold["models"]) == set(G.ARCHES)
+    assert gold["tolerance"]["atol"] > 0 and gold["tolerance"]["how"]
+    for arch, rec in gold["models"].items():
+        cfg = G.golden_config(arch)
+        _, _, ids = G.inputs(cfg)
+        assert rec["ids"] == ids.tolist()
+        assert np.asarray(rec["decode_logits"]).shape == (G.STEPS, G.B,
+                                                          G.N_IDS)
+        assert np.asarray(rec["prefill_lse"]).shape == (G.B,)
+
+
+# ------------------------------------------------------- golden writer
+
+def jax_run(cfg, tree, prompt, cont, ids):
+    """The reference's side of ``repro_torch.launch.golden.port_run``."""
+    params = jax.tree.map(jnp.asarray, tree)
+    jlm = JLM(cfg)
+    batch = {"tokens": jnp.asarray(prompt)}
+    step = jax.jit(jsteps.make_serve_step(cfg))
+
+    def summ(lg):
+        lg = np.asarray(lg, np.float64)
+        m = lg.max(-1, keepdims=True)
+        lse = (m + np.log(np.exp(lg - m).sum(-1, keepdims=True)))[:, 0]
+        return lg[:, ids], lse
+
+    if cfg.family == "dense":
+        logits, pre = jax.jit(jlm.prefill)(params, batch)
+        pad = ((0, 0), (0, 0), (0, cont.shape[1]), (0, 0), (0, 0))
+        caches = jattn.KVCache(jnp.pad(pre.k, pad), jnp.pad(pre.v, pad),
+                               jnp.pad(pre.pos, ((0, 0), (0, cont.shape[1])),
+                                       constant_values=-1), None, None)
+    else:
+        logits = jax.jit(jsteps.make_prefill_step(cfg))(params, batch)
+        caches = jlm.init_caches(prompt.shape[0],
+                                 prompt.shape[1] + cont.shape[1])
+        for t in range(prompt.shape[1]):
+            _, caches = step(params, caches, jnp.asarray(prompt[:, t:t + 1]),
+                             jnp.int32(t))
+    out = dict(zip(("prefill_logits", "prefill_lse"), summ(logits)))
+    dl, dlse = [], []
+    for i in range(cont.shape[1]):
+        logits, caches = step(params, caches, jnp.asarray(cont[:, i:i + 1]),
+                              jnp.int32(prompt.shape[1] + i))
+        a, b = summ(logits)
+        dl.append(a)
+        dlse.append(b)
+    out["decode_logits"] = np.stack(dl)
+    out["decode_lse"] = np.stack(dlse)
+    return out
+
+
+def write_golden():
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    models, errs = {}, {}
+    for arch in G.ARCHES:
+        cfg = G.golden_config(arch)
+        prompt, cont, ids = G.inputs(cfg)
+        tree = convert.random_jax_tree(cfg, G.SEED)
+        want = jax_run(cfg, tree, prompt, cont, ids)
+        lm = LM(cfg, device="cpu")
+        lm.load_state_dict(convert.params_from_jax(cfg, tree))
+        got = G.port_run(lm, prompt, cont, ids)
+        errs[arch] = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+        models[arch] = {"ids": ids.tolist(),
+                        "weights_sha256": convert.tree_sha256(tree),
+                        "prompt_sha256": hashlib.sha256(
+                            prompt.tobytes() + cont.tobytes()).hexdigest(),
+                        **{k: np.round(v, 7).tolist()
+                           for k, v in want.items()}}
+        print(f"{arch}: port on the CPU vs the reference, max abs err "
+              f"{errs[arch]:.3g}", flush=True)
+        del tree, lm
+    serve = {p: {"ticks": t, "tokens": n}
+             for p, (t, n) in reference_serve().items()}
+    worst = max(errs.values())
+    m = max(1e-4, 10 * worst)
+    e = 10.0 ** math.floor(math.log10(m))
+    atol = float(f"{math.ceil(m / e) * e:.1g}")
+    gold = {
+        "command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
+                   "tests/test_torch_lm.py --write-golden",
+        "jax": jax.__version__, "torch": torch.__version__,
+        "cpu_seconds": round(time.perf_counter() - t0, 1),
+        "run": {"seed": G.SEED, "batch": G.B, "prompt": G.S,
+                "steps": G.STEPS, "ids": G.N_IDS, "layers": G.LAYERS},
+        "tolerance": {
+            "atol": atol, "rtol": atol,
+            "cpu_max_abs_err": errs,
+            "how": "the port's float32 run on the CPU (plain kernel "
+                   "versions) against this reference run gave the "
+                   "largest absolute difference cpu_max_abs_err over "
+                   "every logit and logsumexp recorded; atol and rtol "
+                   "are ten times the larger of the two (at least 1e-4), "
+                   "rounded up to one digit, for sums taken in another "
+                   "order on the card (TF32 off)"},
+        "models": models,
+        "serve": {"args": {"requests": 64, "slots": 16, "gen_len": 8,
+                           "pages": 128, "seq": 64},
+                  "command": "python -m repro.launch.serve --policy P",
+                  "policies": serve},
+    }
+    GOLDEN.write_text(json.dumps(gold) + "\n")
+
+
+def bf16_drift(arch="rwkv6_3b", layers=(4, 8), batch=2, steps=128):
+    """Print how far decoding a prompt token by token drifts from the
+    prefill's last logits in bf16, for the reference and the port, on the
+    same seeded weights (``convert.random_jax_tree``) at full width with
+    ``layers`` layers: the drift that keeps ``chip_smoke.py``'s full-depth
+    check of decode against prefill in float32."""
+    for n_layers in layers:
+        cfg = configs.get(arch).with_(n_layers=n_layers)
+        tree = convert.random_jax_tree(cfg, G.SEED)
+        tok = tokens(cfg, (batch, steps), seed=7)
+        lm = LM(cfg, device="cpu")
+        lm.load_state_dict(convert.params_from_jax(cfg, tree))
+        with torch.inference_mode():
+            t_tok = torch.from_numpy(tok).long()
+            want = tsteps.make_prefill_step(lm)({"tokens": t_tok}).float()
+            caches = lm.init_caches(batch, steps)
+            for t in range(steps):
+                got, caches = lm.decode_step(caches, t_tok[:, t:t + 1], t)
+        port = float((got.float() - want).abs().max())
+        del lm, caches
+        params = jax.tree.map(jnp.asarray, tree)
+        params = jax.tree.map(lambda a, d: a.astype(d), params,
+                              jax.eval_shape(JLM(cfg).init,
+                                             jax.random.PRNGKey(0)))
+        jwant = jax.jit(jsteps.make_prefill_step(cfg))(
+            params, {"tokens": jnp.asarray(tok)})
+        step = jax.jit(jsteps.make_serve_step(cfg))
+        jc = JLM(cfg).init_caches(batch, steps)
+        for t in range(steps):
+            jgot, jc = step(params, jc, jnp.asarray(tok[:, t:t + 1]),
+                            jnp.int32(t))
+        ref_d = float(np.abs(np32(jgot) - np32(jwant)).max())
+        print(f"{arch} at full width, {n_layers} layers, bf16, batch "
+              f"{batch}, {steps} tokens: decode against prefill, max abs "
+              f"diff of the last logits: reference {ref_d:.4g}, port "
+              f"{port:.4g} (largest logit {float(want.abs().max()):.3g})",
+              flush=True)
+
+
+if __name__ == "__main__":
+    if "--write-golden" in sys.argv[1:]:
+        write_golden()
+        print(f"wrote {GOLDEN}")
+    elif "--bf16-drift" in sys.argv[1:]:
+        bf16_drift()
+    else:
+        sys.exit("usage: python tests/test_torch_lm.py --write-golden | "
+                 "--bf16-drift")

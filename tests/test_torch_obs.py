@@ -2,10 +2,11 @@
 against the JAX reference, on the CPU, compared bit for bit.
 
 Run ``python tests/test_torch_obs.py --write-golden`` to regenerate
-``src/repro_torch/golden/telemetry_h20000.json``: the JAX reference's
+``src/repro_torch/golden/telemetry_h10000.json``: the JAX reference's
 ``run_grid(delta=True, telemetry=True, trace_every=8, trace_len=256)``
-at the defaults of ``run_grid_h20000.json``, whose telemetry
-``chip_smoke.py`` holds the port's run on the card to.
+at the defaults of ``run_grid_h10000.json`` (``run_grid``'s defaults
+with the horizon cut to 10,000), whose telemetry ``chip_smoke.py``
+holds the port's run on the card to.
 """
 import hashlib
 import json
@@ -35,8 +36,10 @@ from repro_torch.obs import trace as TTR  # noqa: E402
 
 GOLDEN_DIR = Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
     / "golden"
-GRID_GOLDEN = GOLDEN_DIR / "run_grid_h20000.json"
-TM_GOLDEN = GOLDEN_DIR / "telemetry_h20000.json"
+# chip_smoke.py's phase 6 runs the default grid to this horizon
+HORIZON = 10_000
+GRID_GOLDEN = GOLDEN_DIR / f"run_grid_h{HORIZON}.json"
+TM_GOLDEN = GOLDEN_DIR / f"telemetry_h{HORIZON}.json"
 TM_RUN = dict(delta=True, telemetry=True, trace_every=8, trace_len=256)
 HISTS = ("lat_hist", "wait_hist", "restart_hist", "abort_causes",
          "block_causes")
@@ -62,8 +65,8 @@ def mid_lane(figs, mpl_grid, seeds) -> int:
 
 def write_golden(path: Path = TM_GOLDEN) -> None:
     """Run the reference ``run_grid`` with ``TM_RUN`` at the defaults of
-    ``run_grid_h20000.json``, check its lane metrics against that file,
-    and write every lane's telemetry."""
+    ``GRID_GOLDEN``, check its lane metrics against that file, and write
+    every lane's telemetry."""
     from repro.core import sweep
     from repro.obs import metrics as JM
 
@@ -100,7 +103,7 @@ def write_golden(path: Path = TM_GOLDEN) -> None:
                                            grid["seeds"])
     doc = {
         "what": "per-lane telemetry of the JAX reference repro.core.sweep."
-                "run_grid(**run) at the defaults of run_grid_h20000.json, "
+                f"run_grid(**run) at the defaults of {GRID_GOLDEN.name}, "
                 "lanes figure-major (lane f*M*S + m*S + s); traces as "
                 "sha256 of float32 little-endian bytes, the mid lane's "
                 "in full",
@@ -273,10 +276,11 @@ def test_host_reductions_match_reference(tmp_path):
 # --------------------------------------------------------------------------
 
 def test_golden_schema_and_input_digest():
-    """``telemetry_h20000.json`` describes the run ``chip_smoke.py``
-    makes: the grid of ``run_grid_h20000.json`` and the defaults of
-    ``run_grid``, the lanes the port builds for it (their digest), the
-    port's histogram edges, and every lane's telemetry of that run."""
+    """``telemetry_h10000.json`` describes the run ``chip_smoke.py``
+    makes: the grid of ``run_grid_h10000.json``, the defaults of
+    ``run_grid`` but the horizon, the lanes the port builds for it
+    (their digest), the port's histogram edges, and every lane's
+    telemetry of that run."""
     import inspect
     doc = json.loads(TM_GOLDEN.read_text())
     base = json.loads(GRID_GOLDEN.read_text())
@@ -284,7 +288,7 @@ def test_golden_schema_and_input_digest():
                 inspect.signature(TS.run_grid).parameters.items()}
     for k in ("figs", "mpl_grid", "seeds", "protocols"):
         assert doc[k] == base[k] == list(defaults[k]), k
-    assert doc["horizon"] == base["horizon"] == defaults["horizon"]
+    assert doc["horizon"] == base["horizon"] == HORIZON
     assert doc["run"] == TM_RUN
     seed_l, mpl_l, rt_l = TS.grid_lanes(doc["figs"], doc["mpl_grid"],
                                         doc["seeds"], "cpu")
