@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""Time two checkouts of the PyTorch/CUDA port on one NVIDIA GPU, in turns.
+
+Usage, from the root of a checkout:
+
+    python3 chip_ab.py OLD_DIR NEW_DIR [--rounds N]
+
+OLD_DIR and NEW_DIR are roots of two checkouts (for example the parent
+commit unpacked with ``git archive`` into a directory that .gitignore
+lists, and ``.``).  Each measurement runs in its own process that
+imports only that checkout's ``src/`` and builds its kernels into that
+checkout's ``build/kernels/``, in the order old, new, new, old (N rounds
+of the pair, mirrored), so that a drift of the host or the card shows
+as a difference between the two runs of one checkout.
+
+Every metric is defined once, in the ``chip_smoke.py`` beside this
+script, and both checkouts are measured with those same helpers: on the
+paper grid's PPCC batch (run_grid's default lanes, n = 160 slots) after
+200 body iterations, the wall of one batch iteration (median of 3
+``iteration_ms`` windows) with the relations recomputed by the megastep
+kernel and with delta-maintained relations; for the delta iteration, the
+launches counted by the port's wrappers and, from ``profile_iteration``,
+the device kernel time, the kernels and the row-slab kernels' time; the
+bf16 prefill of qwen3-0.6b at full depth on 8 x 1,024 tokens
+(``median_wall_ms`` of 5, seeded random weights); and flash_attention
+alone on random bf16 inputs of its main-path shape (B = 8, H = 16,
+S = 1,024, D = 128, causal) by ``cuda_times``, after a device sleep and
+back to back.  Each run prints one JSON line; the last lines are the
+card's name and power limit and a summary of medians per checkout.  The
+script imports nothing of JAX and nothing of the JAX package.
+"""
+import inspect
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke as smoke
+
+CAPTURE_ITERS = 200
+
+
+def measure(root: Path) -> dict:
+    """One checkout's numbers on this process's card."""
+    import torch
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch import configs
+    from repro_torch.core import sweep
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import LM
+
+    dev = torch.device("cuda")
+    out = {"dir": str(root)}
+    defaults = {k: v.default for k, v in
+                inspect.signature(sweep.run_grid).parameters.items()}
+    figs, mpls, seeds = (defaults[k] for k in ("figs", "mpl_grid", "seeds"))
+    cover = sweep.grid_cover_params(figs).with_(
+        horizon=float(defaults["horizon"]))
+    lanes = sweep.grid_lanes(figs, mpls, seeds, dev)
+    n_slots = sweep.slot_bucket(max(mpls))
+
+    states = {}
+    for label, delta in (("kernels", False), ("delta", True)):
+        fleet = sweep.Fleet(cover, n_slots=n_slots, delta=delta,
+                            device=dev)
+        init, cond, step = fleet.parts["ppcc"]
+        s = init(*lanes)
+        for _ in range(CAPTURE_ITERS):
+            s = sweep._select(cond(s), step(s), s)
+        states[label] = (cond, step, s)
+    for label, (cond, step, s) in states.items():
+        out[f"{label}_iter_ms"] = statistics.median(
+            smoke.iteration_ms(cond, step, s, sweep, torch)
+            for _ in range(3))
+    cond, step, s = states["delta"]
+    ops.reset_launches()
+    sweep._select(cond(s), step(s), s)
+    torch.cuda.synchronize()
+    out["delta_launches_per_iter"] = {
+        k: v for k, v in ops.launch_counts().items() if v}
+    dev_ms, kernels, per = smoke.profile_iteration(cond, step, s, sweep,
+                                                   torch)
+    slab = [v for key, v in per.items() if "rowslab" in key]
+    out["delta_device_ms"] = dev_ms
+    out["delta_kernels_per_iter"] = kernels
+    out["delta_rowslab_device_ms"] = sum(ms for ms, _ in slab)
+    out["delta_rowslab_kernels_per_iter"] = sum(c for _, c in slab)
+    del states, s
+
+    cfg = configs.get("qwen3_0p6b")
+    gen = torch.Generator(dev).manual_seed(0)
+    lm = LM(cfg, device=dev).init(gen)
+    tok = torch.randint(0, cfg.vocab, (8, 1024), generator=gen, device=dev)
+    prefill = steps.make_prefill_step(lm)
+    out["qwen3_prefill_ms"] = smoke.median_wall_ms(
+        lambda: prefill({"tokens": tok}), 5, torch)
+    del lm, prefill
+
+    q, k, v = (torch.randn((8, 1024, 16, 128), generator=gen, device=dev)
+               .bfloat16().transpose(1, 2) for _ in range(3))
+
+    def flash():
+        kflash.flash_attention(q, k, v, causal=True)
+    out["flash_bf16_ms"] = smoke.cuda_times(flash, 20, torch)
+    out["flash_bf16_ms_no_sleep"] = smoke.cuda_times(flash, 20, torch,
+                                                     sleep=False)
+    return out
+
+
+def main() -> None:
+    args = sys.argv[1:]
+    if args[:1] == ["--measure"]:
+        import torch
+        if not torch.cuda.is_available():
+            print("FAIL: no CUDA GPU", flush=True)
+            sys.exit(1)
+        print(json.dumps(measure(Path(args[1]).resolve())), flush=True)
+        return
+    rounds = 1
+    if "--rounds" in args:
+        i = args.index("--rounds")
+        rounds = int(args[i + 1])
+        del args[i:i + 2]
+    if len(args) != 2:
+        print(__doc__)
+        sys.exit(2)
+    roots = [Path(a).resolve() for a in args]
+    for r in roots:
+        if not (r / "src" / "repro_torch").is_dir():
+            print(f"FAIL: {r} holds no src/repro_torch")
+            sys.exit(1)
+    order = [0, 1, 1, 0] * rounds
+    results = {0: [], 1: []}
+    for which in order:
+        proc = subprocess.run([sys.executable, __file__, "--measure",
+                               str(roots[which])], capture_output=True,
+                              text=True)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode or not lines:
+            print(f"FAIL: the measurement of {roots[which]} exited "
+                  f"{proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                  f"{proc.stderr[-4000:]}", flush=True)
+            sys.exit(1)
+        print(lines[-1], flush=True)
+        results[which].append(json.loads(lines[-1]))
+    print(smoke.smi_line(), flush=True)
+    keys = [k for k, v in results[0][0].items()
+            if isinstance(v, float) and k in results[1][0]]
+    print(json.dumps({str(roots[w]): {k: statistics.median(
+        r[k] for r in results[w]) for k in keys} for w in (0, 1)}),
+        flush=True)
+
+
+if __name__ == "__main__":
+    main()

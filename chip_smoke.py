@@ -9,10 +9,13 @@ Phases (any failure exits non-zero):
   2. hold each kernel bit-equal to its plain PyTorch version on the card:
      the cohort-step megakernel at the main path's shape (168 lanes,
      n = 160, W = 16, inputs captured mid-run) and at tile-edge shapes, the
-     row-slab kernel at the delta fleet's shape (K = 40, inputs captured
-     mid-run) and at edge shapes (n in {1, 14, 33, 160, 300}, K in {1, 4,
-     40, n}, an all-invalid slab, slab ids at the top of the range), and
-     both scan kernels at the main path's shape;
+     row-slab drain at the delta fleet's shape (its inputs captured
+     mid-run) and at edge shapes (n in {1, 14, 33, 160, 300}, lanes with no
+     dirty slot, one, all n and random masks, tables off a 4-byte
+     boundary), the row-slab slab entry at the delta fleet's shape (the
+     captured dirty slots as a slab of K = 40) and at edge shapes (K in
+     {1, 4, 40, n}, an all-invalid slab, slab ids at the top of the range),
+     and both scan kernels at the main path's shape;
   3. the main path: repro_torch.core.sweep.run_grid() with its defaults but
      the horizon — Figs. 5-16 x 7 MPLs x 2 seeds = 168 lanes per protocol,
      n = 160 slots, 500 items, PPCC / 2PL / OCC, to horizon 5,000 (phase 6
@@ -21,13 +24,17 @@ Phases (any failure exits non-zero):
      src/repro_torch/golden/run_grid_h5000.json, the megastep launch count
      equal to the PPCC body iterations, and the Theorem-1 invariants on the
      final PPCC states;
-  4. kernel times (medians over CUDA events) beside their bounds and
-     their plain versions; one batch iteration of each protocol with the
-     kernels, with the plain versions and with telemetry on, and of PPCC
-     with delta-maintained relations (with and without telemetry); and the
+  4. kernel times (medians over CUDA-event pairs, each after a 1 ms
+     device sleep that hides the host's dispatch; each row also gives the
+     pairs back to back, ms_no_sleep, the way earlier versions of this
+     script took every time) beside their bounds and their plain versions, the row-slab
+     drain's bound from the bytes the captured dirty masks make it move;
+     one batch iteration of each protocol with the kernels, with the
+     plain versions and with telemetry on, and of PPCC with
+     delta-maintained relations (with and without telemetry); and the
      device-busy share of a PPCC batch iteration, without and with delta:
      device kernel time from torch.profiler over the unprofiled iteration
-     time;
+     time, with the row-slab kernels' share of the delta iteration;
   5. the batch scheduler at full width (repro_torch.sched): n = 4,096
      pending YCSB transactions over 32,768 pages (W = 1,024 words), the
      input digest checked against the JAX golden
@@ -51,9 +58,14 @@ Phases (any failure exits non-zero):
      lane's telemetry (histograms, cause counts, ring buffer) equal to the
      JAX reference's src/repro_torch/golden/telemetry_h10000.json, the
      megastep launched once (the init's seeding of the relations) and the
-     row-slab kernel ceil(n/K) times per PPCC body iteration, the Theorem-1
+     row-slab drain once per PPCC body iteration, the Theorem-1
      invariants on the final PPCC states, and every lane's carried
-     relations equal to a full recompute of its final state.
+     relations equal to a full recompute of its final state;
+  7. LM serving: the full-width float32 golden (flash on its CUDA-core
+     route), the full-depth bf16 prefill of qwen3-0.6b (flash on its
+     tensor-core route, one launch per layer) and rwkv6-3b, decode
+     against prefill, serve() under each policy; flash and wkv held to
+     their plain versions at the main-path inputs and at edge shapes.
 
 Phase 6 runs right after phase 3, before phase 4's profiler sessions.
 The last lines are the kernel table as one JSON object, the card's name
@@ -92,19 +104,28 @@ CAPTURE_ITERS = 200              # body iterations before capturing inputs
 TM_RUN = dict(delta=True, telemetry=True, trace_every=8, trace_len=256)
 LM_GOLDEN = SRC / "repro_torch" / "golden" / "lm_full_width.json"
 LM_ARCHES = ("qwen3_0p6b", "rwkv6_3b")
+# the float32 golden run's counters (flash's CUDA-core route); the bf16
+# main path counts flash on its tensor-core route, flash_attention_tc
 LM_KERNEL = {"dense": "flash_attention", "rwkv": "wkv_chunked"}
 PREFILL_B, PREFILL_S = 8, 1024
 DECODE_CHECK = {"qwen3_0p6b": 64, "rwkv6_3b": 128}   # prompt tokens decoded
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
-# (b, Hq, Hkv, Sq, Sk, D, dtype, causal, window)
+# (b, Hq, Hkv, Sq, Sk, D, dtype, causal, window); the bf16 shapes take the
+# tensor-core route, D = 20 with TMA-unaligned rows (staged by the
+# kernel's producer), Sq = 300 > Sk = 200 with window 32 rows whose every
+# key is masked
 FLASH_EDGES = [(2, 8, 8, 128, 128, 64, "bfloat16", True, 0),
                (1, 8, 4, 100, 100, 16, "float32", True, 0),
                (1, 8, 1, 128, 256, 128, "bfloat16", False, 0),
                (1, 4, 2, 200, 130, 64, "float32", True, 32),
                (2, 16, 16, 333, 333, 128, "bfloat16", False, 32),
-               (1, 8, 8, 64, 64, 128, "float32", True, 0)]
+               (1, 8, 8, 64, 64, 128, "float32", True, 0),
+               (1, 4, 2, 300, 200, 128, "bfloat16", True, 32),
+               (1, 4, 4, 100, 90, 20, "bfloat16", True, 0),
+               (1, 2, 2, 200, 200, 256, "bfloat16", True, 0)]
 WKV_EDGE_CHUNKS = (16, 64, 128)  # H = 48, D = 64, S = chunk and 8 chunk
+SLEEP_CYCLES = 2_000_000         # ~1 ms of device sleep ahead of a timing
 
 
 def fail(msg: str) -> None:
@@ -134,21 +155,44 @@ def max_sm_clock_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def cuda_times(fn, reps: int, torch) -> float:
+def cuda_times(fn, reps: int, torch, sleep: bool = True) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` CUDA-event pairs,
-    after two warm-up calls."""
+    after two warm-up calls.  With ``sleep``, each pair follows a 1 ms
+    device sleep, so that up to 1 ms of the host's dispatch (the
+    wrapper's checks, the launch) overlaps the sleep instead of opening a
+    gap between the events: the time is the card's.  Without it the
+    pairs run back to back, as earlier versions of this script took every
+    time, and a short kernel's time also holds the part of the host's
+    dispatch that the card does not hide; the kernel rows give both, so
+    that a time is compared only with one taken the same way."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if sleep:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def median_wall_ms(fn, reps: int, torch) -> float:
+    """Median synchronised wall milliseconds of ``fn()`` over ``reps``
+    calls, after one warm-up call."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(walls)
 
 
 def dev_time(e) -> float:
@@ -211,19 +255,39 @@ def random_rowslab_inputs(n, d, k, gen, torch, B, dev):
     return tuple(a.to(dev).contiguous() for a in args)
 
 
-def capture_rowslab(fn, kmega):
-    """The arguments of every row-slab launch that ``fn()`` makes."""
-    calls, launch = [], kmega.rowslab
+def random_drain_inputs(n, d, gen, torch, B, dev):
+    """Five lanes of drain inputs on ``dev``: random words, carried tables
+    that are not a full recompute's, op data and flags, and dirty masks:
+    lane 0 none, lane 1 one slot, lane 2 all n, lanes 3-4 random."""
+    lanes = 5
+    words = [B.pack(torch.rand((lanes, n, d), generator=gen) < p)
+             for p in (0.03, 0.02)]
+    tables = [torch.rand((lanes, n, n), generator=gen) < 0.1
+              for _ in range(4)]
+    item = torch.randint(0, d, (lanes, n), generator=gen, dtype=torch.int32)
+    flags = [torch.rand((lanes, n), generator=gen) < q for q in (0.4, 0.8)]
+    dirty = torch.rand((lanes, n), generator=gen) < 0.2
+    dirty[0] = False
+    dirty[1] = False
+    dirty[1, n - 1] = True
+    dirty[2] = True
+    args = (*words, *tables, item, *flags, dirty)
+    return tuple(a.to(dev).contiguous() for a in args)
 
-    def spy(*args):
+
+def capture_calls(fn, mod, name):
+    """The arguments of every call of ``mod.<name>`` that ``fn()`` makes."""
+    calls, launch = [], getattr(mod, name)
+
+    def spy(*args, **kw):
         calls.append(tuple(a.clone() for a in args))
-        return launch(*args)
+        return launch(*args, **kw)
 
-    kmega.rowslab = spy
+    setattr(mod, name, spy)
     try:
         fn()
     finally:
-        kmega.rowslab = launch
+        setattr(mod, name, launch)
     return calls
 
 
@@ -264,26 +328,43 @@ def iteration_ms(cond, step, s, sweep, torch, reps=32) -> float:
     return (time.perf_counter() - t) / reps * 1e3
 
 
-def profile_iteration(cond, step, s, sweep, torch, reps=32):
-    """(device ms per iteration, kernels per iteration, the five largest
-    (device ms per iteration, name) entries) of ``reps`` profiled batch
-    iterations from ``s``; zero time if the profiler saw no device
-    time."""
+def device_profile(fn, reps: int, torch):
+    """(device ms, kernels, {kernel: (device ms, launches)}), each per
+    call, of ``reps`` calls of ``fn()`` under torch.profiler; zero time
+    if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(4):
-        s = sweep._select(cond(s), step(s), s)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            s = sweep._select(cond(s), step(s), s)
+            fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    dev_us = sum(dev_time(e) for e in events) / reps
-    kernels = sum(e.count for e in events if dev_time(e) > 0) / reps
-    top = sorted(((dev_time(e) / reps / 1e3, e.key) for e in events
-                  if dev_time(e) > 0), reverse=True)[:5]
-    return dev_us / 1e3, kernels, top
+    per = {}
+    for e in prof.key_averages():
+        if dev_time(e) > 0:
+            ms, count = per.get(e.key, (0.0, 0.0))
+            per[e.key] = (ms + dev_time(e) / reps / 1e3,
+                          count + e.count / reps)
+    return (sum(ms for ms, _ in per.values()),
+            sum(c for _, c in per.values()), per)
+
+
+def largest(per: dict, k: int) -> list:
+    """The ``k`` largest (device ms, kernel) of a ``device_profile``."""
+    return sorted(((ms, key) for key, (ms, _) in per.items()),
+                  reverse=True)[:k]
+
+
+def profile_iteration(cond, step, s, sweep, torch, reps=32):
+    """``device_profile`` of one batch iteration, over ``reps`` batch
+    iterations from ``s`` after four unprofiled ones."""
+    for _ in range(4):
+        s = sweep._select(cond(s), step(s), s)
+    torch.cuda.synchronize()
+    box = [s]
+
+    def body():
+        box[0] = sweep._select(cond(box[0]), step(box[0]), box[0])
+    return device_profile(body, reps, torch)
 
 
 def sched_phase(torch, dev, bound, cuda_ms) -> list:
@@ -405,7 +486,6 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
         counts[k] += v
 
     # ---- the device's share of a tick: ppcc tick + tick_stats, first input
-    from torch.profiler import ProfilerActivity, profile
     valid = torch.ones(n, dtype=torch.bool, device=dev)
 
     def one_tick():
@@ -418,20 +498,12 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
         one_tick()
     torch.cuda.synchronize()
     tick_ms = (time.perf_counter() - t) / 4 * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(4):
-            one_tick()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    dev_ms = sum(dev_time(e) for e in events) / 4 / 1e3
-    top = sorted(((dev_time(e) / 4 / 1e3, e.key) for e in events
-                  if dev_time(e) > 0), reverse=True)[:4]
+    dev_ms, _, per = device_profile(one_tick, 4, torch)
     if dev_ms > 0:
         log(f"[5] ppcc tick + tick_stats: {tick_ms:.3f} ms wall unprofiled, "
             f"{dev_ms:.3f} ms device kernel time, device idle "
             f"{100 * (1 - dev_ms / tick_ms):.1f}%; largest: "
-            + ", ".join(f"{k[:40]} {v:.3f} ms" for v, k in top))
+            + ", ".join(f"{k[:40]} {v:.3f} ms" for v, k in largest(per, 4)))
     else:
         log(f"[5] ppcc tick + tick_stats: {tick_ms:.3f} ms wall; device "
             f"time not measured (profiler saw no device time)")
@@ -531,6 +603,8 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
             fail(f"the library call for {name} disagrees with the kernel")
         del lib_out, k_out
         ms = cuda_ms(lambda: getattr(kconf, name)(read, write), 10)
+        ms0 = cuda_ms(lambda: getattr(kconf, name)(read, write), 10,
+                      sleep=False)
         pms = cuda_ms(lambda: getattr(ref, f"{name}_ref")(read, write), 2)
         lms = cuda_ms(lambda: library(name), 5)
         relations = 1 if name == "conflict_matrix" else 2
@@ -551,9 +625,11 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
                               ":153)",
             "conflict_fused_full": "222 (_conflict_fused_full_kernel, "
                                    "pallas_call at :238)"}[name],
-            "src/repro_torch/csrc/conflict.cu", ms, pms, b_ms, b_by, lms))
+            "src/repro_torch/csrc/conflict.cu", ms, ms0, pms, b_ms, b_by,
+            lms))
     for name, args in adm.items():
         ms = cuda_ms(lambda: getattr(kadm, name)(*args), 10)
+        ms0 = cuda_ms(lambda: getattr(kadm, name)(*args), 10, sleep=False)
         pms = cuda_ms(lambda: getattr(ref, f"{name}_ref")(*args), 1)
         if name == "ppcc_admit":   # raw, valid, seq in; flags, prec out
             nbytes, nops = n * n + 5 * n + 3 * n + n * n, 4 * n * n
@@ -565,17 +641,19 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
         line = {"ppcc_admit": "173-191", "twopl_admit": "223-228",
                 "occ_admit": "247-254"}[name]
         rows.append((name, f"src/repro/sched/scheduler.py:{line} (an XLA "
-                     f"scan)", "src/repro_torch/csrc/admit.cu", ms, pms,
-                     b_ms, b_by, None))
+                     f"scan)", "src/repro_torch/csrc/admit.cu", ms, ms0,
+                     pms, b_ms, b_by, None))
     table = []
-    for name, repl, src, ms, pms, b_ms, b_by, lms in rows:
+    for name, repl, src, ms, ms0, pms, b_ms, b_by, lms in rows:
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": repl, "launches": counts[name],
                       "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lms})
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lms,
+                      "ms_no_sleep": ms0})
         if name in floors:
             table[-1]["tensor_core_floor_ms"] = floors[name]
-        log(f"[5] {name}: {ms:.4f} ms (plain {pms:.4f} ms, bound "
+        log(f"[5] {name}: {ms:.4f} ms ({ms0:.4f} ms back to back; plain "
+            f"{pms:.4f} ms, bound "
             f"{b_ms:.5f} ms by {b_by}"
             + (f" of 32-bit logic, int8 tensor-core floor "
                f"{floors[name]:.5f} ms" if name in floors else "")
@@ -690,18 +768,21 @@ def lm_phase(torch, dev, smi, cuda_ms):
         kflash.flash_attention = real["flash_attention"]
         kwkv.wkv_chunked = real["wkv_chunked"]
     lm_counts = ops.launch_counts()
-    want = {"flash_attention": configs.get("qwen3_0p6b").n_layers,
+    want = {"flash_attention_tc": configs.get("qwen3_0p6b").n_layers,
+            "flash_attention": 0,
             "wkv_chunked": configs.get("rwkv6_3b").n_layers}
     got = {k: lm_counts[k] for k in want}
     if got != want:
         fail(f"[7] launches on the LM main path {got}, expected one per "
-             f"layer of each prefill {want}")
+             f"layer of each prefill, bf16 flash on the tensor cores only "
+             f"{want}")
     sched = {k: v for k, v in lm_counts.items() if v and k not in want}
     if not sched.get("conflict_fused") or not sched.get("ppcc_admit"):
         fail(f"[7] serve() launched no admission kernels: {sched}")
     log(f"[7] main path (one prefill of {PREFILL_B} x {PREFILL_S} per model, "
         f"serve() under ppcc, 2pl, occ per model): launches {got}, one per "
-        f"layer; admission kernels {sched}")
+        f"layer, bf16 flash on its tensor-core route; admission kernels "
+        f"{sched}")
     for arch in LM_ARCHES:
         lg = main_out[arch, "prefill"]
         if lg.shape != (PREFILL_B, configs.get(arch).vocab) or \
@@ -749,14 +830,8 @@ def lm_phase(torch, dev, smi, cuda_ms):
 
     for arch, lm in lms.items():
         prefill = steps.make_prefill_step(lm)
-        reps = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            prefill({"tokens": toks[arch]})
-            torch.cuda.synchronize()
-            reps.append(time.perf_counter() - t)
-        walls[arch, "prefill"] = statistics.median(reps)
+        walls[arch, "prefill"] = median_wall_ms(
+            lambda: prefill({"tokens": toks[arch]}), 3, torch) / 1e3
         n = DECODE_CHECK[arch]
         err, scale, walls[arch, "decode"] = against_prefill(
             lm, toks[arch][:, :n])
@@ -856,6 +931,8 @@ def lm_phase(torch, dev, smi, cuda_ms):
     b, hq, s_q, d = q.shape
     hkv = k.shape[1]
     ms_f = cuda_ms(lambda: real["flash_attention"](*fargs, **fkw), 20)
+    ms0_f = cuda_ms(lambda: real["flash_attention"](*fargs, **fkw), 20,
+                    sleep=False)
     plain_f = cuda_ms(lambda: ref.flash_attention_ref(*fargs, **fkw), 3)
 
     def library():
@@ -869,6 +946,10 @@ def lm_phase(torch, dev, smi, cuda_ms):
                                real["flash_attention"](*fargs, **fkw).float(),
                                atol=2e-2, rtol=2e-2)
     lib_f = cuda_ms(library, 20)
+    # the float32 route (CUDA cores) at the same shape, for the record
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    ms_f32 = cuda_ms(lambda: real["flash_attention"](q32, k32, v32, **fkw), 5)
+    del q32, k32, v32
     esz = q.element_size()
     f_bytes = (q.numel() * 2 + k.numel() + v.numel()) * esz
     f_flops = 4 * b * hq * (s_q * (s_q + 1) // 2) * d   # QK^T and PV, i >= j
@@ -880,6 +961,8 @@ def lm_phase(torch, dev, smi, cuda_ms):
     bw, hw, sw, dw = r.shape
     chunk = wkw["chunk"]
     ms_w = cuda_ms(lambda: real["wkv_chunked"](*wargs, **wkw), 20)
+    ms0_w = cuda_ms(lambda: real["wkv_chunked"](*wargs, **wkw), 20,
+                    sleep=False)
     plain_w = cuda_ms(lambda: ref.wkv_chunked_ref(*wargs, **wkw), 3)
     w_bytes = (3 * r.numel() * r.element_size() + lw.numel() * 4
                + u.numel() * 4 + r.numel() * 4 + bw * hw * dw * dw * 4)
@@ -889,14 +972,18 @@ def lm_phase(torch, dev, smi, cuda_ms):
     w_by = "bytes" if w_bytes / HBM_BYTES_PER_S >= \
         w_flops / F32_OPS_PER_S else "operations"
     log(f"[7] flash_attention at B={b} Hq={hq} Hkv={hkv} S={s_q} D={d} "
-        f"{str(q.dtype)[6:]} causal: {ms_f:.4f} ms (plain {plain_f:.4f} ms, "
+        f"{str(q.dtype)[6:]} causal: {ms_f:.4f} ms ({ms0_f:.4f} ms back to "
+        f"back; plain {plain_f:.4f} ms, "
         f"SDPA {lib_f:.4f} ms; bound {f_bound:.5f} ms by {f_by}: "
         f"{f_bytes / 1e6:.1f} MB at 3.35 TB/s against {f_flops / 1e9:.2f} "
-        f"GFLOP at the bf16 tensor-core 989 TFLOP/s; this float32 "
-        f"CUDA-core formulation's floor {f_core:.4f} ms at 67 TFLOP/s) "
+        f"GFLOP at the bf16 tensor-core 989 TFLOP/s; a CUDA-core "
+        f"formulation's floor {f_core:.4f} ms at 67 TFLOP/s; the float32 "
+        f"route at this shape {ms_f32:.4f} ms); tensor-core route "
+        f"{ms_f / lib_f:.2f}x SDPA, {ms_f / f_bound:.2f}x its bound "
         f"[{smi}]")
     log(f"[7] wkv_chunked at B={bw} H={hw} S={sw} D={dw} chunk={chunk} "
-        f"{str(r.dtype)[6:]} r/k/v: {ms_w:.4f} ms (plain {plain_w:.4f} ms; "
+        f"{str(r.dtype)[6:]} r/k/v: {ms_w:.4f} ms ({ms0_w:.4f} ms back to "
+        f"back; plain {plain_w:.4f} ms; "
         f"bound {w_bound:.5f} ms by {w_by}: {w_bytes / 1e6:.1f} MB at 3.35 "
         f"TB/s against {w_flops / 1e9:.2f} GFLOP of float32 chunk products "
         f"at 67 TFLOP/s; library call: none) [{smi}]")
@@ -906,24 +993,29 @@ def lm_phase(torch, dev, smi, cuda_ms):
          "replaces": "src/repro/kernels/flash_attention.py:83 "
                      "(flash_attention; _flash_kernel at :30, pallas_call "
                      "at :103)",
-         "launches": lm_counts["flash_attention"],
+         "launches": lm_counts["flash_attention_tc"],
          "max_abs_err": errs["flash_attention"], "ms": ms_f,
          "plain_ms": plain_f, "bound_ms": f_bound, "bound_by": f_by,
-         "library_ms": lib_f, "cuda_core_floor_ms": f_core},
+         "library_ms": lib_f, "cuda_core_floor_ms": f_core,
+         "routes": {"bfloat16": "flash_attention_tc (wgmma, TMA)",
+                    "float32": "flash_attention (CUDA cores)"},
+         "launches_by_route": {r: lm_counts[r] for r in
+                               ("flash_attention_tc", "flash_attention")},
+         "float32_route_ms": ms_f32, "ms_no_sleep": ms0_f},
         {"name": "wkv_chunked", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv.cu",
          "replaces": "src/repro/kernels/wkv.py:72 (wkv_chunked; _wkv_kernel "
                      "at :27, pallas_call at :81)",
          "launches": lm_counts["wkv_chunked"],
          "max_abs_err": errs["wkv_chunked"], "ms": ms_w, "plain_ms": plain_w,
-         "bound_ms": w_bound, "bound_by": w_by, "library_ms": None}]
+         "bound_ms": w_bound, "bound_by": w_by, "library_ms": None,
+         "ms_no_sleep": ms0_w}]
     del captured, fargs, wargs, q, k, v, r, k_, v_, lw, u
     log(f"[7] phase 7 walls and checks in {time.perf_counter() - t7:.1f} s")
 
     def busy_shares():
         """Device kernel time of one decode and one prefill step from
         torch.profiler, over the walls taken above."""
-        from torch.profiler import ProfilerActivity, profile
         for arch, lm in lms.items():
             n = DECODE_CHECK[arch]
             caches = lm.init_caches(PREFILL_B, n)
@@ -934,18 +1026,10 @@ def lm_phase(torch, dev, smi, cuda_ms):
                     ("prefill", lambda: prefill({"tokens": toks[arch]}), 1)):
                 fn()
                 torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    with torch.inference_mode():
-                        for _ in range(reps):
-                            fn()
-                    torch.cuda.synchronize()
-                events = prof.key_averages()
-                dev_ms = sum(dev_time(e) for e in events) / reps / 1e3
+                with torch.inference_mode():
+                    dev_ms, _, per = device_profile(fn, reps, torch)
                 wall_ms = walls[arch, label] * 1e3
-                top = sorted(((dev_time(e) / reps / 1e3, e.key)
-                              for e in events if dev_time(e) > 0),
-                             reverse=True)[:3]
+                top = largest(per, 3)
                 if dev_ms > 0:
                     log(f"[7] {arch} {label} step: {dev_ms:.3f} ms device "
                         f"kernel time (profiled) over {wall_ms:.3f} ms wall "
@@ -1070,24 +1154,66 @@ def main() -> None:
                 *((a, b) if isinstance(a, tuple) else ((a,), (b,))))):
             fail(f"the delta fleet's {name} differs from the full-recompute "
                  f"fleet's after {CAPTURE_ITERS} iterations")
-    chunks = -(-n // dstep.cfg.delta_k)
-    slab_calls = capture_rowslab(lambda: dstep(s_d), kmega)
-    if len(slab_calls) != chunks:
-        fail(f"one delta body launched rowslab {len(slab_calls)} times, "
-             f"not ceil(n/K) = {chunks}")
-    sargs = slab_calls[0]
-    k = sargs[7].shape[1]
-    n_valid = sargs[8].sum(1)
+    drain_calls = capture_calls(lambda: dstep(s_d), kmega, "rowslab_drain")
+    if len(drain_calls) != 1:
+        fail(f"one delta body launched rowslab_drain {len(drain_calls)} "
+             f"times, not once")
+    dargs = drain_calls[0]
+    dirty_m = dargs[9]
+    m_lane = dirty_m.sum(1)
     log(f"[2] delta fleet after {CAPTURE_ITERS} iterations: every leaf but "
         f"rel equals the full-recompute fleet's; its next body launches "
-        f"rowslab {len(slab_calls)} times at K={k}, the first slab holding "
-        f"{int(n_valid.sum())} dirty slots over {lanes} lanes (at most "
-        f"{int(n_valid.max())} in a lane)")
-    g, w_ = kmega.rowslab(*sargs), ref.rowslab_ref(*sargs)
+        f"rowslab_drain once, for {int(m_lane.sum())} dirty slots over "
+        f"{lanes} lanes (at most {int(m_lane.max())} in a lane, "
+        f"{int((m_lane == 0).sum())} lanes with none)")
+    before = [a.clone() for a in dargs]
+    g = kmega.rowslab_drain(*dargs)
+    w_ = ref.rowslab_drain_ref(*dargs, k=dstep.cfg.delta_k)
     torch.cuda.synchronize()
     errs["rowslab"] = max_abs_err(g, w_, torch)
     if errs["rowslab"] or not all(torch.equal(x, y) for x, y in zip(g, w_)):
+        fail("rowslab_drain differs from rowslab_drain_ref at the main-path "
+             "shape")
+    if not all(torch.equal(a, b) for a, b in zip(dargs, before)):
+        fail("rowslab_drain changed its inputs (the parent state) at the "
+             "main-path shape")
+    del before
+    drain_edges = []
+    for en, ed in SLAB_EDGE_N.items():
+        args = random_drain_inputs(en, ed, gen, torch, B, dev)
+        before = [a.clone() for a in args]
+        g = kmega.rowslab_drain(*args)
+        w_ = ref.rowslab_drain_ref(*args, k=min(SLAB_EDGE_K[-1], en))
+        # the same tables off a 4-byte boundary: the kernel's byte path
+        odd = [torch.empty(t.numel() + 1, dtype=torch.bool, device=dev)[1:]
+               .view(t.shape).copy_(t) for t in args[2:6]]
+        g_odd = kmega.rowslab_drain(*args[:2], *odd, *args[6:])
+        torch.cuda.synchronize()
+        e = max_abs_err(g, w_, torch)
+        if e or not all(torch.equal(x, y) for x, y in zip(g, w_)) or \
+                not all(torch.equal(x, y) for x, y in zip(g_odd, w_)):
+            fail(f"rowslab_drain differs from rowslab_drain_ref at n={en}, "
+                 f"d={ed}")
+        if not all(torch.equal(a, b) for a, b in zip(args, before)):
+            fail(f"rowslab_drain changed its inputs at n={en}")
+        errs["rowslab"] = max(errs["rowslab"], e)
+        drain_edges.append(en)
+    log(f"[2] rowslab_drain bit-equal to rowslab_drain_ref at the main-path "
+        f"shape and at n = {drain_edges} (lanes with no dirty slot, one, "
+        f"all n and random masks; aligned tables and tables off a 4-byte "
+        f"boundary), its inputs unchanged")
+    # the slab entry at the delta fleet's shape: the captured dirty slots
+    # as a slab of K = delta_k
+    k = dstep.cfg.delta_k
+    slab, valid, _ = P.dirty_slab(dirty_m, k)
+    sargs = (*dargs[:2], *dargs[4:9], slab.contiguous(),
+             valid.contiguous())
+    g, w_ = kmega.rowslab(*sargs), ref.rowslab_ref(*sargs)
+    torch.cuda.synchronize()
+    errs["rowslab"] = max(errs["rowslab"], max_abs_err(g, w_, torch))
+    if errs["rowslab"] or not all(torch.equal(x, y) for x, y in zip(g, w_)):
         fail("rowslab differs from rowslab_ref at the main-path shape")
+    n_valid = valid.sum(1)
     slab_edges = []
     for en, ed in SLAB_EDGE_N.items():
         for ek in sorted(set(SLAB_EDGE_K) | {en}):
@@ -1102,7 +1228,8 @@ def main() -> None:
                 fail(f"rowslab: the all-invalid slab gave rows at n={en}")
             errs["rowslab"] = max(errs["rowslab"], e)
             slab_edges.append((en, ek))
-    log(f"[2] rowslab bit-equal to rowslab_ref at the main-path shape and at "
+    log(f"[2] rowslab (the slab entry) bit-equal to rowslab_ref at K={k} on "
+        f"the captured dirty slots ({int(n_valid.sum())} valid) and at "
         f"(n, K) = {slab_edges}, each with a random, an all-invalid and a "
         f"top-of-range slab")
 
@@ -1158,8 +1285,9 @@ def main() -> None:
     if counts["megastep"] != body["ppcc"]:
         fail(f"megastep launched {counts['megastep']} times, PPCC ran "
              f"{body['ppcc']} body iterations")
-    if counts["rowslab"]:
-        fail(f"rowslab launched {counts['rowslab']} times without delta")
+    if counts["rowslab"] or counts["rowslab_drain"]:
+        fail(f"rowslab launched {counts['rowslab']} times and rowslab_drain "
+             f"{counts['rowslab_drain']} without delta")
     if counts["occ_validate"] != body["occ"]:
         fail(f"occ_validate launched {counts['occ_validate']} times, OCC "
              f"ran {body['occ']} body iterations")
@@ -1255,15 +1383,15 @@ def main() -> None:
             f"buffer equal the golden; grid summary: {summ['commits']} "
             f"commits, latency {summ['commit_latency']}, aborts "
             f"{summ['abort_causes']}, blocks {summ['block_causes']}")
-    chunks = -(-n // fleet6.parts["ppcc"][2].cfg.delta_k)
-    want6 = {"megastep": 1, "rowslab": chunks * body6["ppcc"],
+    want6 = {"megastep": 1, "rowslab_drain": body6["ppcc"], "rowslab": 0,
              "reserve_cohort": sum(body6.values()) + len(protocols),
              "occ_validate": body6["occ"]}
     got6 = {key: counts6[key] for key in want6}
     if got6 != want6:
         fail(f"[6] launches {got6}, expected {want6}")
     log(f"[6] launches {got6}: megastep once (the PPCC init's seeding of "
-        f"the carried relations), rowslab {chunks} per PPCC body iteration")
+        f"the carried relations), rowslab_drain once per PPCC body "
+        f"iteration")
     fin6 = fleet6.final["ppcc"]
     inv = {name: bool(fn(fin6.pstate).all()) for name, fn in (
         ("path_length_leq_one", P.path_length_leq_one),
@@ -1281,18 +1409,26 @@ def main() -> None:
     del out6, fleet6, fin6, full
 
     # ---------------- phase 7: LM serving (walls before any profiler) ----
-    lm_rows, lm_busy = lm_phase(torch, dev, smi, lambda fn, reps: cuda_times(
-        fn, reps, torch))
+    lm_rows, lm_busy = lm_phase(torch, dev, smi, lambda fn, reps, sleep=True:
+                               cuda_times(fn, reps, torch, sleep))
 
     # ---------------- phase 4: times ----------------
     torch.cuda.synchronize()
     mega_ms = cuda_times(lambda: kmega.megastep(*margs), 50, torch)
+    mega0 = cuda_times(lambda: kmega.megastep(*margs), 50, torch, False)
     mega_plain = cuda_times(lambda: ref.megastep_ref(*margs), 10, torch)
     slab_ms = cuda_times(lambda: kmega.rowslab(*sargs), 50, torch)
     slab_plain = cuda_times(lambda: ref.rowslab_ref(*sargs), 5, torch)
+    drain_ms = cuda_times(lambda: kmega.rowslab_drain(*dargs), 50, torch)
+    drain0 = cuda_times(lambda: kmega.rowslab_drain(*dargs), 50, torch,
+                        False)
+    drain_plain = cuda_times(lambda: ref.rowslab_drain_ref(
+        *dargs, k=dstep.cfg.delta_k), 5, torch)
     res_ms = cuda_times(lambda: kscan.reserve_cohort(*rargs), 50, torch)
+    res0 = cuda_times(lambda: kscan.reserve_cohort(*rargs), 50, torch, False)
     res_plain = cuda_times(lambda: ref.reserve_cohort_ref(*rargs), 5, torch)
     occ_ms = cuda_times(lambda: kscan.occ_validate(*oargs), 50, torch)
+    occ0 = cuda_times(lambda: kscan.occ_validate(*oargs), 50, torch, False)
     occ_plain = cuda_times(lambda: ref.occ_validate_ref(*oargs), 5, torch)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1313,43 +1449,67 @@ def main() -> None:
                + 4 * lanes * n * n + lanes * n * 4 + 2 * lanes * n)
     pw = -(-n // 32)
     m_ops = lanes * n * n * (pw + w)      # one LOP3 (acc |= a & b) per pair
-    # rowslab: words, op data and the slab; of the carried tables, the one
-    # row (readers_at or writers_at) each non-slab slot's party needs, as
-    # this run's slab holds them; four K x n outputs
+    # rowslab (the slab entry): words, op data and the slab; of the carried
+    # tables, the one row (readers_at or writers_at) each non-slab slot's
+    # party needs, as this slab holds them; four K x n outputs
     carried = int(((n - n_valid) * n).sum())
     s_bytes = (2 * lanes * n * w * 4 + lanes * n * 6 + lanes * k * 5
                + carried + 4 * lanes * k * n)
     s_ops = lanes * k * n * (pw + w)
+    # rowslab_drain: the four tables written; of the carried ones, what the
+    # copy keeps (a clean row's writers_at and readers_at rows and its dep
+    # and ww entries at clean columns), which includes every row a clean
+    # slot's party reads; the words of the lanes with a dirty slot; op
+    # data and the dirty mask (4 + 3 B a slot)
+    m_l = m_lane.to(torch.int64)
+    kept = int(((n - m_l) * (2 * n + 2 * (n - m_l))).sum())
+    d_words = int((m_l > 0).sum()) * 2 * n * w * 4
+    d_bytes = 4 * lanes * n * n + kept + d_words + lanes * n * 7
+    d_ops = int((m_l * n * (pw + w)).sum())
     r_bytes = (2 * lanes * (C + K) * 4 + 3 * lanes * n * 4 + 2 * lanes * n
                + 2 * lanes * n * 4)
     r_ops = lanes * n * (C + K + 4)
     o_bytes = lanes * n + 3 * lanes * n * w * 4 + lanes * n
     o_ops = lanes * n * w * 3
     grid_rows = []
-    for name, src, repl, ms, pms, (b_ms, b_by) in (
+    for name, src, repl, ms, ms0, pms, (b_ms, b_by) in (
             ("megastep", "src/repro_torch/csrc/megastep.cu",
              "src/repro/kernels/megastep.py:38 (_megastep_kernel, "
-             "pallas_call at :287)", mega_ms, mega_plain,
+             "pallas_call at :287)", mega_ms, mega0, mega_plain,
              bound(m_bytes, m_ops)),
             ("rowslab", "src/repro_torch/csrc/rowslab.cu",
              "src/repro/kernels/megastep.py:187 (rowslab; _rowslab_kernel "
-             "at :118, pallas_call at :222)", slab_ms, slab_plain,
-             bound(s_bytes, s_ops)),
+             "at :118, pallas_call at :222)", drain_ms, drain0, drain_plain,
+             bound(d_bytes, d_ops)),
             ("reserve_cohort", "src/repro_torch/csrc/scan.cu",
              "src/repro/core/jaxsim.py:666 (_reserve_cohort, an XLA scan)",
-             res_ms, res_plain, bound(r_bytes, r_ops)),
+             res_ms, res0, res_plain, bound(r_bytes, r_ops)),
             ("occ_validate", "src/repro_torch/csrc/scan.cu",
              "src/repro/core/jaxsim.py:938 (occ_validate_multi, an XLA "
-             "scan)", occ_ms, occ_plain, bound(o_bytes, o_ops))):
+             "scan)", occ_ms, occ0, occ_plain, bound(o_bytes, o_ops))):
         grid_rows.append({"name": name, "route": "cuda", "source": src,
                           "replaces": repl, "max_abs_err": errs[name],
                           "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
-                          "bound_by": b_by, "library_ms": None})
-        log(f"[4] {name}: {ms:.4f} ms (plain {pms:.4f} ms, bound {b_ms:.5f} "
-            f"ms by {b_by}) at the main-path shape")
-    log(f"[4] rowslab bound counts {s_bytes} B: {carried} B of carried rows "
-        f"for the {lanes * n - int(n_valid.sum())} non-slab slots; library "
-        f"call: none, no single PyTorch call computes it")
+                          "bound_by": b_by, "library_ms": None,
+                          "ms_no_sleep": ms0})
+        log(f"[4] {name}{' (the drain)' if name == 'rowslab' else ''}: "
+            f"{ms:.4f} ms ({ms0:.4f} ms back to back; plain {pms:.4f} ms, "
+            f"bound {b_ms:.5f} ms by "
+            f"{b_by}) at the main-path shape")
+    sb_ms, sb_by = bound(s_bytes, s_ops)
+    grid_rows[1].update(
+        entry="rowslab_drain (csrc/rowslab.cu rowslab_drain_launch), once "
+              "per PPCC iteration; the slab entry rowslab_launch is the "
+              "reference's rowslab(..., slab, valid) API",
+        drain_bytes=d_bytes, slab_ms=slab_ms, slab_plain_ms=slab_plain,
+        slab_bound_ms=sb_ms, slab_bound_by=sb_by, slab_k=k)
+    log(f"[4] rowslab_drain bound counts {d_bytes} B: the four {lanes} x "
+        f"{n} x {n} tables written, {kept} B of carried entries kept, "
+        f"{d_words} B of words for the {int((m_l > 0).sum())} lanes with a "
+        f"dirty slot; the slab entry at K={k} on the same dirty slots: "
+        f"{slab_ms:.4f} ms (plain {slab_plain:.4f} ms, bound {sb_ms:.5f} ms "
+        f"by {sb_by}, {s_bytes} B with {carried} B of carried rows); library "
+        f"call: none, no single PyTorch call computes either")
 
     # one batch iteration of each protocol from its captured state: the
     # kernels, the plain versions, telemetry on; PPCC with delta too
@@ -1384,29 +1544,38 @@ def main() -> None:
     for label, fl, st0 in (("kernels", fleet, captured["ppcc"][1]),
                            ("delta", dfleet, s_d)):
         _, cond, step = fl.parts["ppcc"]
-        dev_ms, kernels, top = profile_iteration(cond, step, st0, sweep,
+        dev_ms, kernels, per = profile_iteration(cond, step, st0, sweep,
                                                  torch)
         wall_ms = iter_ms["ppcc", label]
+        slab = [v for key, v in per.items() if "rowslab" in key]
         if dev_ms > 0:
             log(f"[4] PPCC batch iteration ({label}): {dev_ms:.3f} ms device "
                 f"kernel time ({kernels:.0f} kernels, profiled, 32 iters); "
                 f"{wall_ms:.3f} ms wall unprofiled; device idle "
                 f"{100 * (1 - dev_ms / wall_ms):.1f}% of the unprofiled "
                 f"iteration; largest: " + ", ".join(
-                    f"{k[:48]} {v:.3f} ms" for v, k in top))
+                    f"{k[:48]} {v:.3f} ms" for v, k in largest(per, 5))
+                + (f"; row-slab kernels {sum(ms for ms, _ in slab):.4f} ms "
+                   f"in {sum(c for _, c in slab):.0f} launches"
+                   if label == "delta" else ""))
         else:
             log(f"[4] PPCC batch iteration ({label}): {wall_ms:.3f} ms wall; "
                 f"device time not measured (profiler saw no device time)")
-    del captured, s_d, sargs, margs
+    del captured, s_d, sargs, margs, dargs
 
     # ---------------- phase 5: the batch scheduler ----------------
     sched_rows = sched_phase(torch, dev, bound,
-                             lambda fn, reps: cuda_times(fn, reps, torch))
+                             lambda fn, reps, sleep=True:
+                             cuda_times(fn, reps, torch, sleep))
 
     rows = []
     for row in grid_rows:
-        src_counts = counts6 if row["name"] == "rowslab" else counts
-        rows.append({**row, "launches": src_counts[row["name"]]})
+        if row["name"] == "rowslab":      # the drain, phase 6's path
+            row = {**row, "launches": counts6["rowslab_drain"],
+                   "slab_launches": counts6["rowslab"]}
+        else:
+            row = {**row, "launches": counts[row["name"]]}
+        rows.append(row)
     rows += sched_rows
     lm_busy()
     rows += lm_rows

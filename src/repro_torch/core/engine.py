@@ -20,8 +20,8 @@ one scan launch each (``kernels.ops``).
 
 ``EngCfg.delta`` (PPCC only) carries the four relations in the state
 (``EngState.rel``) instead: init seeds them from one megastep launch,
-and each iteration recomputes only the rows of the slots it dirtied, in
-``ceil(n / delta_k)`` row-slab launches (``_delta_update``).
+and each iteration recomputes only the rows and mirrored columns of the
+slots it dirtied, in one row-slab drain launch (``_delta_update``).
 ``EngCfg.telemetry`` folds each iteration's commits, aborts, blocks and
 waits into the ``obs.metrics`` accumulators (``EngState.tm``) and, with
 ``trace_every > 0``, samples a per-lane ring buffer.  Off, ``rel`` and
@@ -153,7 +153,9 @@ class EngCfg:
                                  # plain versions inline
     delta: bool = False          # ppcc: carry the relations, update only
                                  # the dirty rows per iteration
-    delta_k: int = 0             # row-slab capacity of one launch
+    delta_k: int = 0             # slab size of the plain drain (the
+                                 # reference's row-slab capacity); the
+                                 # drain kernel takes every dirty slot
     telemetry: bool = False      # carry the obs.metrics accumulators
     trace_every: int = 0         # >0: sample the ring buffer this often
     trace_len: int = 256         # ring-buffer rows per lane
@@ -567,47 +569,30 @@ def _body_consts(cfg: EngCfg):
             torch.as_tensor(M.EDGES, dtype=f32, device=cfg.device))
 
 
-def _rowslab_rows(cfg: EngCfg, ps: P.PPCCState, rel: P.Relations, item,
-                  is_write, slab, valid):
-    """The row-slab kernel on the card (``megakernel``), else its plain
-    version."""
-    fn = kops.rowslab_relations if cfg.megakernel else kref.rowslab_ref
-    return fn(ps.read_set, ps.write_set, rel.writers_at, rel.readers_at,
-              item, is_write, ps.active, slab, valid)
-
-
 def _delta_update(cfg: EngCfg, s: EngState, ps5: P.PPCCState, cur_item,
                   cur_w, new_kinds, new_items, op_new) -> P.Relations:
     """The carried relations for the next iteration's cursor: find the
     slots whose words or op cursor changed and recompute only their
-    rows, ``delta_k`` slots per row-slab launch, scattering rows and
-    mirrored columns back.
+    rows and mirrored columns, every lane in one drain launch
+    (``kernels.ops.rowslab_drain``), with no host read.
 
     The reference drains each lane's dirty set in a ``while_loop`` of
-    ``ceil(m / K)`` chunks.  Here every iteration runs the fixed
-    ``ceil(n / K)`` chunks with no host read: chunk c of a lane with at
-    most ``c * K`` dirty slots is all-invalid, its rows are zero and the
-    scatter drops them.  Later chunks' mirrored columns repair the stale
-    entries between dirty slots of earlier chunks, so the result is the
-    full recompute's."""
-    n, k = cfg.n, cfg.delta_k
+    ``ceil(m / K)`` row slabs; later slabs' mirrored columns repair the
+    stale entries between dirty slots of earlier ones, so it ends at the
+    full recompute, which the drain kernel computes at once.  Its plain
+    version (``megakernel`` off, or the CPU) keeps the reference's slabs
+    of ``delta_k``.  The tables are new tensors: ``sweep.run_while``
+    keeps a finished lane's parent state, ``s.rel`` included."""
     nxt_i = torch.clamp(op_new, max=cfg.max_ops - 1).to(torch.int64)
     nxt_item = new_items.gather(2, nxt_i[..., None])[..., 0]
     nxt_w = new_kinds.gather(2, nxt_i[..., None])[..., 0] == 1
     dirty_m = P.dirty_slots(s.pstate, ps5, cur_item, nxt_item, cur_w,
                             nxt_w)
-    chunks = -(-n // k)
-    ids, _, _ = P.dirty_slab(dirty_m, chunks * k)
-    slabs = ids.view(-1, chunks, k).transpose(0, 1).contiguous()
-    valids = slabs < n
-    # one padded buffer for the whole drain: each chunk reads the tables
-    # the earlier chunks wrote and scatters its rows and columns in place
-    buf = P.padded_relations(s.rel)
-    for slab, valid in zip(slabs, valids):
-        rel = P.unpadded_relations(buf)
-        rows = _rowslab_rows(cfg, ps5, rel, nxt_item, nxt_w, slab, valid)
-        P.scatter_padded_(buf, torch.stack(rows), slab, valid)
-    return P.unpadded_relations(buf)
+    args = (ps5.read_set, ps5.write_set, *s.rel, nxt_item, nxt_w,
+            ps5.active, dirty_m)
+    if cfg.megakernel:
+        return P.Relations(*kops.rowslab_drain(*args, k=cfg.delta_k))
+    return P.Relations(*kref.rowslab_drain_ref(*args, k=cfg.delta_k))
 
 
 def _cohort_body(cfg: EngCfg, s: EngState, consts) -> EngState:

@@ -18,6 +18,7 @@ import torch
 
 from . import bitset as B
 from ..device import resolve
+from ..kernels import ref as kref
 
 # verdicts
 PROCEED, BLOCK, ABORT = 0, 1, 2
@@ -255,51 +256,18 @@ def dirty_slab(dirty: torch.Tensor, k: int):
     return slab, slab < n, dirty.sum(1, dtype=torch.int32)
 
 
-def padded_relations(rel: Relations) -> torch.Tensor:
-    """The four relations in one ``bool[4, L, n+1, n+1]`` buffer (dep, ww,
-    writers_at, readers_at), with a padded row and column n that take
-    the writes of invalid slab entries (``scatter_padded_``)."""
-    lanes, n = rel.dep.shape[0], rel.dep.shape[1]
-    buf = torch.zeros((4, lanes, n + 1, n + 1), dtype=torch.bool,
-                      device=rel.dep.device)
-    for dst, src in zip(buf, rel):
-        dst[:, :n, :n] = src
-    return buf
-
-
-def unpadded_relations(buf: torch.Tensor) -> Relations:
-    """``Relations`` views of a ``padded_relations`` buffer."""
-    n = buf.shape[2] - 1
-    return Relations(*buf[:, :, :n, :n].unbind(0))
-
-
-def scatter_padded_(buf: torch.Tensor, rows: torch.Tensor,
-                    slab: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Write a row slab's ``bool[4, L, K, n]`` row blocks (dep, ww,
-    writers_at, readers_at) into a ``padded_relations`` buffer, in
-    place: rows for all four, then the mirrored columns of the symmetric
-    dep/ww, so a column write wins at ``[a, b]`` for two slab ids a and
-    b.  Invalid entries write row and column n, so no two writes race on
-    a live entry.  Returns ``buf``."""
-    _, lanes, k, n = rows.shape
-    tgt = torch.where(valid, slab, n).to(torch.int64)
-    buf.scatter_(2, tgt[None, :, :, None].expand(4, lanes, k, n), rows)
-    buf[:2].scatter_(3, tgt[None, :, None, :].expand(2, lanes, n, k),
-                     rows[:2].transpose(2, 3))
-    return buf
-
-
 def scatter_relations(rel: Relations, dep_rows: torch.Tensor,
                       ww_rows: torch.Tensor, wat_rows: torch.Tensor,
                       rat_rows: torch.Tensor, slab: torch.Tensor,
                       valid: torch.Tensor) -> Relations:
     """Write a row slab's ``[L, K, n]`` row blocks back into the carried
     ``[L, n, n]`` relations: rows for all four, then the mirrored
-    columns of dep/ww (``scatter_padded_``).  Invalid entries are
-    dropped.  The results are views of one padded buffer."""
-    buf = padded_relations(rel)
+    columns of dep/ww (``kernels.ref.scatter_padded_``).  Invalid
+    entries are dropped.  The results are views of one padded buffer."""
+    buf = kref.padded_tables(rel)
     rows = torch.stack((dep_rows, ww_rows, wat_rows, rat_rows))
-    return unpadded_relations(scatter_padded_(buf, rows, slab, valid))
+    return Relations(*kref.unpadded_tables(
+        kref.scatter_padded_(buf, rows, slab, valid)))
 
 
 def cohort_step_fused(s: PPCCState, item: torch.Tensor,

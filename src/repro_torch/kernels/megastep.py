@@ -5,15 +5,20 @@ and the row-slab kernel (``csrc/rowslab.cu``).
 one launch computes every pairwise relation of a fused PPCC cohort step
 for all lanes of a fleet, one CTA per lane, with the lane's packed words
 and op data resident in shared memory and the party matrix packed to
-bits there.  ``rowslab`` replaces ``_rowslab_kernel``: for K dirty slots
-of every lane it recomputes only their relation rows, against the
-carried op tables with the fresh slab rows substituted.  Their plain
-versions are ``kernels.ref.megastep_ref`` and ``kernels.ref.rowslab_ref``;
-each source file states its kernel's byte bound, design and
-shared-memory footprint.
+bits there.  ``rowslab_drain`` and ``rowslab`` replace
+``_rowslab_kernel``.  The drain, which the delta engine launches once per
+PPCC iteration, takes each lane's dirty mask and writes the next
+iteration's four relation tables, out of place: the dirty slots' rows
+and mirrored columns recomputed, every other entry copied.  ``rowslab``
+is the reference's slab API: for K slot ids of every lane it recomputes
+only their relation rows, against the carried op tables with the fresh
+slab rows substituted.  Their plain versions are
+``kernels.ref.megastep_ref``, ``kernels.ref.rowslab_drain_ref`` and
+``kernels.ref.rowslab_ref``; each source file states its kernels' byte
+bounds, design and shared-memory footprint.
 
-Both take CUDA tensors only and raise on anything their kernel does not
-take; ``kernels.ops`` holds the dispatchers the engine calls.
+All three take CUDA tensors only and raise on anything their kernel does
+not take; ``kernels.ops`` holds the dispatchers the engine calls.
 ``launches`` counts launches of each kernel, and nothing else.
 """
 from __future__ import annotations
@@ -25,10 +30,11 @@ import torch
 from . import build
 
 SMEM_MAX = 232_448           # bytes of shared memory one CTA may use (H100)
-launches = {"megastep": 0, "rowslab": 0}
+launches = {"megastep": 0, "rowslab": 0, "rowslab_drain": 0}
 
 _fn = None
 _slab_fn = None
+_drain_fn = None
 
 
 def _launcher():
@@ -153,3 +159,62 @@ def rowslab(read_bits, write_bits, writers_at, readers_at, item, is_write,
             raise RuntimeError(f"rowslab launch failed: cudaError {rc}")
         launches["rowslab"] += 1
     return tuple(rows)
+
+
+def _drain_launcher():
+    global _drain_fn
+    if _drain_fn is None:
+        lib = build.load("rowslab")
+        fn = lib.rowslab_drain_launch
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.rowslab_drain_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.rowslab_drain_smem_bytes.restype = ctypes.c_longlong
+        _drain_fn = (fn, lib.rowslab_drain_smem_bytes)
+    return _drain_fn
+
+
+def rowslab_drain(read_bits, write_bits, dep, ww, writers_at, readers_at,
+                  item, is_write, active, dirty):
+    """One launch → the next iteration's ``(dep, ww, writers_at,
+    readers_at)``, each a new ``bool[L, n, n]``, bit-equal to
+    ``ref.rowslab_drain_ref``; the carried tables are only read.
+
+    Words are ``int32[L, n, W]``, the carried tables ``bool[L, n, n]``,
+    ``item`` ``int32[L, n]`` and ``is_write``/``active``/``dirty``
+    ``bool[L, n]``, all contiguous on one CUDA device."""
+    dev = read_bits.device
+    if dev.type != "cuda":
+        raise ValueError(f"rowslab_drain runs on CUDA tensors, got {dev}")
+    lanes, n, w = read_bits.shape
+    for name, t in (("read_bits", read_bits), ("write_bits", write_bits)):
+        build.check_arg("rowslab_drain", name, t, torch.int32,
+                        (lanes, n, w), dev)
+    for name, t in (("dep", dep), ("ww", ww), ("writers_at", writers_at),
+                    ("readers_at", readers_at)):
+        build.check_arg("rowslab_drain", name, t, torch.bool, (lanes, n, n),
+                        dev)
+    build.check_arg("rowslab_drain", "item", item, torch.int32, (lanes, n),
+                    dev)
+    for name, t in (("is_write", is_write), ("active", active),
+                    ("dirty", dirty)):
+        build.check_arg("rowslab_drain", name, t, torch.bool, (lanes, n),
+                        dev)
+    fn, smem_bytes = _drain_launcher()
+    need = smem_bytes(n, w)
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"rowslab_drain: n={n}, W={w} needs {need} B of shared memory "
+            f"per CTA, more than {SMEM_MAX}")
+    out = [torch.empty((lanes, n, n), dtype=torch.bool, device=dev)
+           for _ in range(4)]
+    if lanes and n:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(t.data_ptr() for t in (
+            read_bits, write_bits, dep, ww, writers_at, readers_at, item,
+            is_write, active, dirty, *out)), lanes, n, w, stream)
+        if rc:
+            raise RuntimeError(f"rowslab_drain launch failed: cudaError {rc}")
+        launches["rowslab_drain"] += 1
+    return tuple(out)

@@ -2,10 +2,11 @@
 their kernels.
 
 A CUDA tensor goes to the hand-written kernel (``kernels.megastep`` for
-the megastep and row-slab kernels, ``kernels.scan``, ``kernels.conflict``,
-``kernels.admit``, ``kernels.flash_attention``, ``kernels.wkv``), a CPU
-tensor to the kernel's plain version (``kernels.ref``).  There is no fallback:
-a failed build or launch on the card raises.  ``launch_counts`` reads
+the megastep, row-slab drain and row-slab kernels, ``kernels.scan``,
+``kernels.conflict``, ``kernels.admit``, ``kernels.flash_attention``,
+``kernels.wkv``), a CPU tensor to the kernel's plain version
+(``kernels.ref``).  There is no fallback: a failed build or launch on
+the card raises.  ``launch_counts`` reads
 the wrappers' launch counters and ``reset_launches`` sets them to 0.
 """
 from __future__ import annotations
@@ -46,6 +47,22 @@ def rowslab_relations(read_bits, write_bits, writers_at, readers_at, item,
         else ref.rowslab_ref
     return fn(read_bits, write_bits, writers_at, readers_at, item,
               is_write, active, slab, valid)
+
+
+def rowslab_drain(read_bits, write_bits, dep, ww, writers_at, readers_at,
+                  item, is_write, active, dirty, *, k: int = 0):
+    """The delta drain: the next iteration's ``(dep, ww, writers_at,
+    readers_at)`` of every lane, with the rows and mirrored columns of
+    its ``dirty`` slots recomputed, in one launch.  ``k`` is the plain
+    version's slab size (the reference's ``delta_k``); the kernel takes
+    every dirty slot at once."""
+    if _route(read_bits, "rowslab_drain"):
+        return _megastep.rowslab_drain(read_bits, write_bits, dep, ww,
+                                       writers_at, readers_at, item,
+                                       is_write, active, dirty)
+    return ref.rowslab_drain_ref(read_bits, write_bits, dep, ww, writers_at,
+                                 readers_at, item, is_write, active, dirty,
+                                 k=k)
 
 
 def reserve_cohort(cpu_free, disk_free, t_req, cpu_dur, io_dur, cpu_m,

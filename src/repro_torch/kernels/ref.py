@@ -104,6 +104,75 @@ def rowslab_ref(read_bits: torch.Tensor, write_bits: torch.Tensor,
     return dep_rows & v, ww_rows & v, wat_rows & v, rat_rows & v
 
 
+
+def padded_tables(tables) -> torch.Tensor:
+    """Four ``bool[L, n, n]`` tables (dep, ww, writers_at, readers_at) in
+    one ``bool[4, L, n+1, n+1]`` buffer, with a padded row and column n
+    that take the writes of invalid slab entries (``scatter_padded_``)."""
+    lanes, n = tables[0].shape[0], tables[0].shape[1]
+    buf = torch.zeros((4, lanes, n + 1, n + 1), dtype=torch.bool,
+                      device=tables[0].device)
+    for dst, src in zip(buf, tables):
+        dst[:, :n, :n] = src
+    return buf
+
+
+def unpadded_tables(buf: torch.Tensor) -> tuple:
+    """The four ``bool[L, n, n]`` views of a ``padded_tables`` buffer."""
+    n = buf.shape[2] - 1
+    return tuple(buf[:, :, :n, :n].unbind(0))
+
+
+def scatter_padded_(buf: torch.Tensor, rows: torch.Tensor,
+                    slab: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Write a row slab's ``bool[4, L, K, n]`` row blocks (dep, ww,
+    writers_at, readers_at) into a ``padded_tables`` buffer, in place:
+    rows for all four, then the mirrored columns of the symmetric
+    dep/ww, so a column write wins at ``[a, b]`` for two slab ids a and
+    b.  Invalid entries write row and column n, so no two writes race on
+    a live entry.  Returns ``buf``."""
+    _, lanes, k, n = rows.shape
+    tgt = torch.where(valid, slab, n).to(torch.int64)
+    buf.scatter_(2, tgt[None, :, :, None].expand(4, lanes, k, n), rows)
+    buf[:2].scatter_(3, tgt[None, :, None, :].expand(2, lanes, n, k),
+                     rows[:2].transpose(2, 3))
+    return buf
+
+
+def rowslab_drain_ref(read_bits: torch.Tensor, write_bits: torch.Tensor,
+                      dep: torch.Tensor, ww: torch.Tensor,
+                      writers_at: torch.Tensor, readers_at: torch.Tensor,
+                      item: torch.Tensor, is_write: torch.Tensor,
+                      active: torch.Tensor, dirty: torch.Tensor, *,
+                      k: int = 0):
+    """The next iteration's relation tables of every lane after
+    recomputing the rows of its dirty slots (``dirty``, ``bool[L, n]``):
+    ``(dep', ww', writers_at', readers_at')``, each ``bool[L, n, n]``.
+
+    The reference's fleet drain (``repro.core.jaxsim._delta_update``)
+    with a lane axis: each lane's dirty ids, ascending, in slabs of
+    ``k`` (``k <= 0``: one slab of n); each slab's rows from
+    ``rowslab_ref`` against the tables the earlier slabs wrote, then
+    scattered back, rows and mirrored dep/ww columns.  Later slabs'
+    columns repair the entries between their slots and earlier ones, so
+    the result does not depend on ``k``.  The carried tables are not
+    written.  Words are ``int32[L, n, W]``, ``item`` ``int32[L, n]``,
+    flags ``bool[L, n]``."""
+    lanes, n = dirty.shape
+    k = n if k <= 0 else k
+    chunks = -(-n // k)
+    ids = torch.arange(n, dtype=torch.int32, device=dirty.device)
+    ids = torch.where(dirty, ids, n).sort(1).values
+    ids = torch.nn.functional.pad(ids, (0, chunks * k - n), value=n)
+    buf = padded_tables((dep, ww, writers_at, readers_at))
+    for slab in ids.view(lanes, chunks, k).unbind(1):
+        valid = slab < n
+        tables = unpadded_tables(buf)
+        rows = rowslab_ref(read_bits, write_bits, tables[2], tables[3], item,
+                           is_write, active, slab, valid)
+        scatter_padded_(buf, torch.stack(rows), slab, valid)
+    return tuple(t.contiguous() for t in unpadded_tables(buf))
+
 def reserve_cohort_ref(cpu_free: torch.Tensor, disk_free: torch.Tensor,
                        t_req: torch.Tensor, cpu_dur: torch.Tensor,
                        io_dur: torch.Tensor, cpu_m: torch.Tensor,

@@ -10,8 +10,16 @@ reference, on the CPU, compared bit for bit:
 * the delta fleet at the reference's own test size with every final
   ``EngState`` leaf, ``rel`` included, equal to the JAX fleet's, and
   every other leaf equal to the port's delta-off run;
-* ``rel`` equal to a full recompute after every step.
+* ``rel`` equal to a full recompute after every step;
+* the plain drain ``kernels.ref.rowslab_drain_ref`` (what the row-slab
+  drain kernel computes in one launch) equal to the reference's
+  ``jaxsim._delta_update`` on the engine's inputs, and, on random
+  inconsistent tables, free of its slab size and equal to its closed
+  form: an entry is recomputed where its row or column slot is dirty.
 """
+import dataclasses
+from typing import NamedTuple
+
 import numpy as np
 import pytest
 
@@ -283,3 +291,120 @@ def test_rel_equals_full_recompute_after_every_step(monkeypatch):
     assert len(seen) == steps * chunks
     # some step drained up to 9 dirty slots: three slabs
     assert max(seen[1::chunks]) > 0 and max(seen[2::chunks]) > 0
+
+
+# --------------------------------------------------------------------------
+# the drain behind one function: rowslab_drain_ref
+# --------------------------------------------------------------------------
+
+class _JaxState(NamedTuple):
+    """The two ``EngState`` leaves ``jaxsim._delta_update`` reads."""
+    pstate: JP.PPCCState
+    rel: JP.Relations
+
+
+def test_rowslab_drain_ref_matches_reference_delta_update(monkeypatch):
+    """The engine's drain (the plain version at K = 4 on the CPU) against
+    the reference's ``jaxsim._delta_update`` on the same inputs, lane by
+    lane, over the first steps of the delta fleet at n = 14."""
+    calls = []
+    real = E._delta_update
+
+    def spy(cfg, s, ps5, *rest):
+        out = real(cfg, s, ps5, *rest)
+        calls.append((s.pstate, s.rel, ps5, rest, out))
+        return out
+
+    monkeypatch.setattr(E, "_delta_update", spy)
+    init, cond, step = E.engine_parts(_params(TT), "ppcc", n_slots=14,
+                                      pool=256, delta=True, delta_k=4,
+                                      device="cpu")
+    s = init(torch.tensor(SEEDS), torch.tensor(MPLS))
+    for _ in range(40):
+        s = TS._select(cond(s), step(s), s)
+    jcfg = dataclasses.replace(
+        jaxsim._cfg(_params(JT), 400_000), protocol="ppcc", n=14,
+        fleet=True, megakernel=False, delta=True, delta_k=4)
+    drain = jax.jit(lambda st, ps5, *rest: jaxsim._delta_update(
+        jcfg, st, ps5, *rest))
+
+    def words(t, lane):
+        return jnp.asarray(t[lane].numpy().view(np.uint32))
+
+    def pstate(ps, lane):
+        return JP.PPCCState(*(words(x, lane) if x.dtype == torch.int32
+                              else jnp.asarray(x[lane].numpy())
+                              for x in ps))
+
+    most = 0
+    for old, rel, ps5, rest, got in calls[::3]:
+        for lane in range(len(SEEDS)):
+            st = _JaxState(pstate(old, lane), JP.Relations(
+                *(jnp.asarray(t[lane].numpy()) for t in rel)))
+            want = drain(st, pstate(ps5, lane),
+                         *(jnp.asarray(x[lane].numpy()) for x in rest))
+            for name, g, w in zip(TP.Relations._fields, got, want):
+                np.testing.assert_array_equal(g[lane].numpy(),
+                                              np.asarray(w), err_msg=name)
+        most = max(most, int((got.dep != rel.dep).any(2).sum(1).max()))
+    assert len(calls) == 40 and most > 4     # some step needed two slabs
+
+
+def _closed_form(read, write, dep, ww, wat, rat, item, is_write, active,
+                 dirty):
+    """Every dirty slot fresh at once: dep/ww entries recomputed where the
+    row or the column slot is dirty, op-table rows where the row is."""
+    n = dirty.shape[1]
+    eye = torch.eye(n, dtype=torch.bool)
+    wat_f, rat_f = (ref._item_table(b, item) for b in (write, read))
+    d3 = dirty[:, :, None]
+    wat2 = torch.where(d3, wat_f, wat)
+    rat2 = torch.where(d3, rat_f, rat)
+    others = torch.where(is_write[:, :, None], rat2, wat2)
+    party = (others & active[:, None, :] & ~eye) | eye
+    dep_f = (party[:, :, None, :] & party[:, None, :, :]).any(-1)
+    same = (item[:, :, None] == item[:, None, :]) & \
+        (is_write[:, :, None] | is_write[:, None, :])
+    dep_f = (dep_f | same) & ~eye
+    ww_f = ((write[:, :, None, :] & write[:, None, :, :]) != 0).any(-1) & ~eye
+    fresh = d3 | dirty[:, None, :]
+    return (torch.where(fresh, dep_f, dep), torch.where(fresh, ww_f, ww),
+            wat2, rat2)
+
+
+@pytest.mark.parametrize("n,d", [(14, 100), (33, 100)])
+def test_rowslab_drain_ref_is_slab_free_and_closed_form(n, d):
+    """On random tables that are not a full recompute's (so stale entries
+    show), with lanes of no dirty slot, one, all n and random masks: the
+    drain gives the same tables at every slab size K, equal to the closed
+    form the drain kernel computes, and leaves its inputs unchanged."""
+    gen = torch.Generator().manual_seed(n * d)
+    lanes = 4
+    words = [_t(_words(np.random.default_rng(n + i), lanes * n, d, p))
+             .view(lanes, n, -1) for i, p in enumerate((0.05, 0.03))]
+    tables = [torch.rand((lanes, n, n), generator=gen) < 0.3
+              for _ in range(4)]
+    item = torch.randint(0, d, (lanes, n), generator=gen, dtype=torch.int32)
+    is_w, active = (torch.rand((lanes, n), generator=gen) < q
+                    for q in (0.4, 0.8))
+    dirty = torch.rand((lanes, n), generator=gen) < 0.3
+    dirty[0] = False
+    dirty[1] = False
+    dirty[1, n // 2] = True
+    dirty[2] = True
+    args = (*words, *tables, item, is_w, active, dirty)
+    before = [a.clone() for a in args]
+    want = _closed_form(*args)
+    for k in (1, 4, n, 0):
+        got = ref.rowslab_drain_ref(*args, k=k)
+        for name, g, w in zip(TP.Relations._fields, got, want):
+            assert g.dtype == torch.bool and g.is_contiguous()
+            assert torch.equal(g, w), (name, k)
+    assert all(torch.equal(a, b) for a, b in zip(args, before))
+    for g, t in zip(want, tables):
+        assert torch.equal(g[0], t[0])             # no dirty slot: a copy
+    assert not torch.equal(want[0][1], tables[0][1])
+    ops.reset_launches()
+    assert all(torch.equal(a, b) for a, b in
+               zip(ops.rowslab_drain(*args, k=4), want))
+    assert ops.launch_counts()["rowslab_drain"] == 0

@@ -166,7 +166,7 @@ def test_delta_telemetry_kernel_path_equals_plain_path(cuda, proto):
     """With delta (PPCC) and telemetry on, 60 batch iterations through the
     kernels leave every leaf, ``rel`` and ``tm`` included, equal to the
     plain versions' run; the megastep runs once (the init's seeding) and
-    the row-slab kernel ceil(n/K) times per PPCC iteration."""
+    the row-slab drain once per PPCC iteration."""
     p = TT.grid_cover_params((6, 13)).with_(horizon=2000.0)
     seeds, mpls, rt = TS.grid_lanes((6, 13), (5, 50), (0, 1), cuda)
     finals = []
@@ -182,7 +182,8 @@ def test_delta_telemetry_kernel_path_equals_plain_path(cuda, proto):
         if mk:
             ppcc = proto == "ppcc"
             assert counts["megastep"] == (1 if ppcc else 0)
-            assert counts["rowslab"] == (60 * 64 // 16 if ppcc else 0)
+            assert counts["rowslab_drain"] == (60 if ppcc else 0)
+            assert counts["rowslab"] == 0
             assert step.cfg.delta_k == 16 or not ppcc
         else:
             assert sum(counts.values()) == 0
@@ -253,6 +254,68 @@ def test_rowslab_rejects_what_it_does_not_take(cuda):
     big = _rowslab_args(gen, 3, 1024, 4096, 8, cuda)   # shared memory
     with pytest.raises(ValueError):
         kmega.rowslab(*big)
+
+
+def _drain_args(gen, lanes, n, d, dev):
+    """Random drain inputs: words, carried tables that are not a full
+    recompute's, op data, and dirty masks with lane 0 clean, lane 1 one
+    dirty slot, lane 2 all n dirty and the rest random."""
+    words = [TB.pack(_rand(gen, (lanes, n, d), p, "cpu")).to(dev)
+             for p in (0.03, 0.02)]
+    tables = [_rand(gen, (lanes, n, n), 0.1, dev) for _ in range(4)]
+    item = torch.randint(0, d, (lanes, n), generator=gen,
+                         dtype=torch.int32).to(dev)
+    flags = [_rand(gen, (lanes, n), q, dev) for q in (0.4, 0.8)]
+    dirty = torch.rand((lanes, n), generator=gen) < 0.2
+    dirty[0] = False
+    dirty[1] = False
+    dirty[1, n - 1] = True
+    dirty[2] = True
+    return (*words, *tables, item, *flags, dirty.to(dev))
+
+
+@pytest.mark.parametrize("n,d", [(1, 30), (14, 100), (33, 100), (160, 500),
+                                 (300, 1000)])
+def test_rowslab_drain_matches_plain(cuda, n, d):
+    """The drain kernel bit-equal to the chunked plain drain at the row-slab
+    edge shapes, with no dirty slot, one, all n (more than any slab) and
+    random masks; also on tables whose rows start off a 4-byte boundary
+    (the byte path)."""
+    from repro_torch.kernels import megastep as kmega
+    gen = torch.Generator().manual_seed(n * 17 + d)
+    args = _drain_args(gen, 5, n, d, cuda)
+    ops.reset_launches()
+    got = kmega.rowslab_drain(*args)
+    assert ops.launch_counts()["rowslab_drain"] == 1
+    for k in (4, 40):
+        want = ref.rowslab_drain_ref(*args, k=k)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, NAMES):
+            assert g.shape == (5, n, n) and torch.equal(g, w), (name, k)
+    for g, t in zip(got, args[2:6]):
+        assert torch.equal(g[0], t[0])             # lane 0: a copy
+    odd = [torch.empty(t.numel() + 1, dtype=torch.bool, device=cuda)[1:]
+           .view(t.shape).copy_(t) for t in args[2:6]]
+    shifted = kmega.rowslab_drain(*args[:2], *odd, *args[6:])
+    torch.cuda.synchronize()
+    for g, w, name in zip(shifted, got, NAMES):
+        assert torch.equal(g, w), name
+
+
+def test_rowslab_drain_leaves_parent_state(cuda):
+    """The drain writes new tables: its inputs, the carried state that the
+    loop keeps for finished lanes, are unchanged after the call."""
+    from repro_torch.kernels import megastep as kmega
+    gen = torch.Generator().manual_seed(3)
+    args = _drain_args(gen, 6, 160, 500, cuda)
+    before = [a.clone() for a in args]
+    got = kmega.rowslab_drain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(args, before):
+        assert torch.equal(a, b)
+    for g, t in zip(got, args[2:6]):
+        assert g.data_ptr() != t.data_ptr()
+    assert any(not torch.equal(g, t) for g, t in zip(got, args[2:6]))
 
 
 # ---- the batch scheduler's kernels (csrc/conflict.cu, csrc/admit.cu) ----
@@ -427,6 +490,31 @@ def test_flash_kernel_matches_plain(cuda, b, hq, hkv, s, t, d, dtype, causal,
     assert got.dtype == dtype and got.shape == q.shape
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_tensor_core_route(cuda):
+    """The dtype picks the route: a bf16 call launches the tensor-core
+    kernel only, a float32 call the CUDA-core kernel only, for TMA-ready
+    views and for views TMA cannot load (D = 20: 40-byte rows)."""
+    from repro_torch.kernels import flash_attention as kflash
+    gen = torch.Generator().manual_seed(9)
+    for d in (128, 20):
+        for dtype, route in ((torch.bfloat16, "flash_attention_tc"),
+                             (torch.float32, "flash_attention")):
+            q, k, v = _flash_inputs(gen, 1, 4, 2, 100, 90, d, dtype, cuda,
+                                    strided=True)
+            if dtype == torch.bfloat16:
+                assert kflash.tma_strides(q)[1] == (d % 8 == 0)
+            ops.reset_launches()
+            got = kflash.flash_attention(q, k, v, causal=True, window=0)
+            counts = ops.launch_counts()
+            assert counts[route] == 1 and sum(
+                counts[r] for r in kflash.ROUTES.values()) == 1, counts
+            want = ref.flash_attention_ref(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[dtype]
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
 
 
 def test_flash_rejects_what_it_does_not_take(cuda):
