@@ -18,9 +18,15 @@ script, and both checkouts are measured with those same helpers: on the
 paper grid's PPCC batch (run_grid's default lanes, n = 160 slots) after
 200 body iterations, the wall of one batch iteration (median of 3
 ``iteration_ms`` windows) with the relations recomputed by the megastep
-kernel and with delta-maintained relations; for the delta iteration, the
-launches counted by the port's wrappers and, from ``profile_iteration``,
-the device kernel time, the kernels and the row-slab kernels' time; the
+kernel and with delta-maintained relations; ``megastep`` and
+``reserve_cohort`` alone by ``cuda_times`` (after a device sleep and back
+to back) at the arguments the next non-delta PPCC body gives them
+(captured with ``capture_calls``, the same in both checkouts, whose
+kernels are bit-equal); for the non-delta iteration, from
+``profile_iteration``, the device kernel time, the kernels and the two
+kernels' device time; for the delta iteration, the launches counted by
+the port's wrappers and, from ``profile_iteration``, the device kernel
+time, the kernels and the row-slab kernels' time; the
 bf16 prefill of qwen3-0.6b at full depth on 8 x 1,024 tokens
 (``median_wall_ms`` of 5, seeded random weights); and flash_attention
 alone on random bf16 inputs of its main-path shape (B = 8, H = 16,
@@ -46,9 +52,12 @@ def measure(root: Path) -> dict:
     import torch
     sys.path.insert(0, str(root / "src"))
     from repro_torch import configs
+    from repro_torch.core import engine as E
     from repro_torch.core import sweep
     from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import megastep as kmega
     from repro_torch.kernels import ops
+    from repro_torch.kernels import scan as kscan
     from repro_torch.launch import steps
     from repro_torch.models import LM
 
@@ -75,6 +84,26 @@ def measure(root: Path) -> dict:
         out[f"{label}_iter_ms"] = statistics.median(
             smoke.iteration_ms(cond, step, s, sweep, torch)
             for _ in range(3))
+    # the two kernels alone, at the arguments of the next non-delta body
+    cond, step, s = states["kernels"]
+    margs = tuple(a.contiguous() for a in E.megastep_args(step.cfg, s))
+    rargs = tuple(a.contiguous() for a in smoke.capture_calls(
+        lambda: step(s), kscan, "reserve_cohort")[0])
+    for name, fn in (("megastep", lambda: kmega.megastep(*margs)),
+                     ("reserve_cohort",
+                      lambda: kscan.reserve_cohort(*rargs))):
+        out[f"{name}_ms"] = smoke.cuda_times(fn, 50, torch)
+        out[f"{name}_ms_no_sleep"] = smoke.cuda_times(fn, 50, torch,
+                                                      sleep=False)
+    del margs, rargs
+    dev_ms, kernels, per = smoke.profile_iteration(cond, step, s, sweep,
+                                                   torch)
+    out["kernels_device_ms"] = dev_ms
+    out["kernels_kernels_per_iter"] = kernels
+    for name in ("megastep", "reserve_cohort"):
+        mine = [v for key, v in per.items() if f"{name}_kernel" in key]
+        out[f"kernels_{name}_device_ms"] = sum(ms for ms, _ in mine)
+        out[f"kernels_{name}_per_iter"] = sum(c for _, c in mine)
     cond, step, s = states["delta"]
     ops.reset_launches()
     sweep._select(cond(s), step(s), s)

@@ -8,14 +8,19 @@ Phases (any failure exits non-zero):
      src/repro_torch/csrc, one nvcc per source, in parallel;
   2. hold each kernel bit-equal to its plain PyTorch version on the card:
      the cohort-step megakernel at the main path's shape (168 lanes,
-     n = 160, W = 16, inputs captured mid-run) and at tile-edge shapes, the
+     n = 160, W = 16, inputs captured mid-run) and at edge shapes (tile
+     edges, n at its row block of 96 less one, at it and plus one, n off
+     the 16-byte stores, three CTAs a lane), the
      row-slab drain at the delta fleet's shape (its inputs captured
      mid-run) and at edge shapes (n in {1, 14, 33, 160, 300}, lanes with no
      dirty slot, one, all n and random masks, tables off a 4-byte
      boundary), the row-slab slab entry at the delta fleet's shape (the
      captured dirty slots as a slab of K = 40) and at edge shapes (K in
      {1, 4, 40, n}, an all-invalid slab, slab ids at the top of the range),
-     and both scan kernels at the main path's shape;
+     reserve_cohort at the arguments of a PPCC body captured mid-run and
+     at random requests, in both its pool layouts, and at edges (pools all
+     0, INF tails, all or no slots masked, one server a pool, 40 CPUs and
+     70 disks, n = 77), and occ_validate at the main path's shape;
   3. the main path: repro_torch.core.sweep.run_grid() with its defaults but
      the horizon — Figs. 5-16 x 7 MPLs x 2 seeds = 168 lanes per protocol,
      n = 160 slots, 500 items, PPCC / 2PL / OCC, to horizon 5,000 (phase 6
@@ -28,7 +33,10 @@ Phases (any failure exits non-zero):
      device sleep that hides the host's dispatch; each row also gives the
      pairs back to back, ms_no_sleep, the way earlier versions of this
      script took every time) beside their bounds and their plain versions, the row-slab
-     drain's bound from the bytes the captured dirty masks make it move;
+     drain's bound from the bytes the captured dirty masks make it move,
+     and beside reserve_cohort's the bound of the longest chain of
+     dependent steps its captured masks make (both pool layouts timed at
+     both input sets);
      one batch iteration of each protocol with the kernels, with the
      plain versions and with telemetry on, and of PPCC with
      delta-maintained relations (with and without telemetry); and the
@@ -97,7 +105,25 @@ INT8_OPS_PER_S = 1.979e15        # H100 SXM dense int8 tensor cores (data sheet)
 LOGIC_PER_SM_CLOCK = 64
 SCHED_EDGE_N = (1, 33, 255, 300, 4096)
 SCHED_EDGE_W = (1, 3, 1024)
-EDGE_SHAPES = [(12, 30), (33, 100), (7, 31), (40, 64), (160, 500)]
+# megastep's (n, d): tile edges, the main path's n, n at the kernel's row
+# block (kRows = 96 in csrc/megastep.cu) less one, at it and plus one, n =
+# 100 (4-byte stores: n % 16 != 0), n = 193 (three CTAs a lane), and n past
+# 8 x 96, where a lane's rows per CTA grow (16-byte and byte stores)
+EDGE_SHAPES = [(12, 30), (33, 100), (7, 31), (40, 64), (160, 500),
+               (95, 300), (96, 300), (97, 300), (100, 200), (193, 500),
+               (800, 30), (850, 40)]
+# reserve_cohort's edges: (label, n, CPUs, disks, mask rate, pools)
+RESERVE_EDGES = [("pools all 0", 160, 16, 32, 0.4, "zero"),
+                 ("INF tails", 160, 16, 32, 0.4, "inf_tail"),
+                 ("all slots masked", 160, 16, 32, 1.0, "random"),
+                 ("no slot masked", 160, 16, 32, 0.0, "random"),
+                 ("nc = nd = 1", 160, 1, 1, 0.4, "random"),
+                 ("nc = 40, nd = 70", 160, 40, 70, 0.4, "zero"),
+                 ("n = 77", 77, 16, 32, 0.4, "random")]
+# the chain bound of reserve_cohort: a dependent integer or float
+# instruction issues at least this many SM cycles after the one it waits
+# on (sm_90's fixed-latency pipes)
+DEP_CYCLES = 4
 SLAB_EDGE_N = {1: 30, 14: 100, 33: 100, 160: 500, 300: 1000}   # n: items
 SLAB_EDGE_K = (1, 4, 40)         # and K = n
 CAPTURE_ITERS = 200              # body iterations before capturing inputs
@@ -273,6 +299,64 @@ def random_drain_inputs(n, d, gen, torch, B, dev):
     dirty[2] = True
     args = (*words, *tables, item, *flags, dirty)
     return tuple(a.to(dev).contiguous() for a in args)
+
+
+def reserve_edge_inputs(label, n, nc, nd, p, pools, gen, torch, dev, inf):
+    """Five lanes of reserve_cohort inputs on ``dev`` for one edge of
+    ``RESERVE_EDGES``: pools random, all 0 (ties everywhere, as at init),
+    or 0 with a tail of INF servers (the grid's padded pools; ties among the
+    live ones and among the INF ones); masks at rate ``p``."""
+    lanes = 5
+    cpu = torch.rand((lanes, nc), generator=gen) * 50
+    disk = torch.rand((lanes, nd), generator=gen) * 80
+    if pools != "random":
+        cpu.zero_()
+        disk.zero_()
+    if pools == "inf_tail":
+        cpu[:, nc // 2:] = inf
+        disk[:, nd // 3:] = inf
+    t = torch.rand((lanes, n), generator=gen) * 60
+    t[0] = 0.0                                  # requests at time 0
+    cd = torch.rand((lanes, n), generator=gen) * 10 + 10
+    dd = torch.rand((lanes, n), generator=gen) * 20 + 25
+    cm = torch.rand((lanes, n), generator=gen) < p
+    dm = torch.rand((lanes, n), generator=gen) < p
+    return tuple(a.to(dev).contiguous() for a in (cpu, disk, t, cd, dd, cm,
+                                                  dm))
+
+
+def bits_equal(got, want, torch) -> bool:
+    """Every output bit-equal: float tensors compared as int32 views."""
+    return all(g.shape == w.shape and g.dtype == w.dtype and torch.equal(
+        *(x.view(torch.int32) if x.is_floating_point() else x
+          for x in (g, w))) for g, w in zip(got, want))
+
+
+def masked_counts(args) -> dict:
+    """Per-lane counts of reserve_cohort's masked slots (its steps), per
+    pool: the most in a lane and the mean over lanes."""
+    out = {}
+    for pool, m in (("cpu", args[5]), ("disk", args[6])):
+        per = m.sum(1)
+        out[pool] = {"max": int(per.max()), "mean": float(per.float().mean())}
+    return out
+
+
+def reserve_chain_cycles(args) -> int:
+    """SM cycles of the longest dependent chain that any reserve_cohort
+    must run on these inputs.  Steps of one pool depend on each other and
+    the two pools do not, and an unmasked slot is no step, so the chain is
+    the most masked slots of one pool of one lane.  A step takes an argmin
+    over the pool's P servers, a compare-and-select tree of ceil(log2 P)
+    levels of 2 dependent instructions (compare, select), then the max with
+    the request time, the add of the duration and the write of the chosen
+    server: 2 ceil(log2 P) + 3 dependent instructions of DEP_CYCLES each."""
+    cycles = 0
+    for m, pool in ((args[5], args[0]), (args[6], args[1])):
+        steps = int(m.sum(1).max()) if m.numel() else 0
+        deps = 2 * (pool.shape[1] - 1).bit_length() + 3
+        cycles = max(cycles, steps * deps * DEP_CYCLES)
+    return cycles
 
 
 def capture_calls(fn, mod, name):
@@ -1139,7 +1223,8 @@ def main() -> None:
             fail(f"megastep differs from megastep_ref at n={en}, d={ed}")
         errs["megastep"] = max(errs["megastep"], e)
     log(f"[2] megastep bit-equal to megastep_ref at the main-path shape and "
-        f"at (n, d) = {EDGE_SHAPES}")
+        f"at (n, d) = {EDGE_SHAPES}; largest n it takes at W = 1, 16, 64: "
+        f"{[kmega.megastep_max_n(mw) for mw in (1, 16, 64)]}")
 
     # the row-slab kernel: the delta fleet's PPCC batch after the same
     # CAPTURE_ITERS iterations, and the launches of its next body
@@ -1233,8 +1318,16 @@ def main() -> None:
         f"(n, K) = {slab_edges}, each with a random, an all-invalid and a "
         f"top-of-range slab")
 
-    # reserve_cohort: the captured pools, random cohort requests
+    # reserve_cohort: the arguments of the next PPCC body's call (captured
+    # as the drain's are), and the captured pools with random requests (20%
+    # of the slots of each pool)
     C, K = s_p.cpu_free.shape[1], s_p.disk_free.shape[1]
+    res_calls = capture_calls(lambda: fleet.parts["ppcc"][2](s_p), kscan,
+                              "reserve_cohort")
+    if len(res_calls) != 1:
+        fail(f"one PPCC body called reserve_cohort {len(res_calls)} times, "
+             f"not once")
+    rreal = tuple(a.contiguous() for a in res_calls[0])
     c = E._classify(cfg_p, s_p)
     rargs = (s_p.cpu_free, s_p.disk_free, c.te,
              (torch.rand((lanes, n), generator=gen) * 10 + 10).to(dev),
@@ -1242,12 +1335,28 @@ def main() -> None:
              (torch.rand((lanes, n), generator=gen) < 0.2).to(dev),
              (torch.rand((lanes, n), generator=gen) < 0.2).to(dev))
     rargs = tuple(a.contiguous() for a in rargs)
-    g, w_ = kscan.reserve_cohort(*rargs), ref.reserve_cohort_ref(*rargs)
-    torch.cuda.synchronize()
-    errs["reserve_cohort"] = max_abs_err(g, w_, torch)
-    if not all(torch.equal(x, y) for x, y in zip(g, w_)):
-        fail(f"reserve_cohort differs from its plain version (max abs err "
-             f"{errs['reserve_cohort']})")
+    res_sets = {"captured": rreal, "random 20%": rargs}
+    for label, a in res_sets.items():
+        g, want = kscan.reserve_cohort(*a), ref.reserve_cohort_ref(*a)
+        torch.cuda.synchronize()
+        errs["reserve_cohort"] = max(errs["reserve_cohort"],
+                                     max_abs_err(g, want, torch))
+        if not bits_equal(g, want, torch):
+            fail(f"reserve_cohort differs from its plain version at the "
+                 f"{label} inputs (max abs err {errs['reserve_cohort']})")
+        log(f"[2] reserve_cohort inputs '{label}': masked slots per lane "
+            f"{masked_counts(a)}")
+    for edge in RESERVE_EDGES:
+        a = reserve_edge_inputs(*edge, gen, torch, dev, ref.INF)
+        g, want = kscan.reserve_cohort(*a), ref.reserve_cohort_ref(*a)
+        torch.cuda.synchronize()
+        if not bits_equal(g, want, torch):
+            fail(f"reserve_cohort differs from its plain version at the "
+                 f"edge '{edge[0]}'")
+    log(f"[2] reserve_cohort ({lanes} lanes, n={n}, {C} CPUs, {K} disks) "
+        f"bit-equal to its plain version at the captured and random inputs "
+        f"and at the edges "
+        f"{[e[0] for e in RESERVE_EDGES]}")
     # occ_validate: the captured OCC words, random would-be committers
     _, s_o = captured["occ"]
     ps_o = s_o.pstate
@@ -1259,10 +1368,9 @@ def main() -> None:
     errs["occ_validate"] = max_abs_err((g,), (w_,), torch)
     if not torch.equal(g, w_):
         fail("occ_validate differs from its plain version")
-    log(f"[2] reserve_cohort ({lanes} lanes, n={n}, {C} CPUs, {K} disks) "
-        f"and occ_validate ({int(oargs[0].sum())} would-be committers, "
-        f"{int(s_o.dirty.ne(0).sum())} dirty words) bit-equal to their "
-        f"plain versions")
+    log(f"[2] occ_validate ({int(oargs[0].sum())} would-be committers, "
+        f"{int(s_o.dirty.ne(0).sum())} dirty words) bit-equal to its plain "
+        f"version")
 
     # ---------------- phase 3: the main path ----------------
     ops.reset_launches()
@@ -1424,9 +1532,13 @@ def main() -> None:
                         False)
     drain_plain = cuda_times(lambda: ref.rowslab_drain_ref(
         *dargs, k=dstep.cfg.delta_k), 5, torch)
-    res_ms = cuda_times(lambda: kscan.reserve_cohort(*rargs), 50, torch)
-    res0 = cuda_times(lambda: kscan.reserve_cohort(*rargs), 50, torch, False)
-    res_plain = cuda_times(lambda: ref.reserve_cohort_ref(*rargs), 5, torch)
+    # reserve_cohort at the captured arguments (the row's times) and at the
+    # random requests
+    res_t = {label: [cuda_times(lambda: kscan.reserve_cohort(*a), 50, torch,
+                                sleep) for sleep in (True, False)]
+             for label, a in res_sets.items()}
+    res_ms, res0 = res_t["captured"]
+    res_plain = cuda_times(lambda: ref.reserve_cohort_ref(*rreal), 5, torch)
     occ_ms = cuda_times(lambda: kscan.occ_validate(*oargs), 50, torch)
     occ0 = cuda_times(lambda: kscan.occ_validate(*oargs), 50, torch, False)
     occ_plain = cuda_times(lambda: ref.occ_validate_ref(*oargs), 5, torch)
@@ -1469,6 +1581,11 @@ def main() -> None:
     r_bytes = (2 * lanes * (C + K) * 4 + 3 * lanes * n * 4 + 2 * lanes * n
                + 2 * lanes * n * 4)
     r_ops = lanes * n * (C + K + 4)
+    # reserve_cohort's chain bound (reserve_chain_cycles at the max SM
+    # clock), logged beside the row's bytes-and-operations bound
+    sm_hz = max_sm_clock_hz()
+    r_chain = {label: reserve_chain_cycles(a) / sm_hz * 1e3
+               for label, a in res_sets.items()}
     o_bytes = lanes * n + 3 * lanes * n * w * 4 + lanes * n
     o_ops = lanes * n * w * 3
     grid_rows = []
@@ -1496,6 +1613,22 @@ def main() -> None:
             f"{ms:.4f} ms ({ms0:.4f} ms back to back; plain {pms:.4f} ms, "
             f"bound {b_ms:.5f} ms by "
             f"{b_by}) at the main-path shape")
+    rb_ms, rb_by = bound(r_bytes, r_ops)
+    grid_rows[2].update(
+        inputs="the arguments of one PPCC body's call after "
+               f"{CAPTURE_ITERS} iterations",
+        masked=masked_counts(rreal),
+        random={"masked": masked_counts(rargs),
+                "ms": res_t["random 20%"][0],
+                "ms_no_sleep": res_t["random 20%"][1]})
+    log("[4] reserve_cohort: " + "; ".join(
+        f"{label} inputs ({masked_counts(a)}): {res_t[label][0]:.4f} ms "
+        f"({res_t[label][1]:.4f} back to back), chain bound "
+        f"{r_chain[label]:.5f} ms" for label, a in res_sets.items())
+        + f"; byte bound {rb_ms:.5f} ms ({rb_by}); the chain bound takes "
+        f"the most masked slots of one pool of one lane x (2 ceil(log2 P) "
+        f"+ 3) dependent instructions x {DEP_CYCLES} cycles at "
+        f"{sm_hz / 1e6:.0f} MHz")
     sb_ms, sb_by = bound(s_bytes, s_ops)
     grid_rows[1].update(
         entry="rowslab_drain (csrc/rowslab.cu rowslab_drain_launch), once "

@@ -13,27 +13,164 @@
 //                   or the write rows of the lower committers that passed.
 //
 // Each computes exactly its plain version in repro_torch/kernels/ref.py.
-// One thread walks one lane's slots in order; a CTA holds 32 lanes.  Each
-// thread keeps its lane's running state (the two server pools, or the
-// accumulated write words) in shared memory, interleaved across threads so
-// that the 32 threads of a warp touch 32 banks.  The kernels only add,
-// compare, take maxima and combine bits; they are built with --fmad=false
-// all the same, and the one addition is written as __fadd_rn.
+// The kernels only add, compare, take maxima and combine bits; they are
+// built with --fmad=false all the same, and the one addition is written as
+// __fadd_rn.
 //
-// Bound.  At the main path's shape (168 lanes, n = 160, 16 CPUs, 32 disks,
-// W = 16) reserve_cohort moves 168 x (160 x 4 x 4 + 160 x 2 + 48 x 8) B,
-// about 0.55 MB, and occ_validate 168 x (160 x 3 x 16 x 4 + 160 x 2) B,
-// about 5.2 MB: a few microseconds or less at 3.35 TB/s.  What bounds them
-// in practice is the serial chain of 160 dependent steps per lane, which a
-// single thread cannot hide.
+// Design of reserve_cohort.  What the semantics allow: a CPU step reads and
+// writes only the CPU pool and a disk step only the disk pool, so the two
+// pools are two independent chains; and a slot whose mask is off leaves
+// its pool alone and outputs INF, so only the masked slots are steps.  One
+// CTA of two warps per lane: warp 0 walks the CPU pool, warp 1 the disk
+// pool.  A warp takes its slots 32 at a time, one slot a thread, with the
+// next 32 slots' inputs already loaded (coalesced) while it steps through
+// these; a ballot of the masks compacts the chunk's steps, the unmasked
+// slots write INF at once, and each step's request time and duration come
+// to the warp by shuffle, off the chain.  The pool lives in registers, one
+// server per thread (server s in register s / 32 of thread s % 32, pools
+// up to 384 servers).  A step is then:
+//   key*  = min over the warp of the servers' order keys (__reduce_min_sync
+//           on keys that order as the floats do, +0 and -0 alike)
+//   owner = the lowest server index whose key is key* (a ballot, so ties,
+//           the normal case at init and in the INF tails of the padded
+//           pools, go to the lowest index as jnp.argmin and torch.argmin
+//           send them)
+//   the owner writes done = __fadd_rn(fmaxf(t_req, free), dur) into its
+//   register and to cpu_done / disk_done.
+// Free times are never NaN.  A second layout, the whole pool in every
+// thread's registers with an unrolled compare tree, measured slower
+// (PERF.md) and is not kept.
+//
+// Bound of reserve_cohort.  At the main path's shape (168 lanes, n = 160,
+// 16 CPUs, 32 disks) a launch moves 168 x (160 x (3 x 4 + 2 + 2 x 4) + 2 x
+// 48 x 4) B, about 0.66 MB: 0.2 us at 3.35 TB/s.  What bounds it is the
+// longest chain of dependent steps, the most masked slots of one pool of
+// one lane; chip_smoke.py models it (the kernel row's chain bound).
+//
+// Design of occ_validate.  One thread walks one lane's slots in order; a
+// CTA holds 32 lanes.  Each thread keeps its lane's accumulated write words
+// in shared memory, interleaved across threads so that the 32 threads of a
+// warp touch 32 banks.  Bound: 168 x (160 x 3 x 16 x 4 + 160 x 2) B, about
+// 5.2 MB, at the main shape, a few microseconds; the serial chain of 160
+// dependent steps per lane, which a single thread cannot hide, is what
+// bounds it in practice.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kThreads = 32;          // occ_validate: lanes per CTA
+constexpr int kResThreads = 64;       // reserve_cohort: two warps per lane
+constexpr int kMaxServersPerThread = 12;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kNoServer = 0xffffffffu;  // above every float's key
 
-__global__ void __launch_bounds__(kThreads)
+// A key whose unsigned order is the float order, with +0 and -0 equal.
+__device__ __forceinline__ uint32_t order_key(float v) {
+  const uint32_t b = __float_as_uint(v);
+  return (b & 0x80000000u) ? 0x80000000u - (b & 0x7fffffffu)
+                           : b + 0x80000000u;
+}
+
+// The pool of one warp: its inputs and outputs for one lane.
+struct Pool {
+  const float* free_in;
+  float* free_out;
+  const float* dur;
+  const uint8_t* mask;
+  float* done;
+  int np;
+};
+
+// Walk the lane's slots 32 at a time and call step(t_req, dur, slot) for
+// each masked slot in index order; write INF for the unmasked ones.  The
+// inputs of the next chunk are loaded before this chunk's steps.
+template <typename Step>
+__device__ __forceinline__ void walk_masked(const float* __restrict__ t_req,
+                                            const Pool& p, int n, float inf,
+                                            Step step) {
+  const int lane = threadIdx.x & 31;
+  float t_nx = 0.f, d_nx = 0.f;
+  bool m_nx = false;
+  if (lane < n) {
+    t_nx = t_req[lane];
+    d_nx = p.dur[lane];
+    m_nx = p.mask[lane] != 0;
+  }
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    const float tc = t_nx, dc = d_nx;
+    const bool mc = m_nx;
+    const int nx = c0 + 32 + lane;
+    m_nx = false;
+    if (nx < n) {
+      t_nx = t_req[nx];
+      d_nx = p.dur[nx];
+      m_nx = p.mask[nx] != 0;
+    }
+    if (c0 + lane < n && !mc) p.done[c0 + lane] = inf;
+    uint32_t todo = __ballot_sync(kFull, mc);
+    while (todo) {
+      const int b = __ffs(todo) - 1;
+      todo &= todo - 1;
+      step(__shfl_sync(kFull, tc, b), __shfl_sync(kFull, dc, b), c0 + b);
+    }
+  }
+}
+
+// Server s in register s / 32 of thread s % 32.
+template <int S>
+__device__ void reserve_pool_warp(const float* __restrict__ t_req,
+                                  const Pool& p, int n, float inf) {
+  const int lane = threadIdx.x & 31;
+  float v[S];
+  uint32_t key[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    const int s = r * 32 + lane;
+    v[r] = s < p.np ? p.free_in[s] : 0.f;
+    key[r] = s < p.np ? order_key(v[r]) : kNoServer;
+  }
+  uint32_t me;  // this thread's bit of a ballot
+  asm("mov.u32 %0, %%lanemask_eq;" : "=r"(me));
+  walk_masked(t_req, p, n, inf, [&](float t, float d, int slot) {
+    uint32_t kmin = key[0];
+#pragma unroll
+    for (int r = 1; r < S; ++r) kmin = min(kmin, key[r]);
+    kmin = __reduce_min_sync(kFull, kmin);
+    // the lowest register holding key*, then its lowest thread
+    int rr = 0;
+    uint32_t hit = 0;
+#pragma unroll
+    for (int r = S - 1; r >= 0; --r) {
+      const uint32_t h = __ballot_sync(kFull, key[r] == kmin);
+      if (h) {
+        hit = h;
+        rr = r;
+      }
+    }
+    float vo = v[0];
+#pragma unroll
+    for (int r = 1; r < S; ++r) vo = r == rr ? v[r] : vo;
+    const float dn = __fadd_rn(fmaxf(t, vo), d);
+    const bool mine = (hit & (0u - hit)) == me;
+    const uint32_t kn = order_key(dn);
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      const bool upd = mine && r == rr;
+      v[r] = upd ? dn : v[r];
+      key[r] = upd ? kn : key[r];
+    }
+    if (mine) p.done[slot] = dn;
+  });
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    const int s = r * 32 + lane;
+    if (s < p.np) p.free_out[s] = v[r];
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(kResThreads)
 reserve_cohort_kernel(const float* __restrict__ cpu_in,
                       const float* __restrict__ disk_in,
                       const float* __restrict__ t_req,
@@ -41,54 +178,31 @@ reserve_cohort_kernel(const float* __restrict__ cpu_in,
                       const float* __restrict__ io_dur,
                       const uint8_t* __restrict__ cpu_m,
                       const uint8_t* __restrict__ disk_m,
-                      float* __restrict__ cpu_out, float* __restrict__ disk_out,
+                      float* __restrict__ cpu_out,
+                      float* __restrict__ disk_out,
                       float* __restrict__ cpu_done,
-                      float* __restrict__ disk_done, int lanes, int n, int nc,
-                      int nd, float inf) {
-  extern __shared__ float pools[];  // [(nc + nd) x blockDim.x]
-  const int bs = blockDim.x;
-  const int t = threadIdx.x;
-  const int l = blockIdx.x * bs + t;
-  if (l >= lanes) return;
-  float* cpu = pools + t;             // server c at cpu[c * bs]
-  float* disk = pools + nc * bs + t;  // server k at disk[k * bs]
-  for (int c = 0; c < nc; ++c) cpu[c * bs] = cpu_in[size_t(l) * nc + c];
-  for (int k = 0; k < nd; ++k) disk[k * bs] = disk_in[size_t(l) * nd + k];
+                      float* __restrict__ disk_done, int n, int nc, int nd,
+                      float inf) {
+  const size_t l = blockIdx.x;
+  const size_t v = l * n;
+  const bool disk = threadIdx.x >= 32;
+  const Pool p = disk ? Pool{disk_in + l * nd, disk_out + l * nd, io_dur + v,
+                             disk_m + v, disk_done + v, nd}
+                      : Pool{cpu_in + l * nc, cpu_out + l * nc, cpu_dur + v,
+                             cpu_m + v, cpu_done + v, nc};
+  reserve_pool_warp<S>(t_req + v, p, n, inf);
+}
 
-  for (int i = 0; i < n; ++i) {
-    const size_t v = size_t(l) * n + i;
-    const float tr = t_req[v];
-
-    int ci = 0;
-    float cv = cpu[0];
-    for (int c = 1; c < nc; ++c) {
-      const float f = cpu[c * bs];
-      if (f < cv) { cv = f; ci = c; }
-    }
-    const float cdone = __fadd_rn(fmaxf(tr, cv), cpu_dur[v]);
-    if (cpu_m[v]) {
-      cpu[ci * bs] = cdone;
-      cpu_done[v] = cdone;
-    } else {
-      cpu_done[v] = inf;
-    }
-
-    int di = 0;
-    float dv = disk[0];
-    for (int k = 1; k < nd; ++k) {
-      const float f = disk[k * bs];
-      if (f < dv) { dv = f; di = k; }
-    }
-    const float ddone = __fadd_rn(fmaxf(tr, dv), io_dur[v]);
-    if (disk_m[v]) {
-      disk[di * bs] = ddone;
-      disk_done[v] = ddone;
-    } else {
-      disk_done[v] = inf;
-    }
-  }
-  for (int c = 0; c < nc; ++c) cpu_out[size_t(l) * nc + c] = cpu[c * bs];
-  for (int k = 0; k < nd; ++k) disk_out[size_t(l) * nd + k] = disk[k * bs];
+template <int S>
+int launch_reserve(const void* const* a, int lanes, int n, int nc, int nd,
+                   float inf, cudaStream_t stream) {
+  reserve_cohort_kernel<S><<<lanes, kResThreads, 0, stream>>>(
+      static_cast<const float*>(a[0]), static_cast<const float*>(a[1]),
+      static_cast<const float*>(a[2]), static_cast<const float*>(a[3]),
+      static_cast<const float*>(a[4]), static_cast<const uint8_t*>(a[5]),
+      static_cast<const uint8_t*>(a[6]), (float*)a[7], (float*)a[8],
+      (float*)a[9], (float*)a[10], n, nc, nd, inf);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -130,7 +244,11 @@ extern "C" {
 
 int scan_threads() { return kThreads; }
 
-// FCFS reservation; returns the cudaError_t of the launch.  cpu_in/disk_in
+// The largest pool one launch of reserve_cohort takes.
+int reserve_cohort_max_pool() { return 32 * kMaxServersPerThread; }
+
+// FCFS reservation; returns the cudaError_t of the launch (or
+// cudaErrorInvalidValue for a pool it does not take).  cpu_in/disk_in
 // float[lanes, nc] / [lanes, nd]; t_req, durations and the *_done outputs
 // float[lanes, n]; masks 1 byte each.
 int reserve_cohort_launch(const void* cpu_in, const void* disk_in,
@@ -139,17 +257,26 @@ int reserve_cohort_launch(const void* cpu_in, const void* disk_in,
                           const void* disk_m, void* cpu_out, void* disk_out,
                           void* cpu_done, void* disk_done, int lanes, int n,
                           int nc, int nd, float inf, void* stream) {
-  const size_t bytes = size_t(nc + nd) * kThreads * sizeof(float);
-  const int blocks = (lanes + kThreads - 1) / kThreads;
-  reserve_cohort_kernel<<<blocks, kThreads, bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cpu_in), static_cast<const float*>(disk_in),
-      static_cast<const float*>(t_req), static_cast<const float*>(cpu_dur),
-      static_cast<const float*>(io_dur), static_cast<const uint8_t*>(cpu_m),
-      static_cast<const uint8_t*>(disk_m), static_cast<float*>(cpu_out),
-      static_cast<float*>(disk_out), static_cast<float*>(cpu_done),
-      static_cast<float*>(disk_done), lanes, n, nc, nd, inf);
-  return static_cast<int>(cudaGetLastError());
+  const void* a[] = {cpu_in, disk_in, t_req,   cpu_dur,  io_dur,   cpu_m,
+                     disk_m, cpu_out, disk_out, cpu_done, disk_done};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int np = nc > nd ? nc : nd;
+  if (nc < 1 || nd < 1 || np > reserve_cohort_max_pool())
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch ((np + 31) / 32) {
+    case 1: return launch_reserve<1>(a, lanes, n, nc, nd, inf, s);
+    case 2: return launch_reserve<2>(a, lanes, n, nc, nd, inf, s);
+    case 3: return launch_reserve<3>(a, lanes, n, nc, nd, inf, s);
+    case 4: return launch_reserve<4>(a, lanes, n, nc, nd, inf, s);
+    case 5: return launch_reserve<5>(a, lanes, n, nc, nd, inf, s);
+    case 6: return launch_reserve<6>(a, lanes, n, nc, nd, inf, s);
+    case 7: return launch_reserve<7>(a, lanes, n, nc, nd, inf, s);
+    case 8: return launch_reserve<8>(a, lanes, n, nc, nd, inf, s);
+    case 9: return launch_reserve<9>(a, lanes, n, nc, nd, inf, s);
+    case 10: return launch_reserve<10>(a, lanes, n, nc, nd, inf, s);
+    case 11: return launch_reserve<11>(a, lanes, n, nc, nd, inf, s);
+    default: return launch_reserve<12>(a, lanes, n, nc, nd, inf, s);
+  }
 }
 
 // OCC validation scan; returns the cudaError_t of the launch.  Words

@@ -3,9 +3,10 @@ and the row-slab kernel (``csrc/rowslab.cu``).
 
 ``megastep`` replaces ``repro/kernels/megastep.py::_megastep_kernel``:
 one launch computes every pairwise relation of a fused PPCC cohort step
-for all lanes of a fleet, one CTA per lane, with the lane's packed words
-and op data resident in shared memory and the party matrix packed to
-bits there.  ``rowslab_drain`` and ``rowslab`` replace
+for all lanes of a fleet, each lane split over CTAs of 96 rows, with the
+lane's packed words and op data resident in shared memory, the party
+matrix packed to bits there, and the four tables written 16 bytes a
+store.  ``rowslab_drain`` and ``rowslab`` replace
 ``_rowslab_kernel``.  The drain, which the delta engine launches once per
 PPCC iteration, takes each lane's dirty mask and writes the next
 iteration's four relation tables, out of place: the dirty slots' rows
@@ -51,6 +52,19 @@ def _launcher():
     return _fn
 
 
+def megastep_max_n(w: int) -> int:
+    """The largest n whose footprint at W = ``w`` words fits one CTA's
+    shared memory (0 if none does); the footprint grows with n."""
+    smem_bytes = _launcher()[1]
+    lo, hi = 0, 1
+    while smem_bytes(hi, w) <= SMEM_MAX:
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if smem_bytes(mid, w) <= SMEM_MAX else (lo, mid)
+    return lo
+
+
 def megastep(read_bits, write_bits, dirty_bits, item, is_write, active,
              ready, haslocks):
     """One launch → ``(dep, ww, writers_at, readers_at, deg, lockhit,
@@ -77,7 +91,8 @@ def megastep(read_bits, write_bits, dirty_bits, item, is_write, active,
     if need > SMEM_MAX:
         raise ValueError(
             f"megastep: n={n}, W={w} needs {need} B of shared memory per "
-            f"CTA, more than {SMEM_MAX}")
+            f"CTA, more than {SMEM_MAX}; at W={w} it takes n up to "
+            f"{megastep_max_n(w)}")
     rel = [torch.empty((lanes, n, n), dtype=torch.bool, device=dev)
            for _ in range(4)]
     deg = torch.empty((lanes, n), dtype=torch.int32, device=dev)

@@ -4,9 +4,12 @@
 ``reserve_cohort`` replaces the XLA scan of
 ``repro/core/jaxsim.py::_reserve_cohort`` and ``occ_validate`` the OCC
 same-iteration validation scan of ``jaxsim._cohort_body``.  A loop over
-the slots in torch would cost one launch per slot and step; here one
-thread walks one lane's slots in order.  The plain versions are
-``kernels.ref.reserve_cohort_ref`` and ``kernels.ref.occ_validate_ref``.
+the slots in torch would cost one launch per slot and step.
+``reserve_cohort`` walks each lane's CPU and disk pools as two chains,
+one warp each, over the masked slots only, with the pool in registers;
+``occ_validate`` walks one lane's slots in one thread.  The plain
+versions are ``kernels.ref.reserve_cohort_ref`` and
+``kernels.ref.occ_validate_ref``.
 
 Both take CUDA tensors only; ``kernels.ops`` is the dispatcher the
 engine calls.  Each wrapper counts its launches in a plain integer.
@@ -34,13 +37,15 @@ def _launchers():
         res.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
             [ctypes.c_float, ctypes.c_void_p]
         res.restype = ctypes.c_int
+        lib.reserve_cohort_max_pool.argtypes = []
+        lib.reserve_cohort_max_pool.restype = ctypes.c_int
         occ = lib.occ_validate_launch
         occ.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p]
         occ.restype = ctypes.c_int
         lib.scan_threads.argtypes = []
         lib.scan_threads.restype = ctypes.c_int
-        _fns = (res, occ, lib.scan_threads())
+        _fns = (res, occ, lib.scan_threads(), lib.reserve_cohort_max_pool())
     return _fns
 
 
@@ -68,10 +73,10 @@ def reserve_cohort(cpu_free, disk_free, t_req, cpu_dur, io_dur, cpu_m,
             ("cpu_m", cpu_m, torch.bool, (lanes, n)),
             ("disk_m", disk_m, torch.bool, (lanes, n))):
         build.check_arg("reserve_cohort", name, t, dtype, shape, dev)
-    res, _, threads = _launchers()
-    if nc < 1 or nd < 1 or (nc + nd) * threads * 4 > SMEM_DEFAULT:
+    res, _, _, max_pool = _launchers()
+    if nc < 1 or nd < 1 or max(nc, nd) > max_pool:
         raise ValueError(f"reserve_cohort: pools of {nc} CPUs and {nd} "
-                         f"disks do not fit one CTA")
+                         f"disks; it takes 1 to {max_pool} servers a pool")
     cpu_out = torch.empty_like(cpu_free)
     disk_out = torch.empty_like(disk_free)
     cpu_done = torch.empty_like(t_req)
@@ -101,7 +106,7 @@ def occ_validate(commit_pre, read_bits, dirty_bits, write_bits):
                         dev)
     build.check_arg("occ_validate", "commit_pre", commit_pre, torch.bool,
                     (lanes, n), dev)
-    _, occ, threads = _launchers()
+    _, occ, threads, _ = _launchers()
     if w * threads * 4 > SMEM_DEFAULT:
         raise ValueError(f"occ_validate: {w} words do not fit one CTA")
     fail = torch.empty((lanes, n), dtype=torch.bool, device=dev)

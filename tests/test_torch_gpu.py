@@ -34,18 +34,27 @@ def _rand(gen, shape, p, dev):
     return (torch.rand(shape, generator=gen) < p).to(dev)
 
 
+def _megastep_args(gen, lanes, n, d, dev):
+    words = [TB.pack(_rand(gen, (lanes, n, d), p, "cpu")).to(dev)
+             for p in (0.03, 0.02, 0.02)]
+    flags = [_rand(gen, (lanes, n), q, dev) for q in (0.3, 0.7, 0.5, 0.2)]
+    item = torch.randint(0, d, (lanes, n), generator=gen,
+                         dtype=torch.int32).to(dev)
+    return (*words, item, *flags)
+
+
+# tile edges, the main path's n, n at the kernel's row block (96) less
+# one, at it and plus one, n off the 16-byte stores, three CTAs a lane,
+# and past 8 x 96 slots, where a lane's rows per CTA grow (with 16-byte
+# and with byte stores)
 @pytest.mark.parametrize("n,d", [(12, 30), (33, 100), (7, 31), (40, 64),
-                                 (160, 500), (300, 1000)])
+                                 (160, 500), (300, 1000), (95, 300),
+                                 (96, 300), (97, 300), (100, 200),
+                                 (193, 500), (800, 30), (850, 40)])
 def test_megastep_kernel_matches_plain(cuda, n, d):
     from repro_torch.kernels import megastep as kmega
     gen = torch.Generator().manual_seed(n * d)
-    lanes = 5
-    words = [TB.pack(_rand(gen, (lanes, n, d), p, "cpu")).to(cuda)
-             for p in (0.03, 0.02, 0.02)]
-    flags = [_rand(gen, (lanes, n), q, cuda) for q in (0.3, 0.7, 0.5, 0.2)]
-    item = torch.randint(0, d, (lanes, n), generator=gen,
-                         dtype=torch.int32).to(cuda)
-    args = (*words, item, *flags)
+    args = _megastep_args(gen, 5, n, d, cuda)
     got = kmega.megastep(*args)
     want = ref.megastep_ref(*args)
     torch.cuda.synchronize()
@@ -71,23 +80,80 @@ def test_megastep_rejects_what_it_does_not_take(cuda):
         kmega.megastep(big, big, big, bi, bf, bf, bf, bf)
 
 
-@pytest.mark.parametrize("lanes,n,nc,nd", [(3, 12, 4, 8), (168, 160, 16, 32)])
-def test_reserve_cohort_kernel_matches_plain(cuda, lanes, n, nc, nd):
+@pytest.mark.parametrize("w", [1, 16])
+def test_megastep_takes_up_to_its_largest_n(cuda, w):
+    from repro_torch.kernels import megastep as kmega
+    n = kmega.megastep_max_n(w)
+    gen = torch.Generator().manual_seed(n + w)
+    args = _megastep_args(gen, 1, n, 32 * w, cuda)
+    got = kmega.megastep(*args)
+    want = ref.megastep_ref(*args)
+    torch.cuda.synchronize()
+    for g, x, name in zip(got, want, NAMES):
+        assert torch.equal(g, x), name
+    more = _megastep_args(gen, 1, n + 1, 32 * w, cuda)
+    with pytest.raises(ValueError, match=f"up to {n}"):
+        kmega.megastep(*more)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.is_floating_point() else t
+
+
+# (lanes, n, CPUs, disks, pools, mask rate): random pools with ties, the
+# main path's shape, pools all 0, INF tails, all or no slots masked, one
+# server a pool, pools wider than a warp, n not a multiple of 32
+@pytest.mark.parametrize("lanes,n,nc,nd,pools,p", [
+    (3, 12, 4, 8, "random", 0.4), (168, 160, 16, 32, "random", 0.4),
+    (5, 160, 16, 32, "zero", 0.4), (5, 160, 16, 32, "inf_tail", 0.4),
+    (5, 160, 16, 32, "random", 1.0), (5, 160, 16, 32, "random", 0.0),
+    (5, 160, 1, 1, "random", 0.4), (5, 100, 40, 70, "zero", 0.4),
+    (5, 77, 16, 32, "random", 0.4)])
+def test_reserve_cohort_kernel_matches_plain(cuda, lanes, n, nc, nd, pools,
+                                             p):
     from repro_torch.kernels import scan as kscan
     gen = torch.Generator().manual_seed(lanes + n)
     cpu = torch.rand((lanes, nc), generator=gen) * 50
-    cpu[:, 1] = cpu[:, 0]                              # argmin ties
-    cpu[:, nc - 1] = E.INF                             # past the live size
     disk = torch.rand((lanes, nd), generator=gen) * 80
+    if pools != "random":
+        cpu.zero_()
+        disk.zero_()
+    elif nc > 1:
+        cpu[:, 1] = cpu[:, 0]                          # argmin ties
+        cpu[:, nc - 1] = E.INF                         # past the live size
+    if pools == "inf_tail":
+        cpu[:, nc // 2:] = E.INF
+        disk[:, nd // 3:] = E.INF
     t = torch.rand((lanes, n), generator=gen) * 60
     cd = torch.rand((lanes, n), generator=gen) * 10 + 10
     dd = torch.rand((lanes, n), generator=gen) * 20 + 25
     args = tuple(a.to(cuda) for a in (cpu, disk, t, cd, dd)) + (
-        _rand(gen, (lanes, n), 0.4, cuda), _rand(gen, (lanes, n), 0.4, cuda))
+        _rand(gen, (lanes, n), p, cuda), _rand(gen, (lanes, n), p, cuda))
     got = kscan.reserve_cohort(*args)
     want = ref.reserve_cohort_ref(*args)
     torch.cuda.synchronize()
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
+
+
+def test_reserve_cohort_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import scan as kscan
+    lanes, n = 2, 8
+    times = torch.zeros((lanes, n), device=cuda)
+    mask = torch.zeros((lanes, n), dtype=torch.bool, device=cuda)
+
+    def call(nc, nd):
+        return kscan.reserve_cohort(
+            torch.zeros((lanes, nc), device=cuda),
+            torch.zeros((lanes, nd), device=cuda), times, times, times, mask,
+            mask)
+    call(384, 1)                                # the widest pool it takes
+    for nc, nd in ((0, 4), (4, 0), (385, 4), (4, 385)):
+        with pytest.raises(ValueError):
+            call(nc, nd)
+    with pytest.raises(ValueError):
+        kscan.reserve_cohort(torch.zeros((lanes, 4)), torch.zeros(
+            (lanes, 4)), times.cpu(), times.cpu(), times.cpu(), mask.cpu(),
+            mask.cpu())
 
 
 @pytest.mark.parametrize("lanes,n,d", [(3, 12, 30), (168, 160, 500)])

@@ -85,6 +85,21 @@ def test_megastep_ref_matches_oracle_and_pallas(edge_inputs, n, d, block):
     assert got[4].dtype == torch.int32
 
 
+@pytest.mark.parametrize("n,d,block", EDGE_SHAPES)
+def test_megastep_dep_ww_symmetric(edge_inputs, n, d, block):
+    """dep and ww of the plain version are symmetric in (i, j), as both
+    predicates are, and equal the JAX oracle's."""
+    per_lane = edge_inputs[(n, d)]
+    dep, ww = ref.megastep_ref(*_lanes(per_lane))[:2]
+    for name, t in (("dep", dep), ("ww", ww)):
+        assert torch.equal(t, t.transpose(1, 2)), name
+    for lane, args in enumerate(per_lane):
+        want = JREF.megastep_ref(*args)
+        for g, w, name in zip((dep, ww), want[:2], NAMES):
+            np.testing.assert_array_equal(g[lane].numpy(), np.asarray(w),
+                                          err_msg=f"{name} vs oracle")
+
+
 def test_megastep_relations_dispatch_on_cpu(edge_inputs):
     """On CPU tensors the dispatcher is the plain version and launches
     nothing."""
