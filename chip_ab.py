@@ -26,7 +26,16 @@ kernels are bit-equal); for the non-delta iteration, from
 ``profile_iteration``, the device kernel time, the kernels and the two
 kernels' device time; for the delta iteration, the launches counted by
 the port's wrappers and, from ``profile_iteration``, the device kernel
-time, the kernels and the row-slab kernels' time; the
+time, the kernels and the row-slab kernels' time; on the
+OCC batch after 200 body iterations, ``occ_validate`` alone by
+``cuda_times`` (after a device sleep and back to back) at the arguments
+the next OCC body gives it (captured with ``capture_calls``), and from
+``profile_iteration`` the OCC iteration's device kernel time, kernels
+and ``occ_validate``'s device time; on the scheduler's full-width YCSB
+batch (n = 4,096, W = 1,024), ``ppcc_admit`` alone by ``cuda_times`` at
+the inputs of tick 4 of the ``ppcc_degree`` drain
+(``ppcc_admit_inputs``), and one ``ppcc`` tick with ``tick_stats``, its
+wall and its device kernel time (``ppcc_tick_times``); the
 bf16 prefill of qwen3-0.6b at full depth on 8 x 1,024 tokens
 (``median_wall_ms`` of 5, seeded random weights); and flash_attention
 alone on random bf16 inputs of its main-path shape (B = 8, H = 16,
@@ -54,12 +63,14 @@ def measure(root: Path) -> dict:
     from repro_torch import configs
     from repro_torch.core import engine as E
     from repro_torch.core import sweep
+    from repro_torch.kernels import admit as kadm
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import megastep as kmega
     from repro_torch.kernels import ops
     from repro_torch.kernels import scan as kscan
     from repro_torch.launch import steps
     from repro_torch.models import LM
+    from repro_torch.sched import workload as W
 
     dev = torch.device("cuda")
     out = {"dir": str(root)}
@@ -72,15 +83,18 @@ def measure(root: Path) -> dict:
     n_slots = sweep.slot_bucket(max(mpls))
 
     states = {}
-    for label, delta in (("kernels", False), ("delta", True)):
+    for label, delta, proto in (("kernels", False, "ppcc"),
+                                ("delta", True, "ppcc"),
+                                ("occ", False, "occ")):
         fleet = sweep.Fleet(cover, n_slots=n_slots, delta=delta,
                             device=dev)
-        init, cond, step = fleet.parts["ppcc"]
+        init, cond, step = fleet.parts[proto]
         s = init(*lanes)
         for _ in range(CAPTURE_ITERS):
             s = sweep._select(cond(s), step(s), s)
         states[label] = (cond, step, s)
-    for label, (cond, step, s) in states.items():
+    for label in ("kernels", "delta"):
+        cond, step, s = states[label]
         out[f"{label}_iter_ms"] = statistics.median(
             smoke.iteration_ms(cond, step, s, sweep, torch)
             for _ in range(3))
@@ -117,7 +131,43 @@ def measure(root: Path) -> dict:
     out["delta_kernels_per_iter"] = kernels
     out["delta_rowslab_device_ms"] = sum(ms for ms, _ in slab)
     out["delta_rowslab_kernels_per_iter"] = sum(c for _, c in slab)
+    # occ_validate at the arguments of the next OCC body, and the OCC
+    # iteration's device time
+    cond, step, s = states["occ"]
+    oargs = tuple(a.contiguous() for a in smoke.capture_calls(
+        lambda: step(s), kscan, "occ_validate")[0])
+    out["occ_validate_ms"] = smoke.cuda_times(
+        lambda: kscan.occ_validate(*oargs), 50, torch)
+    out["occ_validate_ms_no_sleep"] = smoke.cuda_times(
+        lambda: kscan.occ_validate(*oargs), 50, torch, sleep=False)
+    del oargs
+    dev_ms, kernels, per = smoke.profile_iteration(cond, step, s, sweep,
+                                                   torch)
+    mine = [v for key, v in per.items() if "occ_validate" in key]
+    out["occ_device_ms"] = dev_ms
+    out["occ_kernels_per_iter"] = kernels
+    out["occ_occ_validate_device_ms"] = sum(ms for ms, _ in mine)
     del states, s
+
+    # the scheduler at full width: ppcc_admit at tick 4 of the ppcc_degree
+    # drain, and one ppcc tick with tick_stats
+    rw, ww = W.ycsb_batch()
+    read = torch.from_numpy(rw.view("int32")).to(dev)
+    write = torch.from_numpy(ww.view("int32")).to(dev)
+    steps4, _ = W.drain(read, write, "ppcc_degree", 4)
+    aargs = smoke.ppcc_admit_inputs(
+        read, write, smoke.pending_at(steps4, read.shape[0], dev, torch),
+        torch)
+    del steps4
+    out["ppcc_admit_ms"] = smoke.cuda_times(
+        lambda: kadm.ppcc_admit(*aargs), 10, torch)
+    out["ppcc_admit_ms_no_sleep"] = smoke.cuda_times(
+        lambda: kadm.ppcc_admit(*aargs), 10, torch, sleep=False)
+    del aargs
+    (out["ppcc_tick_wall_ms"], out["ppcc_tick_device_ms"],
+     _) = smoke.ppcc_tick_times(read, write, torch)
+    del read, write
+    torch.cuda.empty_cache()
 
     cfg = configs.get("qwen3_0p6b")
     gen = torch.Generator(dev).manual_seed(0)

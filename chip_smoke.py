@@ -18,9 +18,11 @@ Phases (any failure exits non-zero):
      captured dirty slots as a slab of K = 40) and at edge shapes (K in
      {1, 4, 40, n}, an all-invalid slab, slab ids at the top of the range),
      reserve_cohort at the arguments of a PPCC body captured mid-run and
-     at random requests, in both its pool layouts, and at edges (pools all
-     0, INF tails, all or no slots masked, one server a pool, 40 CPUs and
-     70 disks, n = 77), and occ_validate at the main path's shape;
+     at random requests, and at edges (pools all 0, INF tails, all or no
+     slots masked, one server a pool, 40 CPUs and 70 disks, n = 77), and
+     occ_validate at the arguments of an OCC body captured mid-run, at
+     random would-be committers (30% of the slots) and at edges (no
+     committer, all, one lane, W = 1, 3, 303 and 384, n = 77);
   3. the main path: repro_torch.core.sweep.run_grid() with its defaults but
      the horizon — Figs. 5-16 x 7 MPLs x 2 seeds = 168 lanes per protocol,
      n = 160 slots, 500 items, PPCC / 2PL / OCC, to horizon 5,000 (phase 6
@@ -34,15 +36,16 @@ Phases (any failure exits non-zero):
      pairs back to back, ms_no_sleep, the way earlier versions of this
      script took every time) beside their bounds and their plain versions, the row-slab
      drain's bound from the bytes the captured dirty masks make it move,
-     and beside reserve_cohort's the bound of the longest chain of
-     dependent steps its captured masks make (both pool layouts timed at
-     both input sets);
+     and beside reserve_cohort's and occ_validate's byte bounds the bound
+     of the longest chain of dependent steps their captured inputs make
+     (each timed at both input sets);
      one batch iteration of each protocol with the kernels, with the
      plain versions and with telemetry on, and of PPCC with
      delta-maintained relations (with and without telemetry); and the
-     device-busy share of a PPCC batch iteration, without and with delta:
-     device kernel time from torch.profiler over the unprofiled iteration
-     time, with the row-slab kernels' share of the delta iteration;
+     device-busy share of a PPCC batch iteration, without and with delta,
+     and of an OCC batch iteration: device kernel time from
+     torch.profiler over the unprofiled iteration time, with the row-slab
+     kernels' share of the delta iteration and occ_validate's of OCC's;
   5. the batch scheduler at full width (repro_torch.sched): n = 4,096
      pending YCSB transactions over 32,768 pages (W = 1,024 words), the
      input digest checked against the JAX golden
@@ -54,8 +57,12 @@ Phases (any failure exits non-zero):
      that reach them; the device's share of a ppcc tick from
      torch.profiler; the three conflict entry points and the three
      admission scans bit-equal to their plain versions at inputs
-     captured mid-drain and at edge shapes; their times beside their
-     bounds, their plain versions and, for the conflict kernels, one
+     captured mid-drain and at edge shapes, ppcc_admit also on both sides
+     of its switch from four warps to a CTA of 512 threads (n = 16,384 and
+     16,385); their times beside their bounds (the scans' also beside the
+     bound of their chain of dependent steps through the admitted
+     transactions), ppcc_admit's device kernels per call,
+     their plain versions and, for the conflict kernels, one
      library call (a bf16 matmul of the unpacked bits) and the int8
      tensor-core floor of the same function beside the bound of the
      kernel's 32-bit-logic formulation;
@@ -120,10 +127,29 @@ RESERVE_EDGES = [("pools all 0", 160, 16, 32, 0.4, "zero"),
                  ("nc = nd = 1", 160, 1, 1, 0.4, "random"),
                  ("nc = 40, nd = 70", 160, 40, 70, 0.4, "zero"),
                  ("n = 77", 77, 16, 32, 0.4, "random")]
-# the chain bound of reserve_cohort: a dependent integer or float
-# instruction issues at least this many SM cycles after the one it waits
-# on (sm_90's fixed-latency pipes)
+# occ_validate's edges: (label, lanes, n, items, would-be committer rate)
+OCC_EDGES = [("no committer", 2, 160, 500, 0.0),
+             ("every slot a committer", 2, 160, 500, 1.0),
+             ("one lane", 1, 160, 500, 0.3),
+             ("W = 1, n = 77", 2, 77, 20, 0.5),
+             ("W = 3", 2, 100, 90, 0.5),
+             ("W = 303 (chunks of 31)", 2, 100, 303 * 32, 0.5),
+             ("W = 384 (chunks of 25)", 2, 40, 384 * 32, 0.6),
+             ("n = 77", 3, 77, 500, 0.5)]
+# ppcc_admit on both sides of its switch from four warps to a CTA of 512
+PPCC_ROUTE_N = (16_384, 16_385)
+# the chain bounds of the scans: a dependent integer or float instruction
+# issues at least this many SM cycles after the one it waits on (sm_90's
+# fixed-latency pipes), and a warp vote or reduction is counted as one
 DEP_CYCLES = 4
+# occ_validate's step: LOP3 (read & (dirty | acc)), compare, the warp vote,
+# select acc
+OCC_STEP_DEPS = 4
+# one admission step: ppcc_admit's AND of row and column with admitted,
+# fold of the precedence tests, compare, OR over the CTA, verdict, pick of
+# the first admitted and update; twopl_admit's and occ_admit's AND with
+# admitted, OR over the CTA, verdict and store
+ADMIT_STEP_DEPS = {"ppcc_admit": 7, "twopl_admit": 4, "occ_admit": 4}
 SLAB_EDGE_N = {1: 30, 14: 100, 33: 100, 160: 500, 300: 1000}   # n: items
 SLAB_EDGE_K = (1, 4, 40)         # and K = n
 CAPTURE_ITERS = 200              # body iterations before capturing inputs
@@ -359,6 +385,64 @@ def reserve_chain_cycles(args) -> int:
     return cycles
 
 
+def committer_counts(commit) -> dict:
+    """Per-lane counts of occ_validate's would-be committers (its steps):
+    the most in a lane and the mean over lanes."""
+    per = commit.sum(1)
+    return {"max": int(per.max()), "mean": float(per.float().mean())}
+
+
+def occ_chain_cycles(commit) -> int:
+    """SM cycles of the longest dependent chain of an occ_validate on these
+    would-be committers: lanes are independent and a slot that is no
+    committer is no step, so the chain is the most committers of one lane
+    x OCC_STEP_DEPS dependent instructions of DEP_CYCLES each."""
+    steps = int(commit.sum(1).max()) if commit.numel() else 0
+    return steps * OCC_STEP_DEPS * DEP_CYCLES
+
+
+def admit_chain_cycles(name: str, admitted: int) -> int:
+    """SM cycles of the chain of an admission scan on these inputs.  A
+    step whose transaction is not admitted changes no state, so the steps
+    between two admitted ones depend only on the earlier one and can be
+    tested together: the chain runs through the admitted steps, (admitted
+    + 1) steps of ADMIT_STEP_DEPS[name] instructions of DEP_CYCLES each."""
+    return (admitted + 1) * ADMIT_STEP_DEPS[name] * DEP_CYCLES
+
+
+def ppcc_admit_inputs(read, write, pending, torch):
+    """ppcc_admit's arguments at a ppcc_degree tick over these words: raw
+    with its diagonal cleared, the pending mask, the degree order."""
+    from repro_torch.kernels import conflict as kconf
+    from repro_torch.sched import scheduler as S
+    full = kconf.conflict_fused_full(read, write)
+    n = read.shape[0]
+    raw_off = full[0] & ~torch.eye(n, dtype=torch.bool, device=read.device)
+    return raw_off, pending, S.degree_order(full)
+
+
+def ppcc_tick_times(read, write, torch, reps=4):
+    """(wall ms unprofiled, device kernel ms, {kernel: (ms, launches)}) of
+    one ppcc tick + tick_stats with every transaction pending: the wall
+    over ``reps`` synchronised ticks after one warm-up, then
+    ``device_profile`` of ``reps`` more."""
+    from repro_torch.sched import scheduler as S
+    valid = torch.ones(read.shape[0], dtype=torch.bool, device=read.device)
+
+    def one_tick():
+        S.tick_stats(read, write, valid, S.tick(read, write, valid))
+
+    one_tick()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        one_tick()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / reps * 1e3
+    dev_ms, _, per = device_profile(one_tick, reps, torch)
+    return wall, dev_ms, per
+
+
 def capture_calls(fn, mod, name):
     """The arguments of every call of ``mod.<name>`` that ``fn()`` makes."""
     calls, launch = [], getattr(mod, name)
@@ -451,6 +535,14 @@ def profile_iteration(cond, step, s, sweep, torch, reps=32):
     return device_profile(body, reps, torch)
 
 
+def pending_at(steps, n, dev, torch, k=4):
+    """The pending mask after the first ``k`` ticks of a drain."""
+    v = torch.ones(n, dtype=torch.bool, device=dev)
+    for r, _ in steps[:k]:
+        v &= ~r.admitted
+    return v
+
+
 def sched_phase(torch, dev, bound, cuda_ms) -> list:
     """Phase 5: the batch scheduler at full width against the JAX golden.
     Returns the kernel-table rows of its six kernels."""
@@ -459,7 +551,6 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
     from repro_torch.kernels import admit as kadm
     from repro_torch.kernels import conflict as kconf
     from repro_torch.kernels import ops, ref
-    from repro_torch.sched import scheduler as S
     from repro_torch.sched import txstore as X
     from repro_torch.sched import workload as W
 
@@ -570,19 +661,7 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
         counts[k] += v
 
     # ---- the device's share of a tick: ppcc tick + tick_stats, first input
-    valid = torch.ones(n, dtype=torch.bool, device=dev)
-
-    def one_tick():
-        S.tick_stats(read, write, valid, S.tick(read, write, valid))
-
-    one_tick()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(4):
-        one_tick()
-    torch.cuda.synchronize()
-    tick_ms = (time.perf_counter() - t) / 4 * 1e3
-    dev_ms, _, per = device_profile(one_tick, 4, torch)
+    tick_ms, dev_ms, per = ppcc_tick_times(read, write, torch)
     if dev_ms > 0:
         log(f"[5] ppcc tick + tick_stats: {tick_ms:.3f} ms wall unprofiled, "
             f"{dev_ms:.3f} ms device kernel time, device idle "
@@ -612,18 +691,10 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
     # the admission inputs of tick 4 of each mode's drain
     full = kconf.conflict_fused_full(read, write)
     raw, wwm = full[0], full[1]
-    raw_off = raw & ~torch.eye(n, dtype=torch.bool, device=dev)
-    seq = S.degree_order(full)
-
-    def pending_at(mode, k=4):
-        v = torch.ones(n, dtype=torch.bool, device=dev)
-        for r, _ in out[mode][0][:k]:
-            v &= ~r.admitted
-        return v
-
-    v_p, v_2, v_o = (pending_at(m) for m in ("ppcc_degree", "2pl", "occ"))
-    adm = {"ppcc_admit": (raw_off, v_p, seq), "twopl_admit": (raw, wwm, v_2),
-           "occ_admit": (raw, wwm, v_o)}
+    v_p, v_2, v_o = (pending_at(out[m][0], n, dev, torch)
+                     for m in ("ppcc_degree", "2pl", "occ"))
+    adm = {"ppcc_admit": ppcc_admit_inputs(read, write, v_p, torch),
+           "twopl_admit": (raw, wwm, v_2), "occ_admit": (raw, wwm, v_o)}
     for name, args in adm.items():
         hold(name, getattr(kadm, name)(*args),
              getattr(ref, f"{name}_ref")(*args))
@@ -657,6 +728,19 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
                  getattr(ref, f"{name}_ref")(f7[0], f7[1], ev))
     log(f"[5] and at the edge shapes N in {SCHED_EDGE_N}, W in "
         f"{SCHED_EDGE_W}: max abs err {max(errs.values())}")
+    # ppcc_admit at the top of its four-warp route and on the CTA route above
+    for en in PPCC_ROUTE_N:
+        g_ = torch.Generator(dev).manual_seed(en)
+        eraw = torch.rand((en, en), generator=g_, device=dev) < 3.0 / en
+        eraw.fill_diagonal_(False)
+        ev = torch.rand(en, generator=g_, device=dev) < 0.9
+        eseq = torch.randperm(en, generator=g_, device=dev).to(torch.int32)
+        got_e = kadm.ppcc_admit(eraw, ev, eseq)
+        hold("ppcc_admit", got_e, ref.ppcc_admit_ref(eraw, ev, eseq))
+        log(f"[5] ppcc_admit bit-equal to its plain version at n={en} "
+            f"({'four warps' if en <= 16_384 else 'a CTA of 512 threads'}; "
+            f"random arcs, 3 a row; {int(got_e[0].sum())} admitted)")
+        del eraw, got_e
 
     # ---- times at the full-width shape
     def library(name):
@@ -711,10 +795,16 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
                                    "pallas_call at :238)"}[name],
             "src/repro_torch/csrc/conflict.cu", ms, ms0, pms, b_ms, b_by,
             lms))
+    sm_hz = max_sm_clock_hz()
+    chains = {}
     for name, args in adm.items():
         ms = cuda_ms(lambda: getattr(kadm, name)(*args), 10)
         ms0 = cuda_ms(lambda: getattr(kadm, name)(*args), 10, sleep=False)
         pms = cuda_ms(lambda: getattr(ref, f"{name}_ref")(*args), 1)
+        out_ = getattr(kadm, name)(*args)
+        n_adm = int((out_[0] if isinstance(out_, tuple) else out_).sum())
+        chains[name] = (admit_chain_cycles(name, n_adm) / sm_hz * 1e3,
+                        n_adm)
         if name == "ppcc_admit":   # raw, valid, seq in; flags, prec out
             nbytes, nops = n * n + 5 * n + 3 * n + n * n, 4 * n * n
         elif name == "twopl_admit":   # raw, ww, valid in; admitted out
@@ -736,13 +826,34 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
                       "ms_no_sleep": ms0})
         if name in floors:
             table[-1]["tensor_core_floor_ms"] = floors[name]
+        if name in chains:
+            table[-1]["chain_bound_ms"] = chains[name][0]
+            table[-1]["admitted"] = chains[name][1]
         log(f"[5] {name}: {ms:.4f} ms ({ms0:.4f} ms back to back; plain "
             f"{pms:.4f} ms, bound "
             f"{b_ms:.5f} ms by {b_by}"
+            + (f", chain bound {chains[name][0]:.5f} ms through "
+               f"{chains[name][1]} admitted" if name in chains else "")
             + (f" of 32-bit logic, int8 tensor-core floor "
                f"{floors[name]:.5f} ms" if name in floors else "")
             + (f", library {lms:.4f} ms" if lms is not None else "")
             + f") at n={n}, W={w}; {counts[name]} launches on the path")
+    log(f"[5] the chain bounds take (admitted + 1) steps x "
+        f"{ADMIT_STEP_DEPS} dependent instructions x {DEP_CYCLES} cycles at "
+        f"{sm_hz / 1e6:.0f} MHz, an OR over the CTA counted as one; all "
+        f"{n} steps in order would give " + ", ".join(
+            f"{k} {n * d * DEP_CYCLES / sm_hz * 1e3:.5f} ms"
+            for k, d in ADMIT_STEP_DEPS.items()))
+    # ppcc_admit's device kernels per call (pack, scan, prec): the distinct
+    # kernels of 10 profiled calls, each issued once a call
+    a_ms, _, a_per = device_profile(
+        lambda: kadm.ppcc_admit(*adm["ppcc_admit"]), 10, torch)
+    row = next(r for r in table if r["name"] == "ppcc_admit")
+    row["device_kernels_per_call"] = len(a_per)
+    row["device_ms_by_kernel"] = {k[:60]: v for k, (v, _) in a_per.items()}
+    log(f"[5] ppcc_admit issues {len(a_per)} device kernels a call, "
+        f"{a_ms:.4f} ms of device time (profiled, 10 calls): " + ", ".join(
+            f"{k[:48]} {v:.4f} ms" for v, k in largest(a_per, 4)))
     return table
 
 
@@ -1357,20 +1468,46 @@ def main() -> None:
         f"bit-equal to its plain version at the captured and random inputs "
         f"and at the edges "
         f"{[e[0] for e in RESERVE_EDGES]}")
-    # occ_validate: the captured OCC words, random would-be committers
+    # occ_validate: the arguments of the next OCC body's call (captured as
+    # reserve_cohort's are), and the captured OCC words with random
+    # would-be committers (30% of the slots, as earlier versions timed it)
     _, s_o = captured["occ"]
+    occ_calls = capture_calls(lambda: fleet.parts["occ"][2](s_o), kscan,
+                              "occ_validate")
+    if len(occ_calls) != 1:
+        fail(f"one OCC body called occ_validate {len(occ_calls)} times, not "
+             f"once")
+    oreal = tuple(a.contiguous() for a in occ_calls[0])
     ps_o = s_o.pstate
-    oargs = ((torch.rand((lanes, n), generator=gen) < 0.3).to(dev),
+    orand = ((torch.rand((lanes, n), generator=gen) < 0.3).to(dev),
              ps_o.read_set, s_o.dirty, ps_o.write_set)
-    oargs = tuple(a.contiguous() for a in oargs)
-    g, w_ = kscan.occ_validate(*oargs), ref.occ_validate_ref(*oargs)
-    torch.cuda.synchronize()
-    errs["occ_validate"] = max_abs_err((g,), (w_,), torch)
-    if not torch.equal(g, w_):
-        fail("occ_validate differs from its plain version")
-    log(f"[2] occ_validate ({int(oargs[0].sum())} would-be committers, "
-        f"{int(s_o.dirty.ne(0).sum())} dirty words) bit-equal to its plain "
-        f"version")
+    orand = tuple(a.contiguous() for a in orand)
+    occ_sets = {"captured": oreal, "random 30%": orand}
+    for label, a in occ_sets.items():
+        g, w_ = kscan.occ_validate(*a), ref.occ_validate_ref(*a)
+        torch.cuda.synchronize()
+        errs["occ_validate"] = max(errs["occ_validate"],
+                                   max_abs_err((g,), (w_,), torch))
+        if not torch.equal(g, w_):
+            fail(f"occ_validate differs from its plain version at the "
+                 f"{label} inputs")
+        log(f"[2] occ_validate inputs '{label}': would-be committers per "
+            f"lane {committer_counts(a[0])}, {int(g.sum())} fail, "
+            f"{int(a[2].ne(0).sum())} dirty words")
+    for label, el, en, ed, ep in OCC_EDGES:
+        words = [B.pack(torch.rand((el, en, ed), generator=gen) < q).to(dev)
+                 for q in (min(0.3, 6 / ed), min(0.3, 3 / ed),
+                           min(0.3, 3 / ed))]
+        commit = (torch.rand((el, en), generator=gen) < ep).to(dev)
+        g, w_ = (kscan.occ_validate(commit, *words),
+                 ref.occ_validate_ref(commit, *words))
+        torch.cuda.synchronize()
+        if not torch.equal(g, w_):
+            fail(f"occ_validate differs from its plain version at the edge "
+                 f"'{label}'")
+    log(f"[2] occ_validate ({lanes} lanes, n={n}, W={w}) bit-equal to its "
+        f"plain version at the captured and random inputs and at the edges "
+        f"{[e[0] for e in OCC_EDGES]}")
 
     # ---------------- phase 3: the main path ----------------
     ops.reset_launches()
@@ -1539,9 +1676,13 @@ def main() -> None:
              for label, a in res_sets.items()}
     res_ms, res0 = res_t["captured"]
     res_plain = cuda_times(lambda: ref.reserve_cohort_ref(*rreal), 5, torch)
-    occ_ms = cuda_times(lambda: kscan.occ_validate(*oargs), 50, torch)
-    occ0 = cuda_times(lambda: kscan.occ_validate(*oargs), 50, torch, False)
-    occ_plain = cuda_times(lambda: ref.occ_validate_ref(*oargs), 5, torch)
+    # occ_validate at the captured arguments (the row's times) and at the
+    # random would-be committers
+    occ_t = {label: [cuda_times(lambda: kscan.occ_validate(*a), 50, torch,
+                                sleep) for sleep in (True, False)]
+             for label, a in occ_sets.items()}
+    occ_ms, occ0 = occ_t["captured"]
+    occ_plain = cuda_times(lambda: ref.occ_validate_ref(*oreal), 5, torch)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     logic_per_s = LOGIC_PER_SM_CLOCK * sms * max_sm_clock_hz()
@@ -1586,8 +1727,14 @@ def main() -> None:
     sm_hz = max_sm_clock_hz()
     r_chain = {label: reserve_chain_cycles(a) / sm_hz * 1e3
                for label, a in res_sets.items()}
-    o_bytes = lanes * n + 3 * lanes * n * w * 4 + lanes * n
-    o_ops = lanes * n * w * 3
+    # occ_validate: commit_pre read and fail written, and the three rows of
+    # each would-be committer (the only slots that are steps); a LOP3 and
+    # an OR a word of each
+    o_commit = int(oreal[0].sum())
+    o_bytes = 2 * lanes * n + o_commit * 3 * w * 4
+    o_ops = o_commit * w * 2
+    o_chain = {label: occ_chain_cycles(a[0]) / sm_hz * 1e3
+               for label, a in occ_sets.items()}
     grid_rows = []
     for name, src, repl, ms, ms0, pms, (b_ms, b_by) in (
             ("megastep", "src/repro_torch/csrc/megastep.cu",
@@ -1617,6 +1764,7 @@ def main() -> None:
     grid_rows[2].update(
         inputs="the arguments of one PPCC body's call after "
                f"{CAPTURE_ITERS} iterations",
+        chain_bound_ms=r_chain["captured"],
         masked=masked_counts(rreal),
         random={"masked": masked_counts(rargs),
                 "ms": res_t["random 20%"][0],
@@ -1629,6 +1777,25 @@ def main() -> None:
         f"the most masked slots of one pool of one lane x (2 ceil(log2 P) "
         f"+ 3) dependent instructions x {DEP_CYCLES} cycles at "
         f"{sm_hz / 1e6:.0f} MHz")
+    ob_ms, ob_by = bound(o_bytes, o_ops)
+    grid_rows[3].update(
+        inputs="the arguments of one OCC body's call after "
+               f"{CAPTURE_ITERS} iterations",
+        chain_bound_ms=o_chain["captured"],
+        committers=committer_counts(oreal[0]),
+        random={"committers": committer_counts(orand[0]),
+                "ms": occ_t["random 30%"][0],
+                "ms_no_sleep": occ_t["random 30%"][1],
+                "chain_bound_ms": o_chain["random 30%"]})
+    log("[4] occ_validate: " + "; ".join(
+        f"{label} inputs (would-be committers per lane "
+        f"{committer_counts(a[0])}): {occ_t[label][0]:.4f} ms "
+        f"({occ_t[label][1]:.4f} back to back), chain bound "
+        f"{o_chain[label]:.5f} ms" for label, a in occ_sets.items())
+        + f"; byte bound {ob_ms:.5f} ms ({ob_by}, {o_bytes} B at the "
+        f"captured inputs); the chain bound takes the most would-be "
+        f"committers of one lane x {OCC_STEP_DEPS} dependent instructions x "
+        f"{DEP_CYCLES} cycles at {sm_hz / 1e6:.0f} MHz")
     sb_ms, sb_by = bound(s_bytes, s_ops)
     grid_rows[1].update(
         entry="rowslab_drain (csrc/rowslab.cu rowslab_drain_launch), once "
@@ -1694,6 +1861,22 @@ def main() -> None:
         else:
             log(f"[4] PPCC batch iteration ({label}): {wall_ms:.3f} ms wall; "
                 f"device time not measured (profiler saw no device time)")
+    _, cond, step = fleet.parts["occ"]
+    dev_ms, kernels, per = profile_iteration(cond, step, captured["occ"][1],
+                                             sweep, torch)
+    wall_ms = iter_ms["occ", "kernels"]
+    mine = [v for key, v in per.items() if "occ_validate" in key]
+    if dev_ms > 0:
+        log(f"[4] OCC batch iteration (kernels): {dev_ms:.3f} ms device "
+            f"kernel time ({kernels:.0f} kernels, profiled, 32 iters); "
+            f"{wall_ms:.3f} ms wall unprofiled; device idle "
+            f"{100 * (1 - dev_ms / wall_ms):.1f}% of the unprofiled "
+            f"iteration; occ_validate {sum(ms for ms, _ in mine):.4f} ms in "
+            f"{sum(c for _, c in mine):.0f} launches; largest: " + ", ".join(
+                f"{k[:48]} {v:.3f} ms" for v, k in largest(per, 5)))
+    else:
+        log(f"[4] OCC batch iteration (kernels): {wall_ms:.3f} ms wall; "
+            f"device time not measured (profiler saw no device time)")
     del captured, s_d, sargs, margs, dargs
 
     # ---------------- phase 5: the batch scheduler ----------------

@@ -47,21 +47,40 @@
 // longest chain of dependent steps, the most masked slots of one pool of
 // one lane; chip_smoke.py models it (the kernel row's chain bound).
 //
-// Design of occ_validate.  One thread walks one lane's slots in order; a
-// CTA holds 32 lanes.  Each thread keeps its lane's accumulated write words
-// in shared memory, interleaved across threads so that the 32 threads of a
-// warp touch 32 banks.  Bound: 168 x (160 x 3 x 16 x 4 + 160 x 2) B, about
-// 5.2 MB, at the main shape, a few microseconds; the serial chain of 160
-// dependent steps per lane, which a single thread cannot hide, is what
-// bounds it in practice.
+// Design of occ_validate.  What the semantics allow: a slot whose
+// commit_pre is off is no step (its fail is 0 and it adds nothing to the
+// accumulated writes), and a committer's read, dirty and write rows do not
+// depend on the chain, only acc does.  One warp per lane (a CTA of one
+// warp): word q of the lane's rows is word r = q / 32 of thread q % 32, and
+// acc lives in registers the same way (W up to 384, 12 words a thread).
+// The warp takes its slots in chunks of up to 32: a ballot of commit_pre
+// compacts the chunk's committers, whose three rows are copied by cp.async
+// into a shared-memory buffer (16-byte copies where W % 4 == 0), the next
+// chunk's while the warp steps through this one (two buffers; commit_pre
+// is loaded two chunks ahead).  Each thread keeps the fail of its own slot
+// and the warp stores the chunk's 32 fail bytes at once, 0 at the slots
+// that are no step.  A step, with the committer's words read from shared
+// memory one step ahead, is then
+//   meet = read[q] & (dirty[q] | acc[q])        (one LOP3 a word)
+//   f    = __any_sync over the warp of meet != 0
+//   acc  = f ? acc : acc | write                (the OR taken off the chain)
+// four dependent instructions.  A chunk is 32 slots while its two buffers
+// of 32 x 3 rows fit a CTA's shared memory (W <= 302), fewer above.
+//
+// Bound of occ_validate.  At the main shape (168 lanes, n = 160, W = 16) a
+// launch moves at most 168 x (160 x 3 x 16 x 4 + 2 x 160) B, about 5.2 MB,
+// 1.6 us at 3.35 TB/s, and only the committers' rows are needed; the chain
+// is the most committers in one lane x 4 dependent instructions, which
+// chip_smoke.py models beside the byte bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 32;          // occ_validate: lanes per CTA
 constexpr int kResThreads = 64;       // reserve_cohort: two warps per lane
 constexpr int kMaxServersPerThread = 12;
+constexpr int kMaxWordsPerThread = 12;  // occ_validate: W up to 384
+constexpr int kSmemMax = 232448;        // shared memory one CTA may use
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kNoServer = 0xffffffffu;  // above every float's key
 
@@ -205,44 +224,173 @@ int launch_reserve(const void* const* a, int lanes, int n, int nc, int nd,
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t* dst,
+                                           const uint32_t* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Committer b's words of this thread from its rows in shared memory
+// (read, dirty, write, each w words); 0 past the row.
+template <int S>
+__device__ __forceinline__ void committer_words(const uint32_t* rows, int b,
+                                                int w, uint32_t (&x)[S],
+                                                uint32_t (&d)[S],
+                                                uint32_t (&v)[S]) {
+  const uint32_t* rr = rows + b * 3 * w;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    const int q = r * 32 + lane;
+    const bool in = q < w;
+    x[r] = in ? rr[q] : 0u;
+    d[r] = in ? rr[w + q] : 0u;
+    v[r] = in ? rr[2 * w + q] : 0u;
+  }
+}
+
+// S = ceil(W / 32) words a thread.  Shared memory: two buffers of `chunk`
+// slots x (read, dirty, write) rows of w words.
+template <int S>
+__global__ void __launch_bounds__(32)
 occ_validate_kernel(const uint8_t* __restrict__ commit_pre,
                     const uint32_t* __restrict__ read,
                     const uint32_t* __restrict__ dirty,
                     const uint32_t* __restrict__ write,
-                    uint8_t* __restrict__ fail, int lanes, int n, int w) {
-  extern __shared__ uint32_t acc_s[];  // [w x blockDim.x]
-  const int bs = blockDim.x;
+                    uint8_t* __restrict__ fail, int n, int w, int chunk,
+                    bool vec) {
+  extern __shared__ __align__(16) uint32_t rows_s[];
   const int t = threadIdx.x;
-  const int l = blockIdx.x * bs + t;
-  if (l >= lanes) return;
-  uint32_t* acc = acc_s + t;  // word q at acc[q * bs]
-  for (int q = 0; q < w; ++q) acc[q * bs] = 0;
+  const size_t l = blockIdx.x;
+  const uint8_t* cp = commit_pre + l * n;
+  uint8_t* fo = fail + l * n;
+  const size_t lw = l * size_t(n) * w;
+  const int buf_words = chunk * 3 * w;
 
-  for (int i = 0; i < n; ++i) {
-    const size_t v = size_t(l) * n + i;
-    if (!commit_pre[v]) {
-      fail[v] = 0;
-      continue;
+  // copy the rows of the committers in `bal` (slots c0 + bit) into buffer
+  // `buf`, as one cp.async group
+  auto stage = [&](int c0, uint32_t bal, int buf) {
+    uint32_t* dst = rows_s + buf * buf_words;
+    const int unit = vec ? 4 : 1;
+    const int units = w / unit;          // copies a row
+    while (bal) {
+      const int b = __ffs(bal) - 1;
+      bal &= bal - 1;
+      const size_t g = lw + size_t(c0 + b) * w;
+      uint32_t* d = dst + b * 3 * w;
+      for (int u = t; u < 3 * units; u += 32) {
+        const int a = u >= 2 * units ? 2 : u >= units ? 1 : 0;
+        const int o = (u - a * units) * unit;
+        const uint32_t* src = (a == 0 ? read : a == 1 ? dirty : write) + g + o;
+        if (vec)
+          cp_async16(d + a * w + o, src);
+        else
+          cp_async4(d + a * w + o, src);
+      }
     }
-    const uint32_t* r = read + v * w;
-    const uint32_t* d = dirty + v * w;
-    uint32_t meet = 0;
-    for (int q = 0; q < w; ++q) meet |= r[q] & (d[q] | acc[q * bs]);
-    const bool f = meet != 0;
-    fail[v] = f;
-    if (!f) {
-      const uint32_t* wr = write + v * w;
-      for (int q = 0; q < w; ++q) acc[q * bs] |= wr[q];
+    cp_async_commit();
+  };
+
+  uint32_t acc[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) acc[r] = 0u;
+  uint32_t bal = __ballot_sync(kFull, t < chunk && t < n && cp[t]);
+  stage(0, bal, 0);
+  bool m_nx = t < chunk && chunk + t < n && cp[chunk + t];
+  int buf = 0;
+  for (int c0 = 0; c0 < n; c0 += chunk) {
+    const uint32_t bal_nx = __ballot_sync(kFull, m_nx);
+    if (c0 + chunk < n)
+      stage(c0 + chunk, bal_nx, buf ^ 1);
+    else
+      cp_async_commit();                 // keeps one group per chunk
+    const int c2 = c0 + 2 * chunk + t;
+    m_nx = t < chunk && c2 < n && cp[c2];
+    cp_async_wait<1>();                  // this chunk's rows have landed
+    __syncwarp();
+
+    const uint32_t* rows = rows_s + buf * buf_words;
+    bool my_fail = false;
+    uint32_t todo = bal;
+    int b = todo ? __ffs(todo) - 1 : 0;
+    uint32_t x[S], d[S], v[S];
+    committer_words<S>(rows, b, w, x, d, v);
+    while (todo) {
+      todo &= todo - 1;
+      const int b_nx = todo ? __ffs(todo) - 1 : b;
+      uint32_t xn[S], dn[S], vn[S];
+      committer_words<S>(rows, b_nx, w, xn, dn, vn);
+      uint32_t meet = 0u;
+#pragma unroll
+      for (int r = 0; r < S; ++r) meet |= x[r] & (d[r] | acc[r]);
+      const bool f = __any_sync(kFull, meet != 0u);
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        acc[r] = f ? acc[r] : acc[r] | v[r];
+        x[r] = xn[r];
+        d[r] = dn[r];
+        v[r] = vn[r];
+      }
+      my_fail = t == b ? f : my_fail;
+      b = b_nx;
     }
+    if (t < chunk && c0 + t < n) fo[c0 + t] = my_fail;
+    __syncwarp();                        // before the buffer is refilled
+    bal = bal_nx;
+    buf ^= 1;
   }
+  cp_async_wait<0>();
+}
+
+// The slots of a chunk: 32 while two buffers of 32 committers' three
+// rows fit one CTA's shared memory.
+int occ_chunk(int w) {
+  const int c = kSmemMax / (2 * 3 * 4 * (w > 0 ? w : 1));
+  return c < 32 ? c : 32;
+}
+
+template <int S>
+int launch_occ(const void* const* a, int lanes, int n, int w,
+               cudaStream_t stream) {
+  const int chunk = occ_chunk(w);
+  const size_t bytes = size_t(2) * chunk * 3 * w * sizeof(uint32_t);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        occ_validate_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  bool vec = w % 4 == 0;
+  for (int k = 1; k < 4; ++k)
+    vec = vec && reinterpret_cast<uintptr_t>(a[k]) % 16 == 0;
+  occ_validate_kernel<S><<<lanes, 32, bytes, stream>>>(
+      static_cast<const uint8_t*>(a[0]), static_cast<const uint32_t*>(a[1]),
+      static_cast<const uint32_t*>(a[2]), static_cast<const uint32_t*>(a[3]),
+      (uint8_t*)a[4], n, w, chunk, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
-
-int scan_threads() { return kThreads; }
 
 // The largest pool one launch of reserve_cohort takes.
 int reserve_cohort_max_pool() { return 32 * kMaxServersPerThread; }
@@ -279,20 +427,33 @@ int reserve_cohort_launch(const void* cpu_in, const void* disk_in,
   }
 }
 
-// OCC validation scan; returns the cudaError_t of the launch.  Words
+// The most words a row of occ_validate may have.
+int occ_validate_max_words() { return 32 * kMaxWordsPerThread; }
+
+// OCC validation scan; returns the cudaError_t of the launch (or
+// cudaErrorInvalidValue for rows it does not take).  Words
 // uint32[lanes, n, w]; commit_pre and fail 1 byte each, [lanes, n].
 int occ_validate_launch(const void* commit_pre, const void* read,
                         const void* dirty, const void* write, void* fail,
                         int lanes, int n, int w, void* stream) {
-  const size_t bytes = size_t(w) * kThreads * sizeof(uint32_t);
-  const int blocks = (lanes + kThreads - 1) / kThreads;
-  occ_validate_kernel<<<blocks, kThreads, bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(commit_pre),
-      static_cast<const uint32_t*>(read), static_cast<const uint32_t*>(dirty),
-      static_cast<const uint32_t*>(write), static_cast<uint8_t*>(fail), lanes,
-      n, w);
-  return static_cast<int>(cudaGetLastError());
+  const void* a[] = {commit_pre, read, dirty, write, fail};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w < 0 || w > occ_validate_max_words())
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (w > 32 ? (w + 31) / 32 : 1) {
+    case 1: return launch_occ<1>(a, lanes, n, w, s);
+    case 2: return launch_occ<2>(a, lanes, n, w, s);
+    case 3: return launch_occ<3>(a, lanes, n, w, s);
+    case 4: return launch_occ<4>(a, lanes, n, w, s);
+    case 5: return launch_occ<5>(a, lanes, n, w, s);
+    case 6: return launch_occ<6>(a, lanes, n, w, s);
+    case 7: return launch_occ<7>(a, lanes, n, w, s);
+    case 8: return launch_occ<8>(a, lanes, n, w, s);
+    case 9: return launch_occ<9>(a, lanes, n, w, s);
+    case 10: return launch_occ<10>(a, lanes, n, w, s);
+    case 11: return launch_occ<11>(a, lanes, n, w, s);
+    default: return launch_occ<12>(a, lanes, n, w, s);
+  }
 }
 
 }  // extern "C"

@@ -5,13 +5,16 @@ They replace the ``lax.scan`` steps of ``repro/sched/scheduler.py``:
 ``ppcc_admit`` that of ``ppcc_tick``, ``twopl_admit`` that of
 ``twopl_tick`` and ``occ_admit`` that of ``occ_tick``.  A loop over the
 transactions in torch would cost some ten launches per transaction; here
-one CTA walks them in order.  The plain versions are
-``kernels.ref.{ppcc,twopl,occ}_admit_ref``.
+the transactions are walked in order on the card.  ``ppcc_admit`` issues
+three device kernels a call (pack ``raw`` into words, the scan with its
+sets in the registers of four warps, ``prec`` in one pass) and counts as
+one launch; ``twopl_admit`` and ``occ_admit`` are one CTA each.  The plain
+versions are ``kernels.ref.{ppcc,twopl,occ}_admit_ref``.
 
 Each takes CUDA tensors only and raises on anything the kernel does not
 take; ``kernels.ops`` is the dispatcher the scheduler calls.  The
-wrappers make the transposed copy of ``raw`` that the kernels read
-columns from.  ``launches`` counts each wrapper's launches.
+``twopl_admit`` wrapper makes the transposed copy of ``raw`` that its
+kernel reads columns from.  ``launches`` counts each wrapper's calls.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 
 from . import build
 
-SMEM_MAX = 232_448           # bytes of shared memory one CTA may use (H100)
+SMEM_MAX = 232_448   # shared memory one CTA may use (H100): twopl, occ n
 launches = {"ppcc_admit": 0, "twopl_admit": 0, "occ_admit": 0}
 
 _fns = None
@@ -32,9 +35,13 @@ def _launchers():
     if _fns is None:
         lib = build.load("admit")
         ppcc = lib.ppcc_admit_launch
-        ppcc.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
-            [ctypes.c_void_p] * 5
+        ppcc.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+            [ctypes.c_void_p] * 9
         ppcc.restype = ctypes.c_int
+        for fn in (lib.ppcc_admit_max_n, lib.ppcc_admit_row_words):
+            fn.restype = ctypes.c_int
+        lib.ppcc_admit_max_n.argtypes = []
+        lib.ppcc_admit_row_words.argtypes = [ctypes.c_int]
         twopl = lib.twopl_admit_launch
         twopl.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
             [ctypes.c_void_p] * 2
@@ -43,11 +50,19 @@ def _launchers():
         occ.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
             [ctypes.c_void_p] * 2
         occ.restype = ctypes.c_int
-        _fns = {"ppcc_admit": ppcc, "twopl_admit": twopl, "occ_admit": occ}
+        _fns = {"ppcc_admit": ppcc, "twopl_admit": twopl, "occ_admit": occ,
+                "ppcc_max_n": lib.ppcc_admit_max_n(),
+                "ppcc_row_words": lib.ppcc_admit_row_words}
     return _fns
 
 
-def _check(name, raw, others, valid, per_txn_bytes):
+def max_n(name: str) -> int:
+    """The largest n the kernel of ``name`` takes: ``ppcc_admit``'s packed
+    sets, or one CTA's shared memory for a byte a transaction."""
+    return _launchers()["ppcc_max_n"] if name == "ppcc_admit" else SMEM_MAX
+
+
+def _check(name, raw, others, valid):
     dev = raw.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {dev}")
@@ -55,12 +70,12 @@ def _check(name, raw, others, valid, per_txn_bytes):
         raise ValueError(f"{name}: raw must be [n, n], got "
                          f"{tuple(raw.shape)}")
     n = raw.shape[0]
+    if n > max_n(name):
+        raise ValueError(f"{name}: n={n}; it takes at most {max_n(name)}")
     build.check_arg(name, "raw", raw, torch.bool, (n, n), dev)
     for arg, t in others:
         build.check_arg(name, arg, t, torch.bool, (n, n), dev)
     build.check_arg(name, "valid", valid, torch.bool, (n,), dev)
-    if n * per_txn_bytes > SMEM_MAX:
-        raise ValueError(f"{name}: n={n} does not fit one CTA")
     return n, dev
 
 
@@ -79,17 +94,25 @@ def ppcc_admit(raw, valid, seq):
     permutation); ``raw`` has its diagonal cleared.  Returns
     ``(admitted, preceding, preceded, prec[n, n])``, bit-equal to
     ``ref.ppcc_admit_ref``."""
-    n, dev = _check("ppcc_admit", raw, (), valid, 3)
+    n, dev = _check("ppcc_admit", raw, (), valid)
     build.check_arg("ppcc_admit", "seq", seq, torch.int32, (n,), dev)
     admitted = torch.empty(n, dtype=torch.bool, device=dev)
     preceding = torch.empty_like(admitted)
     preceded = torch.empty_like(admitted)
-    prec = torch.zeros((n, n), dtype=torch.bool, device=dev)
+    prec = torch.empty((n, n), dtype=torch.bool, device=dev)
     if n:
-        raw_t = raw.t().contiguous()
-        _run("ppcc_admit", _launchers()["ppcc_admit"](
-            raw.data_ptr(), raw_t.data_ptr(), valid.data_ptr(),
-            seq.data_ptr(), n, admitted.data_ptr(), preceding.data_ptr(),
+        fns = _launchers()
+        ws = fns["ppcc_row_words"](n)
+        # scratch: packed rows and columns of raw, the order with the
+        # valid bits, the three packed sets
+        rows = torch.empty((n, ws), dtype=torch.int32, device=dev)
+        cols = torch.empty_like(rows)
+        steps = torch.empty(-(-n // 4) * 4, dtype=torch.int32, device=dev)
+        bits = torch.empty(3 * ws, dtype=torch.int32, device=dev)
+        _run("ppcc_admit", fns["ppcc_admit"](
+            raw.data_ptr(), valid.data_ptr(), seq.data_ptr(), n,
+            rows.data_ptr(), cols.data_ptr(), steps.data_ptr(),
+            bits.data_ptr(), admitted.data_ptr(), preceding.data_ptr(),
             preceded.data_ptr(), prec.data_ptr(), _stream(dev)))
     return admitted, preceding, preceded, prec
 
@@ -97,7 +120,7 @@ def ppcc_admit(raw, valid, seq):
 def twopl_admit(raw, ww, valid):
     """2PL admission of one tick in index order: ``admitted bool[n]``,
     bit-equal to ``ref.twopl_admit_ref``."""
-    n, dev = _check("twopl_admit", raw, (("ww", ww),), valid, 1)
+    n, dev = _check("twopl_admit", raw, (("ww", ww),), valid)
     admitted = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         raw_t = raw.t().contiguous()
@@ -110,7 +133,7 @@ def twopl_admit(raw, ww, valid):
 def occ_admit(raw, ww, valid):
     """OCC backward validation of one tick in index order:
     ``survivors bool[n]``, bit-equal to ``ref.occ_admit_ref``."""
-    n, dev = _check("occ_admit", raw, (("ww", ww),), valid, 1)
+    n, dev = _check("occ_admit", raw, (("ww", ww),), valid)
     survivors = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         _run("occ_admit", _launchers()["occ_admit"](

@@ -7,7 +7,9 @@ same-iteration validation scan of ``jaxsim._cohort_body``.  A loop over
 the slots in torch would cost one launch per slot and step.
 ``reserve_cohort`` walks each lane's CPU and disk pools as two chains,
 one warp each, over the masked slots only, with the pool in registers;
-``occ_validate`` walks one lane's slots in one thread.  The plain
+``occ_validate`` walks one lane's would-be committers in one warp, the
+accumulated write words in registers and the committers' rows copied
+into shared memory a chunk ahead.  The plain
 versions are ``kernels.ref.reserve_cohort_ref`` and
 ``kernels.ref.occ_validate_ref``.
 
@@ -23,7 +25,6 @@ import torch
 from . import build
 from .ref import INF
 
-SMEM_DEFAULT = 48 * 1024     # shared memory a CTA gets without opting in
 launches = {"reserve_cohort": 0, "occ_validate": 0}
 
 _fns = None
@@ -43,9 +44,10 @@ def _launchers():
         occ.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p]
         occ.restype = ctypes.c_int
-        lib.scan_threads.argtypes = []
-        lib.scan_threads.restype = ctypes.c_int
-        _fns = (res, occ, lib.scan_threads(), lib.reserve_cohort_max_pool())
+        lib.occ_validate_max_words.argtypes = []
+        lib.occ_validate_max_words.restype = ctypes.c_int
+        _fns = (res, occ, lib.occ_validate_max_words(),
+                lib.reserve_cohort_max_pool())
     return _fns
 
 
@@ -106,9 +108,10 @@ def occ_validate(commit_pre, read_bits, dirty_bits, write_bits):
                         dev)
     build.check_arg("occ_validate", "commit_pre", commit_pre, torch.bool,
                     (lanes, n), dev)
-    _, occ, threads, _ = _launchers()
-    if w * threads * 4 > SMEM_DEFAULT:
-        raise ValueError(f"occ_validate: {w} words do not fit one CTA")
+    _, occ, max_words, _ = _launchers()
+    if w > max_words:
+        raise ValueError(f"occ_validate: rows of {w} words; it takes at "
+                         f"most {max_words}")
     fail = torch.empty((lanes, n), dtype=torch.bool, device=dev)
     if lanes:
         rc = occ(*(t.data_ptr() for t in (

@@ -156,18 +156,36 @@ def test_reserve_cohort_rejects_what_it_does_not_take(cuda):
             mask.cpu())
 
 
-@pytest.mark.parametrize("lanes,n,d", [(3, 12, 30), (168, 160, 500)])
-def test_occ_validate_kernel_matches_plain(cuda, lanes, n, d):
+# the main shape at half and at sparse would-be committers, and the edges:
+# no committer, all, one lane, W = 1 (n off 32), W = 3 (4-byte copies),
+# W = 303 (chunks of 31 slots) and W = 384 (25), n = 77
+@pytest.mark.parametrize("lanes,n,d,p", [
+    (3, 12, 30, 0.5), (168, 160, 500, 0.5), (168, 160, 500, 0.03),
+    (2, 160, 500, 0.0), (2, 160, 500, 1.0), (1, 160, 500, 0.3),
+    (2, 77, 20, 0.5), (2, 100, 90, 0.5), (2, 100, 303 * 32, 0.5),
+    (2, 40, 384 * 32, 0.6), (3, 77, 500, 0.5)])
+def test_occ_validate_kernel_matches_plain(cuda, lanes, n, d, p):
     from repro_torch.kernels import scan as kscan
     gen = torch.Generator().manual_seed(n + d)
-    words = [TB.pack(_rand(gen, (lanes, n, d), p, "cpu")).to(cuda)
-             for p in (min(0.3, 6 / d), min(0.3, 3 / d), min(0.3, 3 / d))]
-    commit = _rand(gen, (lanes, n), 0.5, cuda)
+    words = [TB.pack(_rand(gen, (lanes, n, d), q, "cpu")).to(cuda)
+             for q in (min(0.3, 6 / d), min(0.3, 3 / d), min(0.3, 3 / d))]
+    commit = _rand(gen, (lanes, n), p, cuda)
     got = kscan.occ_validate(commit, *words)
     want = ref.occ_validate_ref(commit, *words)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert got.any() and (commit & ~got).any()
+    if 0.3 <= p < 1 and d < 5000:
+        assert got.any() and (commit & ~got).any()
+
+
+def test_occ_validate_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import scan as kscan
+    commit = torch.ones((2, 8), dtype=torch.bool, device=cuda)
+    kscan.occ_validate(commit, *(torch.zeros((2, 8, 384), dtype=torch.int32,
+                                             device=cuda) for _ in range(3)))
+    with pytest.raises(ValueError, match="at most 384"):
+        kscan.occ_validate(commit, *(torch.zeros(
+            (2, 8, 385), dtype=torch.int32, device=cuda) for _ in range(3)))
 
 
 @pytest.mark.parametrize("proto", TS.PROTOCOLS)
@@ -441,7 +459,7 @@ def _admit_inputs(gen, n, dev):
     return raw, ww_, valid, seq, raw & ~eye
 
 
-@pytest.mark.parametrize("n", [1, 33, 255, 300, 1500])
+@pytest.mark.parametrize("n", [1, 33, 255, 300, 1500, 4096])
 def test_admit_kernels_match_plain(cuda, n):
     from repro_torch.kernels import admit as kadm
     gen = torch.Generator().manual_seed(n)
@@ -459,6 +477,46 @@ def test_admit_kernels_match_plain(cuda, n):
         assert torch.equal(g, x), name
     if n > 1:
         assert got[0].any() and not got[0].all()
+
+
+def _ppcc_check(n, raw_off, valid, seq):
+    from repro_torch.kernels import admit as kadm
+    got = kadm.ppcc_admit(raw_off, valid, seq)
+    want = ref.ppcc_admit_ref(raw_off, valid, seq)
+    torch.cuda.synchronize()
+    for name, g, x in zip(("admitted", "preceding", "preceded", "prec"), got,
+                          want):
+        assert torch.equal(g, x), f"{name} at n={n}"
+    assert want[0].any() and not want[0].all()
+
+
+# the four-warp route's widths (K = 1, 2, 4 words a thread) on both sides of
+# each switch, the switch to the CTA route (16,384 | 16,385) and the CTA
+# route's K = 4
+@pytest.mark.parametrize("n", [4097, 8192, 8193, 16_384, 16_385, 32_769])
+def test_ppcc_admit_routes_match_plain(cuda, n):
+    """ppcc_admit on random sparse conflicts (about 3 arcs a row, the
+    diagonal cleared) in a random order, on both sides of each width."""
+    gen = torch.Generator(cuda).manual_seed(n)
+    raw = torch.rand((n, n), generator=gen, device=cuda) < 3.0 / n
+    raw.fill_diagonal_(False)
+    valid = torch.rand(n, generator=gen, device=cuda) < 0.9
+    seq = torch.randperm(n, generator=gen, device=cuda).to(torch.int32)
+    _ppcc_check(n, raw, valid, seq)
+
+
+def test_ppcc_admit_rejects_past_its_limit(cuda):
+    """Past its largest n the wrapper raises a ValueError that names the
+    limit, before it looks at the (here stride-0) tensors."""
+    from repro_torch.kernels import admit as kadm
+    top = kadm.max_n("ppcc_admit")
+    assert top >= 77_482
+    n = top + 1
+    one = torch.zeros((1, 1), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match=f"n={n}; it takes at most {top}"):
+        kadm.ppcc_admit(one.expand(n, n), one[0].expand(n),
+                        torch.zeros(1, dtype=torch.int32,
+                                    device=cuda).expand(n))
 
 
 @pytest.mark.parametrize("mode", ("ppcc", "ppcc_degree", "2pl", "occ"))

@@ -1,6 +1,6 @@
-"""The premises of ``csrc/scan.cu``'s ``reserve_cohort`` design, held on
-the CPU against the JAX reference scan ``repro.core.jaxsim._reserve_cohort``
-and the port's plain version ``kernels.ref.reserve_cohort_ref``:
+"""The premises of ``csrc/scan.cu``'s two designs, held on the CPU against
+the JAX reference scans and the port's plain versions in
+``kernels.ref``.  ``reserve_cohort`` against ``jaxsim._reserve_cohort``:
 
 (a) only the masked slots are steps: dropping the unmasked slots from the
     inputs and writing INF at them afterwards gives the same pools and
@@ -13,7 +13,18 @@ and the port's plain version ``kernels.ref.reserve_cohort_ref``:
     masked, one server a pool, pools wider than a warp, n not a multiple
     of 32.
 
-Every comparison is bit-equal, as uint32 views of the float32 outputs."""
+``occ_validate`` against the ``occ_validate_multi`` scan of
+``jaxsim._cohort_body``:
+
+(d) only the would-be committers are steps: the scan over them alone,
+    with fail = 0 written at the other slots, is the full scan;
+(e) the plain version and a twin of the kernel's walk (chunks of slots,
+    committers compacted, acc a word at a time) equal the reference at
+    the kernel's edges: no committer, every slot a committer, one lane,
+    W = 1 and W = 384, n not a multiple of 32.
+
+Every comparison is bit-equal: uint32 views of the float32 outputs, and
+the bool fails."""
 import numpy as np
 import pytest
 
@@ -21,6 +32,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import bitset as JB  # noqa: E402
 from repro.core import jaxsim  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
@@ -121,3 +133,103 @@ def test_plain_version_matches_reference_at_edges(n, nc, nd, pools, p):
                                    for a in zip(*lanes)))
     for lane, args in enumerate(lanes):
         _assert_bits([g[lane].numpy() for g in got], _reference(args))
+
+
+# ---- occ_validate: the premises of its warp-per-lane design
+
+SMEM_MAX = 232_448                 # csrc/scan.cu: kSmemMax
+
+
+def _occ_reference(commit_pre, read, dirty, write):
+    """The reference's ``occ_validate_multi`` scan (``jaxsim._cohort_body``)
+    on one lane."""
+    def vstep(acc, i):
+        fail_i = commit_pre[i] & JB.overlap_rows(read[i], dirty[i] | acc)
+        acc = acc | jnp.where(commit_pre[i] & ~fail_i, write[i],
+                              jnp.uint32(0))
+        return acc, fail_i
+    _, fails = jax.lax.scan(vstep, jnp.zeros(read.shape[1], jnp.uint32),
+                            jnp.arange(read.shape[0]))
+    return np.asarray(fails)
+
+
+def _occ_inputs(seed, lanes, n, d, p_commit):
+    """Read, dirty and write words at the engine's densities (as
+    ``tests/test_torch_megastep.py`` draws them) and would-be committers
+    at rate ``p_commit``."""
+    rng = np.random.default_rng(seed)
+    words = [np.array(JB.pack(jnp.asarray(rng.random((lanes * n, d)) < p))
+                      ).reshape(lanes, n, -1)
+             for p in (min(0.3, 6 / d), min(0.3, 3 / d), min(0.3, 3 / d))]
+    return (rng.random((lanes, n)) < p_commit, *words)
+
+
+def occ_chunk(w):
+    """Slots a chunk of the kernel (``occ_chunk`` in csrc/scan.cu): 32
+    while two buffers of 32 committers' three rows fit a CTA."""
+    return min(32, SMEM_MAX // (2 * 3 * 4 * max(w, 1)))
+
+
+def occ_warp_twin(commit_pre, read, dirty, write):
+    """The kernel's walk of one lane, word for word: chunks of
+    ``occ_chunk(W)`` slots, each chunk's committers taken in slot order
+    from its ballot, acc updated only by a committer that passed, fail 0
+    at every other slot."""
+    n, w = read.shape
+    fail = np.zeros(n, bool)
+    acc = np.zeros(w, np.uint32)
+    chunk = occ_chunk(w)
+    for c0 in range(0, n, chunk):
+        for b in np.flatnonzero(commit_pre[c0:c0 + chunk]):
+            i = c0 + b
+            f = bool((read[i] & (dirty[i] | acc)).any())
+            if not f:
+                acc |= write[i]
+            fail[i] = f
+    return fail
+
+
+@pytest.mark.parametrize("p_commit", [0.05, 0.3, 0.8])
+def test_occ_only_committers_are_steps(p_commit):
+    """Dropping the slots whose commit_pre is off from the scan and
+    writing fail = 0 there gives the reference's fails."""
+    commit, *words = _occ_inputs(5, 2, 160, 500, p_commit)
+    for lane in range(2):
+        c = commit[lane]
+        idx = np.flatnonzero(c)
+        fail = np.zeros(len(c), bool)
+        if len(idx):
+            fail[idx] = _occ_reference(
+                jnp.ones(len(idx), bool),
+                *(jnp.asarray(x[lane][idx]) for x in words))
+        want = _occ_reference(jnp.asarray(c),
+                              *(jnp.asarray(x[lane]) for x in words))
+        np.testing.assert_array_equal(fail, want)
+        np.testing.assert_array_equal(
+            occ_warp_twin(c, *(x[lane] for x in words)), want)
+
+
+@pytest.mark.parametrize("lanes,n,d,p_commit", [
+    (2, 160, 500, 0.0),              # no committer
+    (2, 160, 500, 1.0),              # every slot a committer
+    (1, 160, 500, 0.3),              # one lane
+    (2, 77, 20, 0.5),                # W = 1, n not a multiple of 32
+    (2, 40, 384 * 32, 0.6),          # W = 384: chunks of 25 slots
+    (3, 77, 500, 0.5),               # n not a multiple of 32
+], ids=["no_committer", "all_committers", "one_lane", "w1", "w384",
+        "n77"])
+def test_occ_plain_and_twin_match_reference_at_edges(lanes, n, d, p_commit):
+    """The port's plain version and the kernel's walk against the
+    reference scan at the kernel's edges."""
+    commit, *words = _occ_inputs(n + d, lanes, n, d, p_commit)
+    got = ref.occ_validate_ref(torch.from_numpy(commit),
+                               *(torch.from_numpy(x.view(np.int32))
+                                 for x in words))
+    for lane in range(lanes):
+        want = _occ_reference(jnp.asarray(commit[lane]),
+                              *(jnp.asarray(x[lane]) for x in words))
+        np.testing.assert_array_equal(got[lane].numpy(), want)
+        np.testing.assert_array_equal(
+            occ_warp_twin(commit[lane], *(x[lane] for x in words)), want)
+    if 0 < p_commit < 1 and d < 10_000:
+        assert got.any() and (torch.from_numpy(commit) & ~got).any()
