@@ -34,8 +34,11 @@ the next OCC body gives it (captured with ``capture_calls``), and from
 and ``occ_validate``'s device time; on the scheduler's full-width YCSB
 batch (n = 4,096, W = 1,024), ``ppcc_admit`` alone by ``cuda_times`` at
 the inputs of tick 4 of the ``ppcc_degree`` drain
-(``ppcc_admit_inputs``), and one ``ppcc`` tick with ``tick_stats``, its
-wall and its device kernel time (``ppcc_tick_times``); the
+(``ppcc_admit_inputs``), ``conflict_fused`` and ``conflict_fused_full``
+alone at the batch and ``conflict_fused`` at random sets of read density
+1/8 (``random_words``), each by ``cuda_times`` after a device sleep and
+back to back, and one ``ppcc`` tick with ``tick_stats``, its wall and its
+device kernel time (``ppcc_tick_times``); the
 bf16 prefill of qwen3-0.6b at full depth on 8 x 1,024 tokens
 (``median_wall_ms`` of 5, seeded random weights); and flash_attention
 alone on random bf16 inputs of its main-path shape (B = 8, H = 16,
@@ -64,6 +67,7 @@ def measure(root: Path) -> dict:
     from repro_torch.core import engine as E
     from repro_torch.core import sweep
     from repro_torch.kernels import admit as kadm
+    from repro_torch.kernels import conflict as kconf
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import megastep as kmega
     from repro_torch.kernels import ops
@@ -164,6 +168,20 @@ def measure(root: Path) -> dict:
     out["ppcc_admit_ms_no_sleep"] = smoke.cuda_times(
         lambda: kadm.ppcc_admit(*aargs), 10, torch, sleep=False)
     del aargs
+    # the two fused conflict entries alone at the YCSB batch, and
+    # conflict_fused at random sets of read density 1/8
+    r8 = smoke.random_words(*read.shape, 8,
+                            torch.Generator(dev).manual_seed(5), torch, dev)
+    for key, name, words in (
+            ("conflict_fused", "conflict_fused", (read, write)),
+            ("conflict_fused_full", "conflict_fused_full", (read, write)),
+            ("conflict_fused_r8", "conflict_fused", r8)):
+        def fn():
+            getattr(kconf, name)(*words)
+        out[f"{key}_ms"] = smoke.cuda_times(fn, 10, torch)
+        out[f"{key}_ms_no_sleep"] = smoke.cuda_times(fn, 10, torch,
+                                                     sleep=False)
+    del r8
     (out["ppcc_tick_wall_ms"], out["ppcc_tick_device_ms"],
      _) = smoke.ppcc_tick_times(read, write, torch)
     del read, write

@@ -57,15 +57,21 @@ Phases (any failure exits non-zero):
      that reach them; the device's share of a ppcc tick from
      torch.profiler; the three conflict entry points and the three
      admission scans bit-equal to their plain versions at inputs
-     captured mid-drain and at edge shapes, ppcc_admit also on both sides
-     of its switch from four warps to a CTA of 512 threads (n = 16,384 and
-     16,385); their times beside their bounds (the scans' also beside the
-     bound of their chain of dependent steps through the admitted
-     transactions), ppcc_admit's device kernels per call,
-     their plain versions and, for the conflict kernels, one
-     library call (a bf16 matmul of the unpacked bits) and the int8
-     tensor-core floor of the same function beside the bound of the
-     kernel's 32-bit-logic formulation;
+     captured mid-drain and at edge shapes, the two fused conflict
+     entries also on the route the card chooses and on each route forced
+     (gather, dense) at the YCSB batch, random sets of read density 1/8
+     and 1/2, three edge batches (every other row empty, a row holding
+     every page, a page written by all) and both sides of the route
+     switch, ppcc_admit also on both sides of its switch from four warps
+     to a CTA of 512 threads (n = 16,384 and 16,385); their times beside
+     their bounds (the fused conflict entries' the byte bound, with the
+     dense route's 32-bit-logic bound and int8 tensor-core floor beside
+     it, their times also at density 1/8 and 1/2 and a sweep of both
+     routes over density; the scans' also beside the bound of their chain
+     of dependent steps through the admitted transactions), the device
+     kernels per call of the fused conflict entries and ppcc_admit, their
+     plain versions and, for the conflict kernels, one library call (a
+     bf16 matmul of the unpacked bits);
   6. the delta-maintained, instrumented fleet: run_grid(delta=True,
      telemetry=True, trace_every=8, trace_len=256) at run_grid's defaults
      but the horizon (10,000), with every lane's metrics equal to the JAX
@@ -112,6 +118,16 @@ INT8_OPS_PER_S = 1.979e15        # H100 SXM dense int8 tensor cores (data sheet)
 LOGIC_PER_SM_CLOCK = 64
 SCHED_EDGE_N = (1, 33, 255, 300, 4096)
 SCHED_EDGE_W = (1, 3, 1024)
+# the fused conflict entries beyond the YCSB batch, at full width: random
+# sets with each page read with p = 1/k, half the read pages written
+CONFLICT_DENSITIES = (8, 2)
+# their route sweep: read density 1/k, both routes forced
+ROUTE_SWEEP = (1024, 256, 64, 32, 16, 8, 4, 2)
+# the edges of the YCSB batch held in phase 5
+CONFLICT_EDGES = ("zero rows", "full row", "page by all")
+# the shape of the route-switch holds: the largest route count the gather
+# route takes, and one more
+ROUTE_SWITCH_NW = (1000, 64)
 # megastep's (n, d): tile edges, the main path's n, n at the kernel's row
 # block (kRows = 96 in csrc/megastep.cu) less one, at it and plus one, n =
 # 100 (4-byte stores: n % 16 != 0), n = 193 (three CTAs a lane), and n past
@@ -443,6 +459,92 @@ def ppcc_tick_times(read, write, torch, reps=4):
     return wall, dev_ms, per
 
 
+def random_words(n, w, k, gen, torch, dev):
+    """(read, write) int32[n, w] on the card: each of the 32 w pages read
+    with p = 1/k, half of the read ones written."""
+    from repro_torch.core import bitset as B
+    r = torch.rand((n, 32 * w), generator=gen, device=dev) < 1.0 / k
+    wr = r & (torch.rand((n, 32 * w), generator=gen, device=dev) < 0.5)
+    return B.pack(r), B.pack(wr)
+
+
+def edge_words(kind, read, write):
+    """Copies of (read, write) with an edge: every other row empty, the
+    middle row holding every page (read and written), or page 37 written
+    by every transaction."""
+    read, write = read.clone(), write.clone()
+    n, w = read.shape
+    if kind == "zero rows":
+        read[::2] = 0
+        write[::2] = 0
+    elif kind == "full row":
+        read[n // 2] = -1
+        write[n // 2] = -1
+    else:
+        page = 37 % (32 * w)
+        read[:, page // 32] |= 1 << (page % 32)
+        write[:, page // 32] |= 1 << (page % 32)
+    return read, write
+
+
+def switch_words(name, n, w, extra, cost, torch, dev):
+    """Words whose route count is the largest the gather route takes
+    (``extra = 0``) or one more: random writes at 1/32, then read bits at
+    random cells up to the count (read bits + write bits, twice the write
+    bits for conflict_fused_full)."""
+    import numpy as np
+    from repro_torch.core import bitset as B
+    nw, rhs = -(-n // 32), 2.0 * n * n * w
+    top = int(rhs / (nw * cost))
+    while (top + 1) * nw * cost <= rhs:
+        top += 1
+    while top * nw * cost > rhs:
+        top -= 1
+    rng = np.random.default_rng(n + extra)
+    write = rng.random((n, 32 * w)) < 1 / 32
+    mult = 2 if name == "conflict_fused_full" else 1
+    read = np.zeros(n * 32 * w, dtype=bool)
+    read[rng.choice(n * 32 * w, size=top + extra - mult * int(write.sum()),
+                    replace=False)] = True
+    return tuple(B.pack(torch.from_numpy(a.reshape(n, 32 * w)).to(dev))
+                 for a in (read, write))
+
+
+def visited_bits(read, write, torch, full=False) -> int:
+    """The gather route's count: set bits of the read words plus those of
+    the write words (twice for conflict_fused_full)."""
+    from repro_torch.core import bitset as B
+
+    def bits(x):
+        return int(B.unpack(x, x.shape[1] * 32).sum())
+    return bits(read) + (2 if full else 1) * bits(write)
+
+
+def route_sweep(name, n, w, torch, dev, cuda_ms) -> list:
+    """Fused entry ``name`` on each route forced, at random sets of read
+    density 1/k (k in ROUTE_SWEEP) of shape [n, w]: one dict a density
+    with the gather route's count, its share of the switch (1 at the
+    largest count the gather route takes), both routes' times after the
+    device sleep and the route the card chooses."""
+    from repro_torch.kernels import conflict as kconf
+    gen = torch.Generator(dev).manual_seed(7)
+    cost, nw = kconf.gather_cost(), -(-n // 32)
+    out = []
+    for k in ROUTE_SWEEP:
+        er, ew = random_words(n, w, k, gen, torch, dev)
+        visited = visited_bits(er, ew, torch, name == "conflict_fused_full")
+        times = {route: cuda_ms(lambda: kconf.routed(name, er, ew, route),
+                                5) for route in ("gather", "dense")}
+        out.append({"density": f"1/{k}", "visited_bits": visited,
+                    "of_switch": visited * nw * cost / (2.0 * n * n * w),
+                    "gather_ms": times["gather"],
+                    "dense_ms": times["dense"],
+                    "chosen": kconf.route_ran(
+                        kconf.routed(name, er, ew)[1])})
+        del er, ew
+    return out
+
+
 def capture_calls(fn, mod, name):
     """The arguments of every call of ``mod.<name>`` that ``fn()`` makes."""
     calls, launch = [], getattr(mod, name)
@@ -685,9 +787,63 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
         errs[name] = max(errs.get(name, 0.0), err)
 
     conf = ("conflict_matrix", "conflict_fused", "conflict_fused_full")
+    fused = conf[1:]
     for name in conf:
         hold(name, getattr(kconf, name)(read, write),
              getattr(ref, f"{name}_ref")(read, write))
+    chosen = {}
+
+    def hold_routes(name, er, ew, label):
+        """Fused entry ``name`` on the route the card chooses and on each
+        route forced, against the plain version; the route chosen."""
+        want = getattr(ref, f"{name}_ref")(er, ew)
+        for route in (None, "dense", "gather"):
+            got, flags = kconf.routed(name, er, ew, route)
+            ran = kconf.route_ran(flags)
+            if route is not None and ran != route:
+                fail(f"{name} forced to the {route} route ran {ran} "
+                     f"({label})")
+            hold(name, got, want)
+            chosen.setdefault((name, label), ran)
+        return chosen[(name, label)]
+
+    # the YCSB batch, random sets at read density 1/8 and 1/2, the YCSB
+    # batch's edges and, at ROUTE_SWITCH_NW, the route switch
+    gen_c = torch.Generator(dev).manual_seed(5)
+    dense_in = {k: random_words(n, w, k, gen_c, torch, dev)
+                for k in CONFLICT_DENSITIES}
+    cases = [("ycsb", read, write)] + [
+        (f"random 1/{k}", *x) for k, x in dense_in.items()] + [
+        (kind, *edge_words(kind, read, write)) for kind in CONFLICT_EDGES]
+    for label, er, ew in cases:
+        for name in fused:
+            hold_routes(name, er, ew, label)
+    del cases
+    sn, sw = ROUTE_SWITCH_NW
+    for name in fused:
+        for extra, side in ((0, "gather"), (1, "dense")):
+            er, ew = switch_words(name, sn, sw, extra, kconf.gather_cost(),
+                                  torch, dev)
+            if hold_routes(name, er, ew, f"switch +{extra}") != side:
+                fail(f"{name} at the route switch +{extra} (n={sn}, "
+                     f"W={sw}) ran {chosen[(name, f'switch +{extra}')]}, "
+                     f"not {side}")
+    for name in fused:
+        if chosen[(name, "ycsb")] != "gather" or \
+                chosen[(name, "random 1/2")] != "dense":
+            fail(f"{name} chose {chosen[(name, 'ycsb')]} at the YCSB batch "
+                 f"and {chosen[(name, 'random 1/2')]} at density 1/2")
+    same = all(chosen[("conflict_fused_full", label)] == ran
+               for (nm, label), ran in chosen.items()
+               if nm == "conflict_fused")
+    log("[5] conflict_fused and conflict_fused_full bit-equal to their "
+        "plain versions on the route the card chose and on each route "
+        f"forced, at n={n}, W={w} and at the switch (n={sn}, W={sw}); "
+        "conflict_fused chose " + ", ".join(
+            f"{label} {ran}" for (nm, label), ran in chosen.items()
+            if nm == "conflict_fused")
+        + (", conflict_fused_full the same" if same else
+           f"; conflict_fused_full: {chosen}"))
     # the admission inputs of tick 4 of each mode's drain
     full = kconf.conflict_fused_full(read, write)
     raw, wwm = full[0], full[1]
@@ -712,11 +868,15 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
             for name in conf:
                 hold(name, getattr(kconf, name)(er, ewr),
                      getattr(ref, f"{name}_ref")(er, ewr))
+            for name in fused:
+                hold_routes(name, er, ewr, f"random 1/8 n={en} W={ew}")
         if en == n:
             continue                  # the full width is held above
         erw, eww = W.ycsb_batch(n=en, d=max(64, 8 * en), seed=en)
         er = torch.from_numpy(erw.view(np.int32)).to(dev)
         ewr = torch.from_numpy(eww.view(np.int32)).to(dev)
+        for name in fused:
+            hold_routes(name, er, ewr, f"ycsb n={en}")
         f7 = ref.conflict_fused_full_ref(er, ewr)
         ev = (torch.rand(en, generator=gen) < 0.9).to(dev)
         eseq = torch.randperm(en, generator=gen).to(torch.int32).to(dev)
@@ -760,7 +920,7 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
         return (raw_l, ww_l, rdeg, raw_l.sum(0, dtype=torch.int32), wdeg,
                 raw_l.diagonal().clone(), ww_l.diagonal().clone())
 
-    rows, floors = [], {}
+    rows, floors, extra = [], {}, {}
     for name in conf:
         lib_out, k_out = library(name), getattr(kconf, name)(read, write)
         if isinstance(k_out, tuple):
@@ -779,14 +939,34 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
         outs = {"conflict_matrix": n * n,
                 "conflict_fused": 2 * n * n + 2 * 4 * n,
                 "conflict_fused_full": 2 * n * n + 3 * 4 * n + 2 * n}[name]
-        # one LOP3 (acc |= a & b) per word pair and relation: the bound of
-        # this CUDA-core formulation
-        b_ms, b_by = bound(2 * n * w * 4 + outs, relations * n * n * w)
-        # the card's floor for the same function: a 0/1 int8 product per
-        # relation on the tensor cores, 2 n^2 d operations, then > 0
-        floors[name] = max((2 * n * w * 4 + outs) / HBM_BYTES_PER_S,
+        nbytes = 2 * n * w * 4 + outs
+        # the dense route: one LOP3 (acc |= a & b) per word pair and
+        # relation; its floor on the card: a 0/1 int8 product per relation
+        # on the tensor cores, 2 n^2 d operations, then > 0
+        dense_ms, dense_by = bound(nbytes, relations * n * n * w)
+        floors[name] = max(nbytes / HBM_BYTES_PER_S,
                            relations * 2 * n * n * 32 * w
                            / INT8_OPS_PER_S) * 1e3
+        if name == "conflict_matrix":
+            b_ms, b_by = dense_ms, dense_by
+        else:
+            # the gather route on these sets: one word OR per index word of
+            # each set bit it visits
+            visited = visited_bits(read, write, torch,
+                                   name == "conflict_fused_full")
+            b_ms, b_by = bound(nbytes, visited * -(-n // 32))
+            by_input = {"ycsb": {"ms": ms, "ms_no_sleep": ms0,
+                                 "route": chosen[(name, "ycsb")]}}
+            for k, (er, ew) in dense_in.items():
+                by_input[f"random 1/{k}"] = {
+                    "ms": cuda_ms(lambda: getattr(kconf, name)(er, ew), 5),
+                    "ms_no_sleep": cuda_ms(
+                        lambda: getattr(kconf, name)(er, ew), 5,
+                        sleep=False),
+                    "route": chosen[(name, f"random 1/{k}")]}
+            extra[name] = {"visited_bits": visited,
+                           "dense_route_bound_ms": dense_ms,
+                           "by_input": by_input}
         rows.append((name, "src/repro/kernels/conflict.py:" + {
             "conflict_matrix": "80 (_conflict_kernel, pallas_call at :91)",
             "conflict_fused": "134 (_conflict_fused_kernel, pallas_call at "
@@ -795,6 +975,25 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
                                    "pallas_call at :238)"}[name],
             "src/repro_torch/csrc/conflict.cu", ms, ms0, pms, b_ms, b_by,
             lms))
+    del dense_in
+    # the route switch's sweep, and the device kernels of one call
+    for name in fused:
+        extra[name]["route_sweep"] = sweep = route_sweep(name, n, w, torch,
+                                                         dev, cuda_ms)
+        for r in sweep:
+            log(f"[5] {name} route sweep, read density {r['density']}: "
+                f"{r['visited_bits']} bits visited ({r['of_switch']:.4f} of "
+                f"the switch), gather {r['gather_ms']:.4f} ms, dense "
+                f"{r['dense_ms']:.4f} ms; the card chooses {r['chosen']}")
+        c_ms, _, c_per = device_profile(
+            lambda: getattr(kconf, name)(read, write), 10, torch)
+        extra[name]["device_kernels_per_call"] = len(c_per)
+        extra[name]["device_ms_by_kernel"] = {
+            k[:60]: v for k, (v, _) in c_per.items()}
+        log(f"[5] {name} issues {len(c_per)} device operations a call at "
+            f"the YCSB batch, {c_ms:.4f} ms of device time (profiled, 10 "
+            f"calls): " + ", ".join(f"{k[:48]} {v:.4f} ms"
+                                    for v, k in largest(c_per, 5)))
     sm_hz = max_sm_clock_hz()
     chains = {}
     for name, args in adm.items():
@@ -826,6 +1025,7 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
                       "ms_no_sleep": ms0})
         if name in floors:
             table[-1]["tensor_core_floor_ms"] = floors[name]
+        table[-1].update(extra.get(name, {}))
         if name in chains:
             table[-1]["chain_bound_ms"] = chains[name][0]
             table[-1]["admitted"] = chains[name][1]
@@ -835,9 +1035,17 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
             + (f", chain bound {chains[name][0]:.5f} ms through "
                f"{chains[name][1]} admitted" if name in chains else "")
             + (f" of 32-bit logic, int8 tensor-core floor "
-               f"{floors[name]:.5f} ms" if name in floors else "")
+               f"{floors[name]:.5f} ms" if name == "conflict_matrix" else "")
+            + (f"; the dense route's bound "
+               f"{extra[name]['dense_route_bound_ms']:.5f} ms of 32-bit "
+               f"logic, its int8 tensor-core floor {floors[name]:.5f} ms"
+               if name in extra else "")
             + (f", library {lms:.4f} ms" if lms is not None else "")
-            + f") at n={n}, W={w}; {counts[name]} launches on the path")
+            + f") at n={n}, W={w}; {counts[name]} launches on the path"
+            + ("".join(f"; {label}: {t['ms']:.4f} ms ({t['ms_no_sleep']:.4f}"
+                       f" back to back, {t['route']} route)"
+                       for label, t in extra[name]["by_input"].items())
+               if name in extra else ""))
     log(f"[5] the chain bounds take (admitted + 1) steps x "
         f"{ADMIT_STEP_DEPS} dependent instructions x {DEP_CYCLES} cycles at "
         f"{sm_hz / 1e6:.0f} MHz, an OR over the CTA counted as one; all "

@@ -89,7 +89,8 @@ def conflict_matrix(read_bits, write_bits):
 
 
 def conflict_fused(read_bits, write_bits):
-    """``(raw, ww, raw_deg, ww_deg)`` in one launch."""
+    """``(raw, ww, raw_deg, ww_deg)`` in one call (counted as one launch;
+    the card picks the gather or the dense route)."""
     fn = _conflict.conflict_fused if _route(read_bits, "conflict_fused") \
         else ref.conflict_fused_ref
     return fn(read_bits, write_bits)
@@ -97,7 +98,7 @@ def conflict_fused(read_bits, write_bits):
 
 def conflict_fused_full(read_bits, write_bits):
     """``(raw, ww, raw_deg, war_deg, ww_deg, diag_raw, diag_ww)`` in one
-    launch."""
+    call (counted as one launch)."""
     fn = _conflict.conflict_fused_full \
         if _route(read_bits, "conflict_fused_full") \
         else ref.conflict_fused_full_ref

@@ -14,7 +14,7 @@ order:
 
 The pairwise relations come from the conflict kernel
 (``kernels.conflict``) and each policy's admission walk from its scan
-kernel (``kernels.admit``), one launch each per tick; CPU tensors take
+kernel (``kernels.admit``), one call each per tick; CPU tensors take
 their plain versions (``kernels.ref``).  The tensors' device alone picks
 the route through ``tick``; the policy ticks keep the reference's
 ``use_kernel`` option.
@@ -98,8 +98,9 @@ def _conflict_matrices(read_bits, write_bits, use_kernel: bool):
 
 def _unchanged(carry: TickCarry, rb, wb, valid) -> bool:
     """Whether a tick's inputs equal the carried ones.  One host read per
-    tick that passes a carry: the launch it may skip is the O(n^2 W)
-    conflict pass, so a sync is cheap beside it."""
+    tick that passes a carry, where the reference takes ``lax.cond`` on
+    the device: the call it may skip is the conflict pass, which writes
+    two n x n relations (32 MB at n = 4,096)."""
     if (carry.read_bits.shape != rb.shape
             or carry.write_bits.shape != wb.shape
             or carry.valid.shape != valid.shape):

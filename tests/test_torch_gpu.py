@@ -405,17 +405,88 @@ def test_rowslab_drain_leaves_parent_state(cuda):
 # ---- the batch scheduler's kernels (csrc/conflict.cu, csrc/admit.cu) ----
 
 CONFLICT = ("conflict_matrix", "conflict_fused", "conflict_fused_full")
+FUSED = ("conflict_fused", "conflict_fused_full")
+ROUTES = (None, "dense", "gather")
 
 
-def _words(gen, n, w, dev):
-    """Random int32 words, each bit set with probability 1/8, and write
-    words a subset of them."""
+def _words(gen, n, w, dev, density=8):
+    """Random int32 words, each bit set with probability 1/8 (1/2 with
+    ``density=2``), and write words a subset of them, half the bits."""
     def bits():
         return torch.randint(-2 ** 31, 2 ** 31, (n, w), generator=gen,
                              dtype=torch.int64).to(torch.int32)
-    read = bits() & bits() & bits()
+    read = bits() & bits() & bits() if density == 8 else bits()
     write = read & bits()
     return read.to(dev), write.to(dev)
+
+
+def _ycsb_words(n, w, dev):
+    """The scheduler's YCSB sets (16 Zipf pages a row, each written with
+    p = 0.5) over 32 w pages."""
+    from repro_torch.sched import workload as W
+    rw, ww = W.ycsb_batch(n=n, d=32 * w, seed=n + w)
+    return (torch.from_numpy(rw.view(np.int32)).to(dev),
+            torch.from_numpy(ww.view(np.int32)).to(dev))
+
+
+def _edge_words(kind, n, w, dev):
+    """YCSB sets with an edge: every other row empty, one row holding every
+    page (read and written), or page 37 of the batch written by every
+    transaction."""
+    read, write = _ycsb_words(n, w, dev)
+    if kind == "zero rows":
+        read[::2] = 0
+        write[::2] = 0
+    elif kind == "full row":
+        read[n // 2] = -1
+        write[n // 2] = -1
+    else:
+        page = 37 % (32 * w)
+        read[:, page // 32] |= 1 << (page % 32)
+        write[:, page // 32] |= 1 << (page % 32)
+    return read, write
+
+
+def _boundary_words(name, n, w, extra, seed, dev):
+    """Words whose route count is the largest the gather route takes
+    (``extra = 0``) or one more (``extra = 1``): random writes at 1/32,
+    then read bits at random cells until the count (read bits + write
+    bits, twice the write bits for conflict_fused_full) is reached."""
+    from repro_torch.kernels import conflict as kconf
+    from repro_torch.sched import workload as W
+    cost, nw = kconf.gather_cost(), -(-n // 32)
+    rhs = 2.0 * n * n * w
+    top = int(rhs / (nw * cost))
+    while (top + 1) * nw * cost <= rhs:
+        top += 1
+    while top * nw * cost > rhs:
+        top -= 1
+    rng = np.random.default_rng(seed)
+    write = rng.random((n, 32 * w)) < 1 / 32
+    target = top + extra - (2 if name == "conflict_fused_full" else 1) * \
+        int(write.sum())
+    assert 0 <= target <= n * 32 * w
+    read = np.zeros(n * 32 * w, dtype=bool)
+    read[rng.choice(n * 32 * w, size=target, replace=False)] = True
+    return tuple(torch.from_numpy(W.pack_words(a.reshape(n, 32 * w))
+                                  .view(np.int32)).to(dev)
+                 for a in (read, write))
+
+
+def _hold_fused(kconf, name, read, write, want=None):
+    """Each route of entry ``name`` bit-equal to the plain version; returns
+    the route the card chose."""
+    want = want or getattr(ref, f"{name}_ref")(read, write)
+    chosen = None
+    for route in ROUTES:
+        got, flags = kconf.routed(name, read, write, route)
+        ran = kconf.route_ran(flags)
+        assert route is None or ran == route, (name, route, ran)
+        chosen = chosen or ran
+        assert len(got) == len(want), name
+        for k, (g, x) in enumerate(zip(got, want)):
+            assert g.dtype == x.dtype and torch.equal(g, x), (name, route, k)
+    return chosen
 
 
 @pytest.mark.parametrize("n", [1, 33, 255, 300])
@@ -433,6 +504,47 @@ def test_conflict_kernels_match_plain(cuda, n, w):
         assert len(got) == len(want), name
         for k, (g, x) in enumerate(zip(got, want)):
             assert g.dtype == x.dtype and torch.equal(g, x), (name, k)
+        if name in FUSED:
+            _hold_fused(kconf, name, read, write, want)
+
+
+@pytest.mark.parametrize("kind", ["ycsb", "random 1/8", "random 1/2"])
+@pytest.mark.parametrize("n", [1, 33, 300, 4097])
+@pytest.mark.parametrize("w", [1, 3, 1024])
+def test_conflict_routes_match_plain(cuda, kind, n, w):
+    """Both fused entries on the route the card chooses and on each route
+    forced, bit-equal to the plain version; at n = 4,097, W = 1,024 the
+    YCSB sets take the gather route and density 1/2 the dense one."""
+    from repro_torch.kernels import conflict as kconf
+    gen = torch.Generator().manual_seed(n * 11 + w)
+    if kind == "ycsb":
+        read, write = _ycsb_words(n, w, cuda)
+    else:
+        read, write = _words(gen, n, w, cuda, density=int(kind[-1]))
+    for name in FUSED:
+        chosen = _hold_fused(kconf, name, read, write)
+        if (n, w) == (4097, 1024) and kind != "random 1/8":
+            assert chosen == ("gather" if kind == "ycsb" else "dense")
+
+
+@pytest.mark.parametrize("kind", ["zero rows", "full row", "page by all"])
+@pytest.mark.parametrize("n,w", [(33, 3), (300, 1024)])
+def test_conflict_edge_inputs_match_plain(cuda, kind, n, w):
+    from repro_torch.kernels import conflict as kconf
+    read, write = _edge_words(kind, n, w, cuda)
+    for name in FUSED:
+        _hold_fused(kconf, name, read, write)
+
+
+@pytest.mark.parametrize("name", FUSED)
+@pytest.mark.parametrize("n,w", [(300, 3), (1000, 64)])
+def test_conflict_route_switch(cuda, name, n, w):
+    """At the largest route count the gather route takes, the card chooses
+    it; one set bit more, the dense route; both bit-equal."""
+    from repro_torch.kernels import conflict as kconf
+    for extra, want in ((0, "gather"), (1, "dense")):
+        read, write = _boundary_words(name, n, w, extra, n + extra, cuda)
+        assert _hold_fused(kconf, name, read, write) == want, (extra, want)
 
 
 def test_conflict_rejects_what_it_does_not_take(cuda):
@@ -444,6 +556,8 @@ def test_conflict_rejects_what_it_does_not_take(cuda):
         kconf.conflict_fused(words, words[:, :1].contiguous())
     with pytest.raises(ValueError):
         kconf.conflict_matrix(words.cpu(), words.cpu())
+    with pytest.raises(ValueError):
+        kconf.routed("conflict_fused", words, words, route="sparse")
 
 
 def _admit_inputs(gen, n, dev):
