@@ -38,14 +38,21 @@ the inputs of tick 4 of the ``ppcc_degree`` drain
 alone at the batch and ``conflict_fused`` at random sets of read density
 1/8 (``random_words``), each by ``cuda_times`` after a device sleep and
 back to back, and one ``ppcc`` tick with ``tick_stats``, its wall and its
-device kernel time (``ppcc_tick_times``); the
-bf16 prefill of qwen3-0.6b at full depth on 8 x 1,024 tokens
-(``median_wall_ms`` of 5, seeded random weights); and flash_attention
-alone on random bf16 inputs of its main-path shape (B = 8, H = 16,
-S = 1,024, D = 128, causal) by ``cuda_times``, after a device sleep and
-back to back.  Each run prints one JSON line; the last lines are the
-card's name and power limit and a summary of medians per checkout.  The
-script imports nothing of JAX and nothing of the JAX package.
+device kernel time (``tick_times``); ``twopl_admit`` alone by
+``cuda_times`` at the inputs of tick 4 of the ``2pl`` drain (after a
+device sleep and back to back) and one ``2pl`` tick with ``tick_stats``,
+its wall and device kernel time; the bf16 prefill of qwen3-0.6b at full
+depth on 8 x 1,024 tokens (``median_wall_ms`` of 5, seeded random
+weights); flash_attention alone on random bf16 inputs of its main-path
+shape (B = 8, H = 16, S = 1,024, D = 128, causal) by ``cuda_times``,
+after a device sleep and back to back; ``wkv_chunked`` alone on random
+inputs of the rwkv6-3b prefill's shape and layout (B = 8, H = 48, S =
+1,024, D = 64, chunk 128, bf16 r/k/v as [B, H, S, D] views of [B, S,
+H*D] tensors, log w = -exp(.), float32) the same way; and the bf16
+prefill of rwkv6-3b at full depth on 8 x 1,024 tokens.  Each run prints
+one JSON line; the last lines are the card's name and power limit and a
+summary of medians per checkout.  The script imports nothing of JAX and
+nothing of the JAX package.
 """
 import inspect
 import json
@@ -72,6 +79,7 @@ def measure(root: Path) -> dict:
     from repro_torch.kernels import megastep as kmega
     from repro_torch.kernels import ops
     from repro_torch.kernels import scan as kscan
+    from repro_torch.kernels import wkv as kwkv
     from repro_torch.launch import steps
     from repro_torch.models import LM
     from repro_torch.sched import workload as W
@@ -183,7 +191,21 @@ def measure(root: Path) -> dict:
                                                      sleep=False)
     del r8
     (out["ppcc_tick_wall_ms"], out["ppcc_tick_device_ms"],
-     _) = smoke.ppcc_tick_times(read, write, torch)
+     _) = smoke.tick_times(read, write, torch)
+    # twopl_admit alone at the inputs of tick 4 of the 2pl drain, and one
+    # 2pl tick with tick_stats
+    steps4, _ = W.drain(read, write, "2pl", 4)
+    full = kconf.conflict_fused_full(read, write)
+    targs = (full[0], full[1],
+             smoke.pending_at(steps4, read.shape[0], dev, torch))
+    del steps4, full
+    out["twopl_admit_ms"] = smoke.cuda_times(
+        lambda: kadm.twopl_admit(*targs), 10, torch)
+    out["twopl_admit_ms_no_sleep"] = smoke.cuda_times(
+        lambda: kadm.twopl_admit(*targs), 10, torch, sleep=False)
+    del targs
+    (out["twopl_tick_wall_ms"], out["twopl_tick_device_ms"],
+     _) = smoke.tick_times(read, write, torch, "2pl")
     del read, write
     torch.cuda.empty_cache()
 
@@ -204,6 +226,27 @@ def measure(root: Path) -> dict:
     out["flash_bf16_ms"] = smoke.cuda_times(flash, 20, torch)
     out["flash_bf16_ms_no_sleep"] = smoke.cuda_times(flash, 20, torch,
                                                      sleep=False)
+    del q, k, v
+
+    # wkv_chunked alone at the rwkv6-3b prefill's shape and layout, then
+    # that prefill at full depth
+    r, k, v = ((torch.randn((8, 1024, 48, 64), generator=gen, device=dev)
+                * 0.5).bfloat16().transpose(1, 2) for _ in range(3))
+    lw = (-torch.exp(torch.randn((8, 1024, 48, 64), generator=gen,
+                                 device=dev) * 0.5 - 2)).transpose(1, 2)
+    u = torch.randn((48, 64), generator=gen, device=dev) * 0.1
+
+    def wkv():
+        kwkv.wkv_chunked(r, k, v, lw, u, chunk=128)
+    out["wkv_ms"] = smoke.cuda_times(wkv, 20, torch)
+    out["wkv_ms_no_sleep"] = smoke.cuda_times(wkv, 20, torch, sleep=False)
+    del r, k, v, lw, u
+    cfg = configs.get("rwkv6_3b")
+    lm = LM(cfg, device=dev).init(gen)
+    tok = torch.randint(0, cfg.vocab, (8, 1024), generator=gen, device=dev)
+    prefill = steps.make_prefill_step(lm)
+    out["rwkv6_prefill_ms"] = smoke.median_wall_ms(
+        lambda: prefill({"tokens": tok}), 5, torch)
     return out
 
 

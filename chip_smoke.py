@@ -54,7 +54,7 @@ Phases (any failure exits non-zero):
      (ppcc, ppcc by degree with the carry threaded and one carry repeat,
      2pl, occ) and txstore.apply_tick per policy, every result equal to
      the golden; the conflict and admission launches equal to the ticks
-     that reach them; the device's share of a ppcc tick from
+     that reach them; the device's share of a ppcc and of a 2pl tick from
      torch.profiler; the three conflict entry points and the three
      admission scans bit-equal to their plain versions at inputs
      captured mid-drain and at edge shapes, the two fused conflict
@@ -62,16 +62,17 @@ Phases (any failure exits non-zero):
      (gather, dense) at the YCSB batch, random sets of read density 1/8
      and 1/2, three edge batches (every other row empty, a row holding
      every page, a page written by all) and both sides of the route
-     switch, ppcc_admit also on both sides of its switch from four warps
-     to a CTA of 512 threads (n = 16,384 and 16,385); their times beside
-     their bounds (the fused conflict entries' the byte bound, with the
-     dense route's 32-bit-logic bound and int8 tensor-core floor beside
-     it, their times also at density 1/8 and 1/2 and a sweep of both
-     routes over density; the scans' also beside the bound of their chain
-     of dependent steps through the admitted transactions), the device
-     kernels per call of the fused conflict entries and ppcc_admit, their
-     plain versions and, for the conflict kernels, one library call (a
-     bf16 matmul of the unpacked bits);
+     switch, ppcc_admit and twopl_admit also on both sides of their switch
+     from four warps to a CTA of 512 threads (n = 16,384 and 16,385),
+     twopl_admit also at serve()'s n = 64; their times beside their
+     bounds (the fused conflict entries' the byte bound, with the dense
+     route's 32-bit-logic bound and int8 tensor-core floor beside it,
+     their times also at density 1/8 and 1/2 and a sweep of both routes
+     over density; the scans' also beside the bound of their chain of
+     dependent steps through the admitted transactions), the device
+     kernels per call of the fused conflict entries, ppcc_admit and
+     twopl_admit, their plain versions and, for the conflict kernels, one
+     library call (a bf16 matmul of the unpacked bits);
   6. the delta-maintained, instrumented fleet: run_grid(delta=True,
      telemetry=True, trace_every=8, trace_len=256) at run_grid's defaults
      but the horizon (10,000), with every lane's metrics equal to the JAX
@@ -86,7 +87,10 @@ Phases (any failure exits non-zero):
      route), the full-depth bf16 prefill of qwen3-0.6b (flash on its
      tensor-core route, one launch per layer) and rwkv6-3b, decode
      against prefill, serve() under each policy; flash and wkv held to
-     their plain versions at the main-path inputs and at edge shapes.
+     their plain versions at the main-path inputs and at edge shapes (wkv
+     at D = 16, 32 and 64, both dtypes, with and without an initial
+     state); wkv's time beside its CUDA-core and its tensor-core bound,
+     and its device kernels per call.
 
 Phase 6 runs right after phase 3, before phase 4's profiler sessions.
 The last lines are the kernel table as one JSON object, the card's name
@@ -152,8 +156,11 @@ OCC_EDGES = [("no committer", 2, 160, 500, 0.0),
              ("W = 303 (chunks of 31)", 2, 100, 303 * 32, 0.5),
              ("W = 384 (chunks of 25)", 2, 40, 384 * 32, 0.6),
              ("n = 77", 3, 77, 500, 0.5)]
-# ppcc_admit on both sides of its switch from four warps to a CTA of 512
+# ppcc_admit and twopl_admit on both sides of their switch from four warps
+# to a CTA of 512 threads
 PPCC_ROUTE_N = (16_384, 16_385)
+# twopl_admit at serve()'s n (a YCSB batch of 64 over 512 pages)
+TWOPL_SERVE_N = 64
 # the chain bounds of the scans: a dependent integer or float instruction
 # issues at least this many SM cycles after the one it waits on (sm_90's
 # fixed-latency pipes), and a warp vote or reduction is counted as one
@@ -193,6 +200,12 @@ FLASH_EDGES = [(2, 8, 8, 128, 128, 64, "bfloat16", True, 0),
                (1, 4, 4, 100, 90, 20, "bfloat16", True, 0),
                (1, 2, 2, 200, 200, 256, "bfloat16", True, 0)]
 WKV_EDGE_CHUNKS = (16, 64, 128)  # H = 48, D = 64, S = chunk and 8 chunk
+# the WKV kernel's other head sizes and an initial state: (D, chunk, S,
+# state0), H = 48, both dtypes
+WKV_EDGE_MORE = [(16, 64, 512, False), (16, 1, 8, False),
+                 (32, 64, 512, False), (32, 128, 128, False),
+                 (64, 128, 1024, True), (32, 16, 128, True)]
+TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor cores
 SLEEP_CYCLES = 2_000_000         # ~1 ms of device sleep ahead of a timing
 
 
@@ -437,16 +450,17 @@ def ppcc_admit_inputs(read, write, pending, torch):
     return raw_off, pending, S.degree_order(full)
 
 
-def ppcc_tick_times(read, write, torch, reps=4):
+def tick_times(read, write, torch, policy="ppcc", reps=4):
     """(wall ms unprofiled, device kernel ms, {kernel: (ms, launches)}) of
-    one ppcc tick + tick_stats with every transaction pending: the wall
-    over ``reps`` synchronised ticks after one warm-up, then
+    one tick of ``policy`` + tick_stats with every transaction pending: the
+    wall over ``reps`` synchronised ticks after one warm-up, then
     ``device_profile`` of ``reps`` more."""
     from repro_torch.sched import scheduler as S
     valid = torch.ones(read.shape[0], dtype=torch.bool, device=read.device)
 
     def one_tick():
-        S.tick_stats(read, write, valid, S.tick(read, write, valid))
+        S.tick_stats(read, write, valid,
+                     S.tick(read, write, valid, policy=policy))
 
     one_tick()
     torch.cuda.synchronize()
@@ -598,22 +612,27 @@ def iteration_ms(cond, step, s, sweep, torch, reps=32) -> float:
     return (time.perf_counter() - t) / reps * 1e3
 
 
-def device_profile(fn, reps: int, torch):
+def device_profile(fn, reps: int, torch, tries: int = 3):
     """(device ms, kernels, {kernel: (device ms, launches)}), each per
-    call, of ``reps`` calls of ``fn()`` under torch.profiler; zero time
-    if the profiler saw no device time."""
+    call, of ``reps`` calls of ``fn()`` under torch.profiler; a session
+    that saw no device time (it happens now and then, one session after
+    another) is run again, up to ``tries`` sessions; zero time if none
+    saw any."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     per = {}
-    for e in prof.key_averages():
-        if dev_time(e) > 0:
-            ms, count = per.get(e.key, (0.0, 0.0))
-            per[e.key] = (ms + dev_time(e) / reps / 1e3,
-                          count + e.count / reps)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if dev_time(e) > 0:
+                ms, count = per.get(e.key, (0.0, 0.0))
+                per[e.key] = (ms + dev_time(e) / reps / 1e3,
+                              count + e.count / reps)
+        if per:
+            break
     return (sum(ms for ms, _ in per.values()),
             sum(c for _, c in per.values()), per)
 
@@ -762,16 +781,19 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
     for k, v in store_counts.items():
         counts[k] += v
 
-    # ---- the device's share of a tick: ppcc tick + tick_stats, first input
-    tick_ms, dev_ms, per = ppcc_tick_times(read, write, torch)
-    if dev_ms > 0:
-        log(f"[5] ppcc tick + tick_stats: {tick_ms:.3f} ms wall unprofiled, "
-            f"{dev_ms:.3f} ms device kernel time, device idle "
-            f"{100 * (1 - dev_ms / tick_ms):.1f}%; largest: "
-            + ", ".join(f"{k[:40]} {v:.3f} ms" for v, k in largest(per, 4)))
-    else:
-        log(f"[5] ppcc tick + tick_stats: {tick_ms:.3f} ms wall; device "
-            f"time not measured (profiler saw no device time)")
+    # ---- the device's share of a tick: a ppcc and a 2pl tick + tick_stats,
+    # first input
+    for policy in ("ppcc", "2pl"):
+        tick_ms, dev_ms, per = tick_times(read, write, torch, policy)
+        if dev_ms > 0:
+            log(f"[5] {policy} tick + tick_stats: {tick_ms:.3f} ms wall "
+                f"unprofiled, {dev_ms:.3f} ms device kernel time, device "
+                f"idle {100 * (1 - dev_ms / tick_ms):.1f}%; largest: "
+                + ", ".join(f"{k[:40]} {v:.3f} ms"
+                            for v, k in largest(per, 4)))
+        else:
+            log(f"[5] {policy} tick + tick_stats: {tick_ms:.3f} ms wall; "
+                f"device time not measured (profiler saw no device time)")
 
     # ---- kernels against their plain versions, off the counted path
     errs = {}
@@ -900,7 +922,27 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
         log(f"[5] ppcc_admit bit-equal to its plain version at n={en} "
             f"({'four warps' if en <= 16_384 else 'a CTA of 512 threads'}; "
             f"random arcs, 3 a row; {int(got_e[0].sum())} admitted)")
-        del eraw, got_e
+        # twopl_admit on the same side: random raw (3 a row) and ww (2 a
+        # row), diagonals included
+        eww = torch.rand((en, en), generator=g_, device=dev) < 2.0 / en
+        eraw |= torch.rand((en, en), generator=g_, device=dev) < 1.0 / en
+        got_t = kadm.twopl_admit(eraw, eww, ev)
+        hold("twopl_admit", got_t, ref.twopl_admit_ref(eraw, eww, ev))
+        log(f"[5] twopl_admit bit-equal to its plain version at n={en} "
+            f"({'four warps' if en <= 16_384 else 'a CTA of 512 threads'}; "
+            f"{int(got_t.sum())} admitted)")
+        del eraw, eww, got_e, got_t
+    srw, sww = W.ycsb_batch(n=TWOPL_SERVE_N, d=8 * TWOPL_SERVE_N,
+                            seed=TWOPL_SERVE_N)
+    sraw, sww_m, *_ = ref.conflict_fused_ref(
+        torch.from_numpy(srw.view(np.int32)).to(dev),
+        torch.from_numpy(sww.view(np.int32)).to(dev))
+    sv = torch.ones(TWOPL_SERVE_N, dtype=torch.bool, device=dev)
+    got_t = kadm.twopl_admit(sraw, sww_m, sv)
+    hold("twopl_admit", got_t, ref.twopl_admit_ref(sraw, sww_m, sv))
+    log(f"[5] twopl_admit bit-equal to its plain version at serve()'s "
+        f"n={TWOPL_SERVE_N} (a YCSB batch over {8 * TWOPL_SERVE_N} pages, "
+        f"{int(got_t.sum())} admitted)")
 
     # ---- times at the full-width shape
     def library(name):
@@ -1062,6 +1104,20 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
     log(f"[5] ppcc_admit issues {len(a_per)} device kernels a call, "
         f"{a_ms:.4f} ms of device time (profiled, 10 calls): " + ", ".join(
             f"{k[:48]} {v:.4f} ms" for v, k in largest(a_per, 4)))
+    # twopl_admit's (pack, scan) at the tick-4 inputs of the 2pl drain
+    t_ms, _, t_per = device_profile(
+        lambda: kadm.twopl_admit(*adm["twopl_admit"]), 10, torch)
+    row = next(r for r in table if r["name"] == "twopl_admit")
+    row["device_kernels_per_call"] = len(t_per)
+    row["device_ms_by_kernel"] = {k[:60]: v for k, (v, _) in t_per.items()}
+    if t_per:
+        log(f"[5] twopl_admit issues {len(t_per)} device operations a call, "
+            f"{t_ms:.4f} ms of device time (profiled, 10 calls): "
+            + ", ".join(f"{k[:48]} {v:.4f} ms"
+                        for v, k in largest(t_per, 4)))
+    else:
+        log("[5] twopl_admit's device operations: not measured (the "
+            "profiler saw no device time)")
     return table
 
 
@@ -1322,12 +1378,27 @@ def lm_phase(torch, dev, smi, cuda_ms):
                      real["wkv_chunked"](r, k, v, lw, u, chunk=c),
                      ref.wkv_chunked_ref(r, k, v, lw, u, chunk=c), 1e-4,
                      1e-3, f"H=48 S={s_} chunk={c} {dt}")
+    for d_, c, s_, with_state in WKV_EDGE_MORE:
+        for dt in ("bfloat16", "float32"):
+            r, k, v = ((torch.randn((1, s_, 48, d_), generator=gen) * 0.5)
+                       .to(dts[dt]).to(dev).transpose(1, 2) for _ in range(3))
+            lw = (-torch.exp(torch.randn((1, s_, 48, d_), generator=gen)
+                             * 0.5 - 2)).to(dev).transpose(1, 2)
+            u = (torch.randn((48, d_), generator=gen) * 0.1).to(dev)
+            s0 = ((torch.randn((1, 48, d_, d_), generator=gen) * 0.1).to(dev)
+                  if with_state else None)
+            hold("wkv_chunked",
+                 real["wkv_chunked"](r, k, v, lw, u, chunk=c, state0=s0),
+                 ref.wkv_chunked_ref(r, k, v, lw, u, chunk=c, state0=s0),
+                 1e-4, 1e-3, f"H=48 D={d_} S={s_} chunk={c} {dt}"
+                 + (" from a state" if with_state else ""))
     log(f"[7] flash_attention within 2e-2 (bf16) / 1e-4 (float32) of its "
         f"plain version at the main-path inputs (max abs err "
         f"{main_err['flash_attention']:.4g}) and {len(FLASH_EDGES)} edge "
         f"shapes; wkv_chunked within atol 1e-4, rtol 1e-3 at the main-path "
         f"inputs ({main_err['wkv_chunked']:.4g}) and chunks "
-        f"{WKV_EDGE_CHUNKS} x S in (chunk, 8 chunk) x (bf16, float32)")
+        f"{WKV_EDGE_CHUNKS} x S in (chunk, 8 chunk) x (bf16, float32), and "
+        f"(D, chunk, S, state0) in {WKV_EDGE_MORE} x (bf16, float32)")
 
     # ---- kernel times at the main-path shapes
     q, k, v = fargs
@@ -1374,6 +1445,12 @@ def lm_phase(torch, dev, smi, cuda_ms):
     w_bound = max(w_bytes / HBM_BYTES_PER_S, w_flops / F32_OPS_PER_S) * 1e3
     w_by = "bytes" if w_bytes / HBM_BYTES_PER_S >= \
         w_flops / F32_OPS_PER_S else "operations"
+    # the kernel's own formulation: three TF32 passes on the tensor cores
+    w_tc = max(w_bytes / HBM_BYTES_PER_S, 3 * w_flops / TF32_OPS_PER_S) * 1e3
+    w_tc_by = "bytes" if w_bytes / HBM_BYTES_PER_S >= \
+        3 * w_flops / TF32_OPS_PER_S else "operations"
+    w_dev, _, w_per = device_profile(
+        lambda: real["wkv_chunked"](*wargs, **wkw), 10, torch)
     log(f"[7] flash_attention at B={b} Hq={hq} Hkv={hkv} S={s_q} D={d} "
         f"{str(q.dtype)[6:]} causal: {ms_f:.4f} ms ({ms0_f:.4f} ms back to "
         f"back; plain {plain_f:.4f} ms, "
@@ -1389,7 +1466,12 @@ def lm_phase(torch, dev, smi, cuda_ms):
         f"back; plain {plain_w:.4f} ms; "
         f"bound {w_bound:.5f} ms by {w_by}: {w_bytes / 1e6:.1f} MB at 3.35 "
         f"TB/s against {w_flops / 1e9:.2f} GFLOP of float32 chunk products "
-        f"at 67 TFLOP/s; library call: none) [{smi}]")
+        f"at 67 TFLOP/s; the tensor-core bound {w_tc:.5f} ms by {w_tc_by}: "
+        f"the bytes against 3 x {w_flops / 1e9:.2f} GFLOP at the TF32 "
+        f"495 TFLOP/s; library call: none) [{smi}]")
+    log(f"[7] wkv_chunked issues {len(w_per)} device operations a call, "
+        f"{w_dev:.4f} ms of device time (profiled, 10 calls): " + ", ".join(
+            f"{k_[:48]} {v_:.4f} ms" for v_, k_ in largest(w_per, 4)))
     rows = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1412,7 +1494,13 @@ def lm_phase(torch, dev, smi, cuda_ms):
          "launches": lm_counts["wkv_chunked"],
          "max_abs_err": errs["wkv_chunked"], "ms": ms_w, "plain_ms": plain_w,
          "bound_ms": w_bound, "bound_by": w_by, "library_ms": None,
-         "ms_no_sleep": ms0_w}]
+         "ms_no_sleep": ms0_w, "bound_note": "bound_ms: float32 chunk "
+         "products on the CUDA cores; tensor_core_bound_ms: the kernel's "
+         "three TF32 passes on the tensor cores",
+         "tensor_core_bound_ms": w_tc, "tensor_core_bound_by": w_tc_by,
+         "device_kernels_per_call": len(w_per),
+         "device_ms_by_kernel": {k_[:60]: v_ for k_, (v_, _) in
+                                 w_per.items()}}]
     del captured, fargs, wargs, q, k, v, r, k_, v_, lw, u
     log(f"[7] phase 7 walls and checks in {time.perf_counter() - t7:.1f} s")
 

@@ -1,4 +1,4 @@
-// The batch scheduler's three admission scans, one launch per tick each,
+// The batch scheduler's three admission scans, one call per tick each,
 // for Hopper (sm_90a).  They are not TPU kernels: they replace the XLA
 // scans (lax.scan) of repro/sched/scheduler.py, which a loop of torch
 // operations would turn into some ten launches per transaction, about
@@ -17,12 +17,12 @@
 //
 // Each computes exactly its plain version in repro_torch/kernels/ref.py.
 //
-// Bound.  A step reads one or two rows of n bools: at n = 4,096 a tick
-// reads 2 x 16 MB (ppcc) and writes at most 16 MB of prec, about 15 us of
-// bytes at 3.35 TB/s.  What bounds the scans is their chain of dependent
-// steps: a step whose transaction is not admitted changes nothing, so the
-// chain runs through the admitted ones; chip_smoke.py models it beside the
-// byte bound.
+// Bound.  A step reads one or two rows of n bools: at n = 4,096 raw is 16
+// MB; ppcc reads it and writes 16 MB of prec, twopl reads raw and ww:
+// about 10 us of bytes at 3.35 TB/s.
+// What bounds the scans is their chain of dependent steps: a step whose
+// transaction is not admitted changes nothing, so the chain runs through
+// the admitted ones; chip_smoke.py models it beside the byte bound.
 //
 // Design of ppcc_admit: three device kernels a call.
 //   1. ppcc_pack: raw's rows and columns as packed words, no transposed
@@ -56,9 +56,30 @@
 //      steps, when the earlier one's verdict is final); one coalesced pass
 //      after the scan writes it from the packed rows, so prec needs no
 //      zero fill.
-// twopl_admit and occ_admit are as ported: one CTA of 1,024 threads walks
-// the transactions in order, its threads striding over j; only the entries
-// of admitted j are read, and a thread issues its loads of one j together.
+//
+// Design of twopl_admit: two device kernels a call, the same walk.
+//   1. twopl_pack: one packed conflict row a transaction, raw[i, :] |
+//      raw[:, i] | ww[i, :] with the diagonal cleared, and no transposed
+//      copy of raw: a CTA owns 256 rows x 4 words of the output, reads raw |
+//      ww at that tile (row words by butterfly shuffles, as ppcc_pack) and
+//      raw at the transposed tile (column words, as ppcc_pack), and ORs
+//      both in shared memory, so no two CTAs write one word.  It reads raw
+//      twice: 3 n^2 bytes, 50 MB at n = 4,096.
+//   2. twopl_scan: ppcc_scan's walk with one set.  Up to n = 16,384 four
+//      warps hold admitted in registers, K = 1, 2 or 4 words a thread, and
+//      test B = 32 steps at once (16 at K = 4) against it, one bit of a mask
+//      each; one __reduce_or_sync and one __syncthreads OR the masks, and
+//      the first valid step among them that meets no admitted transaction
+//      is admitted; the walk resumes after it.  Steps go in index order, so
+//      the rows ahead are refilled into a ring of 4 B stages by cp.async,
+//      as in ppcc_scan.  At step i only j < i can be admitted, never i, so
+//      the diagonal changes nothing (it is cleared all the same).  Above
+//      16,384 (to 262,144) a CTA of 512 threads, K = 2..16 words a thread
+//      in registers, one __syncthreads_or a step.
+//
+// occ_admit is as ported: one CTA of 1,024 threads walks the transactions
+// in order, its threads striding over j; only the entries of earlier
+// survivors j are read, and a thread issues its loads of one j together.
 // Thread t owns the j = t (mod 1,024) entries of the per-transaction flags
 // in shared memory, and __syncthreads_or gives a step's verdict.
 #include <cuda_runtime.h>
@@ -66,7 +87,7 @@
 
 namespace {
 
-constexpr int kThreads = 1024;   // twopl_admit, occ_admit
+constexpr int kThreads = 1024;   // occ_admit
 
 cudaError_t allow_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -541,26 +562,254 @@ int launch_scan_cta(const void* const* a, int n, int ws, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void __launch_bounds__(kThreads)
-twopl_admit_kernel(const uint8_t* __restrict__ raw,
-                   const uint8_t* __restrict__ raw_t,
-                   const uint8_t* __restrict__ ww,
-                   const uint8_t* __restrict__ valid, int n,
-                   uint8_t* __restrict__ admitted) {
-  extern __shared__ uint8_t s_adm[];
-  const int tid = threadIdx.x, bs = blockDim.x;
-  for (int j = tid; j < n; j += bs) s_adm[j] = 0;
-  for (int i = 0; i < n; ++i) {
-    const size_t row = size_t(i) * n;
-    bool hit = false;
-    for (int j = tid; j < n; j += bs)   // three loads in flight at once
-      if (j != i && s_adm[j])
-        hit |= (raw[row + j] | raw_t[row + j] | ww[row + j]) != 0;
-    const bool ok = valid[i] && !__syncthreads_or(hit);
-    if (i % bs == tid) s_adm[i] = ok;
+// ---- twopl_admit, 1. pack: the conflict rows raw[i, :] | raw[:, i] |
+// ww[i, :] as packed words, the diagonal cleared, padded with 0 to the
+// scan's row width ws.  A CTA of 8 warps owns the rows R0 .. R0 + 255 (R0 =
+// 256 blockIdx.y) and the 4 words of columns G*128 .. G*128 + 127 (G =
+// blockIdx.x), so no two CTAs write one word.  Its warps first take raw |
+// ww at those rows and columns as ppcc_pack takes raw's rows (row words
+// from nibbles by butterfly shuffles), then raw at the transposed tile
+// (rows G*128 .., columns R0 ..) as ppcc_pack takes raw's columns: warp w
+// the 32 rows of word G*4 + w % 4 and the 128 columns R0 + 128 (w / 4) ...
+// Both halves OR into a [256][4] tile in shared memory, which leaves as
+// one 16-byte store a row.
+__global__ void __launch_bounds__(256)
+twopl_pack_kernel(const uint8_t* __restrict__ raw,
+                  const uint8_t* __restrict__ ww, int n, int ws,
+                  uint32_t* __restrict__ rows) {
+  __shared__ __align__(16) uint32_t s_out[256][4];   // [row - R0][word - 4G]
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int R0 = blockIdx.y * 256, G = blockIdx.x;
+  const bool vec = n % 4 == 0;
+  // four 0/1 bytes of row i at columns c .. c + 3 (0 past n), as one word
+  auto bytes4 = [&](const uint8_t* m, int i, int c) {
+    uint32_t v = 0u;
+    if (i < n && c < n) {
+      const uint8_t* p = m + size_t(i) * n + c;
+      if (vec) {
+        v = *reinterpret_cast<const uint32_t*>(p);
+      } else {
+        for (int b = 0; b < 4; ++b)
+          if (c + b < n) v |= uint32_t(p[b]) << (8 * b);
+      }
+    }
+    return v;
+  };
+  uint32_t x[32];
+  // (a) raw | ww at rows R0 + 32 w + r, columns G*128 + 4 lane .. + 3
+  {
+    const int c0 = G * 128 + lane * 4;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int i = R0 + 32 * w + r;
+      x[r] = __vcmpne4(bytes4(raw, i, c0) | bytes4(ww, i, c0), 0u) &
+             0x01010101u;
+    }
+    uint32_t keep[4];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      uint32_t v = ((x[r] * 0x01020408u) >> 24) << (4 * (lane & 7));
+      v |= __shfl_xor_sync(kFull, v, 1);
+      v |= __shfl_xor_sync(kFull, v, 2);
+      v |= __shfl_xor_sync(kFull, v, 4);
+      if ((r & 7) == 0) keep[r >> 3] = 0u;
+      keep[r >> 3] = (lane & 7) == (r & 7) ? v : keep[r >> 3];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      s_out[32 * w + (lane & 7) + 8 * q][lane >> 3] = keep[q];
   }
   __syncthreads();
-  for (int j = tid; j < n; j += bs) admitted[j] = s_adm[j];
+  // (b) raw[j, i] for j in word G*4 + c (c = w % 4) and i = R0 + 128 h +
+  // 4 lane .. + 3 (h = w / 4): the column words of that tile
+  {
+    const int c = w & 3, h = w >> 2;
+    const int i0 = R0 + 128 * h + lane * 4;
+#pragma unroll
+    for (int r = 0; r < 32; ++r)
+      x[r] = __vcmpne4(bytes4(raw, (G * 4 + c) * 32 + r, i0), 0u) &
+             0x01010101u;
+    uint32_t y[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      y[q] = 0u;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) y[q] |= x[8 * q + k] << k;
+    }
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const uint32_t sel = b | (4 + b) << 4;
+      s_out[128 * h + lane * 4 + b][c] |= __byte_perm(
+          __byte_perm(y[0], y[1], sel), __byte_perm(y[2], y[3], sel), 0x5410);
+    }
+  }
+  __syncthreads();
+  const int i = R0 + threadIdx.x;
+  if (i < n) {
+    uint4 o = *reinterpret_cast<const uint4*>(s_out[threadIdx.x]);
+    const int d = (i >> 5) - G * 4;            // the diagonal's word, if here
+    const uint32_t off = ~(1u << (i & 31));
+    if (d == 0) o.x &= off;
+    if (d == 1) o.y &= off;
+    if (d == 2) o.z &= off;
+    if (d == 3) o.w &= off;
+    *reinterpret_cast<uint4*>(rows + size_t(i) * ws + G * 4) = o;
+  }
+}
+
+// Steps twopl_scan tests at once: 32 (one bit each of a word), 16 at K = 4,
+// where a ring of 4 B rows of 128 K words must fit a CTA's shared memory.
+__host__ __device__ constexpr int twopl_batch(int k) { return k <= 2 ? 32 : 16; }
+
+// ---- twopl_admit, 2. scan: ppcc_scan's walk with one set.  admitted sits
+// in the registers of four warps, K words a thread (thread t owns words
+// t K .. t K + K - 1).  A step that is not admitted changes nothing, so the
+// CTA tests B steps at once against the same set, bit b of a mask per
+// thread (its words of row s + b meet admitted), ORs the masks over the CTA
+// (__reduce_or_sync, then one __syncthreads over four partials) and
+// admits the first valid step among them that meets nothing; the steps
+// after it are tested again from the new set.  The rows of the steps ahead
+// (index order, known in advance) sit in a ring of 4 B shared-memory
+// stages, refilled at the start of each batch by cp.async copies spread
+// over the CTA, so that a refill has two batches to land.
+template <int K>
+__global__ void __launch_bounds__(kScanThreads)
+twopl_scan_kernel(const uint32_t* __restrict__ rows,
+                  const uint8_t* __restrict__ valid, int n,
+                  uint8_t* __restrict__ admitted) {
+  constexpr int WS = kScanThreads * K;
+  constexpr int B = twopl_batch(K);
+  constexpr int R = 4 * B;
+  constexpr int kUnits = WS / 4;             // 16-byte copies a row
+  constexpr int kIters = B * kUnits / kScanThreads;
+  extern __shared__ __align__(16) uint32_t sm[];
+  __shared__ unsigned s_part[kScanThreads / 32];
+  const int nv = n / 32 + 2;                 // valid words, one of padding
+  uint32_t* ring = sm;                       // [R][WS]
+  uint32_t* s_valid = sm + R * WS;           // [nv]
+  const int g = threadIdx.x, lane = g & 31;
+  for (int q = g >> 5; q < nv; q += kScanThreads / 32) {
+    const int x = q * 32 + lane;
+    const unsigned v = __ballot_sync(kFull, x < n && valid[x]);
+    if (lane == 0) s_valid[q] = v;
+  }
+  // the rows of steps x0 .. x1 - 1 (at most B) into their stages x % R
+  auto refill = [&](int x0, int x1) {
+    const int x_end = x1 < n ? x1 : n;
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const unsigned u = g + it * kScanThreads;
+      const int x = x0 + int(u / kUnits);
+      if (x < x_end) {
+        const int w0 = int(u % kUnits) * 4;
+        cp_async16(ring + (x & (R - 1)) * WS + w0, rows + size_t(x) * WS + w0);
+      }
+    }
+  };
+#pragma unroll 1
+  for (int x = 0; x < R; x += B) refill(x, x + B);
+  cp_async_commit();             // the first R steps, then two empty groups:
+  cp_async_commit();             // a batch waits for all but the last two
+  cp_async_commit();
+
+  uint32_t adm[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) adm[k] = 0u;
+  int done = 0;                  // the stages of steps before it are refilled
+  for (int s = 0; s < n;) {
+    cp_async_wait<2>();
+    __syncthreads();             // s_valid written; the last batch is done
+    refill(done + R, s + R);
+    cp_async_commit();
+    done = s;
+    unsigned m = 0u;
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      uint32_t rw[K];
+      load_words<K>(rw, ring + ((s + b) & (R - 1)) * WS + g * K);
+      uint32_t hit = 0u;
+#pragma unroll
+      for (int k = 0; k < K; ++k) hit |= rw[k] & adm[k];
+      m |= hit ? 1u << b : 0u;
+    }
+    m = __reduce_or_sync(kFull, m);
+    if (lane == 0) s_part[g >> 5] = m;
+    __syncthreads();
+    m = 0u;
+#pragma unroll
+    for (int w = 0; w < kScanThreads / 32; ++w) m |= s_part[w];
+    const int left = n - s;
+    const int adv_all = left < B ? left : B;
+    const unsigned live = adv_all == 32 ? kFull : (1u << adv_all) - 1u;
+    const unsigned ok = __funnelshift_r(s_valid[s >> 5],
+                                        s_valid[(s >> 5) + 1], s & 31) &
+                        live & ~m;
+    int adv = adv_all;
+    if (ok) {                    // admit the first step that meets nothing
+      const int b = __ffs(ok) - 1;
+      adv = b + 1;
+      const int i = s + b, wi = i >> 5;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (wi == g * K + k) adm[k] |= 1u << (i & 31);
+    }
+    s += adv;
+  }
+  cp_async_wait<0>();            // no copy may outlive the CTA
+#pragma unroll
+  for (int k = 0; k < K; ++k) store_bytes(admitted, g * K + k, adm[k], n);
+}
+
+// ---- twopl_admit, 2'. scan above n = 16,384: a CTA of 512 threads, each
+// its K words of admitted in registers, one step at a time with the next
+// step's words loaded one step ahead and one __syncthreads_or a step.
+template <int K>
+__global__ void __launch_bounds__(kCtaThreads)
+twopl_scan_cta_kernel(const uint32_t* __restrict__ rows,
+                      const uint8_t* __restrict__ valid, int n,
+                      uint8_t* __restrict__ admitted) {
+  constexpr int WS = kCtaThreads * K;
+  const int g = threadIdx.x;
+  uint32_t adm[K], rw[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) adm[k] = 0u;
+  load_words<K>(rw, rows + g * K);
+  bool v_i = valid[0];
+  for (int i = 0; i < n; ++i) {
+    uint32_t rn[K];
+    const int nx = i + 1 < n ? i + 1 : i;
+    load_words<K>(rn, rows + size_t(nx) * WS + g * K);
+    const bool v_nx = valid[nx];
+    uint32_t hit = 0u;
+#pragma unroll
+    for (int k = 0; k < K; ++k) hit |= rw[k] & adm[k];
+    const bool any = __syncthreads_or(hit != 0u);
+    if (v_i && !any) {
+      const int wi = i >> 5;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (wi == g * K + k) adm[k] |= 1u << (i & 31);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) rw[k] = rn[k];
+    v_i = v_nx;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) store_bytes(admitted, g * K + k, adm[k], n);
+}
+
+template <int K>
+int launch_twopl_scan(const uint32_t* rows, const uint8_t* valid, int n,
+                      uint8_t* admitted, cudaStream_t s) {
+  const size_t bytes =
+      (size_t(4 * twopl_batch(K)) * kScanThreads * K + n / 32 + 2) *
+      sizeof(uint32_t);
+  const cudaError_t e = allow_smem(
+      reinterpret_cast<const void*>(twopl_scan_kernel<K>), bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  twopl_scan_kernel<K><<<1, kScanThreads, bytes, s>>>(rows, valid, n,
+                                                       admitted);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -587,14 +836,14 @@ occ_admit_kernel(const uint8_t* __restrict__ raw,
 
 extern "C" {
 
-// The largest n ppcc_admit takes.
-int ppcc_admit_max_n() { return kCtaThreads * 32 * kCtaMaxK; }
+// The largest n ppcc_admit and twopl_admit take.
+int admit_max_n() { return kCtaThreads * 32 * kCtaMaxK; }
 
-// Words of one packed row (and column) of raw in ppcc_admit's scratch:
-// 128 K up to n = 16,384, 512 K on the CTA route above; 0 for an n it
-// does not take.
-int ppcc_admit_row_words(int n) {
-  if (n < 1 || n > ppcc_admit_max_n()) return 0;
+// Words of one packed row (and column) in ppcc_admit's and twopl_admit's
+// scratch: 128 K up to n = 16,384, 512 K on the CTA route above; 0 for an
+// n they do not take.
+int admit_row_words(int n) {
+  if (n < 1 || n > admit_max_n()) return 0;
   const int nw = (n + 31) / 32;
   int k = 1;
   if (n <= kScanThreads * 32 * kScanMaxK) {
@@ -608,16 +857,16 @@ int ppcc_admit_row_words(int n) {
 
 // Each returns the cudaError_t of its launches on `stream`.  bool arrays
 // are one byte each: raw and prec [n, n], valid and the outputs [n].
-// ppcc_admit's scratch: rows and cols int32[n, ppcc_admit_row_words(n)],
-// steps int32[n rounded up to 4], bits int32[3, ppcc_admit_row_words(n)];
-// prec needs no zero fill.  twopl_admit reads raw_t, raw transposed and
-// contiguous.
+// ppcc_admit's scratch: rows and cols int32[n, admit_row_words(n)],
+// steps int32[n rounded up to 4], bits int32[3, admit_row_words(n)]; prec
+// needs no zero fill.  twopl_admit's scratch: rows int32[n,
+// admit_row_words(n)], the packed conflict rows.
 int ppcc_admit_launch(const void* raw, const void* valid, const void* seq,
                       int n, void* rows, void* cols, void* steps, void* bits,
                       void* admitted, void* preceding, void* preceded,
                       void* prec, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ws = ppcc_admit_row_words(n);
+  const int ws = admit_row_words(n);
   if (!ws) return static_cast<int>(cudaErrorInvalidValue);
   const int nw = (n + 31) / 32;
   ppcc_pack_kernel<<<dim3(ws / 4, ws / 8), 256, 0, s>>>(
@@ -652,18 +901,36 @@ int ppcc_admit_launch(const void* raw, const void* valid, const void* seq,
   return static_cast<int>(cudaGetLastError());
 }
 
-int twopl_admit_launch(const void* raw, const void* raw_t, const void* ww,
-                       const void* valid, int n, void* admitted,
-                       void* stream) {
-  const size_t bytes = size_t(n);
-  cudaError_t e = allow_smem(
-      reinterpret_cast<const void*>(twopl_admit_kernel), bytes);
+int twopl_admit_launch(const void* raw, const void* ww, const void* valid,
+                       int n, void* rows, void* admitted, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ws = admit_row_words(n);
+  if (!ws) return static_cast<int>(cudaErrorInvalidValue);
+  twopl_pack_kernel<<<dim3(ws / 4, (n + 255) / 256), 256, 0, s>>>(
+      static_cast<const uint8_t*>(raw), static_cast<const uint8_t*>(ww), n,
+      ws, static_cast<uint32_t*>(rows));
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  twopl_admit_kernel<<<1, kThreads, bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(raw), static_cast<const uint8_t*>(raw_t),
-      static_cast<const uint8_t*>(ww), static_cast<const uint8_t*>(valid), n,
-      static_cast<uint8_t*>(admitted));
+  const uint32_t* r = static_cast<const uint32_t*>(rows);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  uint8_t* a = static_cast<uint8_t*>(admitted);
+  if (n <= kScanThreads * 32 * kScanMaxK) {
+    switch (ws / kScanThreads) {
+      case 1: return launch_twopl_scan<1>(r, v, n, a, s);
+      case 2: return launch_twopl_scan<2>(r, v, n, a, s);
+      default: return launch_twopl_scan<4>(r, v, n, a, s);
+    }
+  }
+  switch (ws / kCtaThreads) {
+    case 2: twopl_scan_cta_kernel<2><<<1, kCtaThreads, 0, s>>>(r, v, n, a);
+      break;
+    case 4: twopl_scan_cta_kernel<4><<<1, kCtaThreads, 0, s>>>(r, v, n, a);
+      break;
+    case 8: twopl_scan_cta_kernel<8><<<1, kCtaThreads, 0, s>>>(r, v, n, a);
+      break;
+    default: twopl_scan_cta_kernel<16><<<1, kCtaThreads, 0, s>>>(r, v, n, a);
+      break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,14 +7,15 @@ They replace the ``lax.scan`` steps of ``repro/sched/scheduler.py``:
 transactions in torch would cost some ten launches per transaction; here
 the transactions are walked in order on the card.  ``ppcc_admit`` issues
 three device kernels a call (pack ``raw`` into words, the scan with its
-sets in the registers of four warps, ``prec`` in one pass) and counts as
-one launch; ``twopl_admit`` and ``occ_admit`` are one CTA each.  The plain
-versions are ``kernels.ref.{ppcc,twopl,occ}_admit_ref``.
+sets in the registers of four warps, ``prec`` in one pass),
+``twopl_admit`` two (pack ``raw | raw^T | ww`` into one row of words a
+transaction, the same kind of scan with one set); each counts as one
+launch.  ``occ_admit`` is one CTA.  The plain versions are
+``kernels.ref.{ppcc,twopl,occ}_admit_ref``.
 
 Each takes CUDA tensors only and raises on anything the kernel does not
-take; ``kernels.ops`` is the dispatcher the scheduler calls.  The
-``twopl_admit`` wrapper makes the transposed copy of ``raw`` that its
-kernel reads columns from.  ``launches`` counts each wrapper's calls.
+take; ``kernels.ops`` is the dispatcher the scheduler calls.
+``launches`` counts each wrapper's calls.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 
 from . import build
 
-SMEM_MAX = 232_448   # shared memory one CTA may use (H100): twopl, occ n
+SMEM_MAX = 232_448   # shared memory one CTA may use (H100): occ_admit's n
 launches = {"ppcc_admit": 0, "twopl_admit": 0, "occ_admit": 0}
 
 _fns = None
@@ -38,28 +39,30 @@ def _launchers():
         ppcc.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
             [ctypes.c_void_p] * 9
         ppcc.restype = ctypes.c_int
-        for fn in (lib.ppcc_admit_max_n, lib.ppcc_admit_row_words):
+        for fn in (lib.admit_max_n, lib.admit_row_words):
             fn.restype = ctypes.c_int
-        lib.ppcc_admit_max_n.argtypes = []
-        lib.ppcc_admit_row_words.argtypes = [ctypes.c_int]
+        lib.admit_max_n.argtypes = []
+        lib.admit_row_words.argtypes = [ctypes.c_int]
         twopl = lib.twopl_admit_launch
-        twopl.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
-            [ctypes.c_void_p] * 2
+        twopl.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+            [ctypes.c_void_p] * 3
         twopl.restype = ctypes.c_int
         occ = lib.occ_admit_launch
         occ.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
             [ctypes.c_void_p] * 2
         occ.restype = ctypes.c_int
         _fns = {"ppcc_admit": ppcc, "twopl_admit": twopl, "occ_admit": occ,
-                "ppcc_max_n": lib.ppcc_admit_max_n(),
-                "ppcc_row_words": lib.ppcc_admit_row_words}
+                "packed_max_n": lib.admit_max_n(),
+                "row_words": lib.admit_row_words}
     return _fns
 
 
 def max_n(name: str) -> int:
-    """The largest n the kernel of ``name`` takes: ``ppcc_admit``'s packed
-    sets, or one CTA's shared memory for a byte a transaction."""
-    return _launchers()["ppcc_max_n"] if name == "ppcc_admit" else SMEM_MAX
+    """The largest n the kernel of ``name`` takes: the packed scans'
+    (``ppcc_admit``, ``twopl_admit``: 512 threads x 16 words x 32), or one
+    CTA's shared memory for a byte a transaction (``occ_admit``)."""
+    return _launchers()["packed_max_n"] \
+        if name in ("ppcc_admit", "twopl_admit") else SMEM_MAX
 
 
 def _check(name, raw, others, valid):
@@ -102,7 +105,7 @@ def ppcc_admit(raw, valid, seq):
     prec = torch.empty((n, n), dtype=torch.bool, device=dev)
     if n:
         fns = _launchers()
-        ws = fns["ppcc_row_words"](n)
+        ws = fns["row_words"](n)
         # scratch: packed rows and columns of raw, the order with the
         # valid bits, the three packed sets
         rows = torch.empty((n, ws), dtype=torch.int32, device=dev)
@@ -123,10 +126,13 @@ def twopl_admit(raw, ww, valid):
     n, dev = _check("twopl_admit", raw, (("ww", ww),), valid)
     admitted = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        raw_t = raw.t().contiguous()
-        _run("twopl_admit", _launchers()["twopl_admit"](
-            raw.data_ptr(), raw_t.data_ptr(), ww.data_ptr(),
-            valid.data_ptr(), n, admitted.data_ptr(), _stream(dev)))
+        fns = _launchers()
+        # scratch: the packed conflict rows raw | raw^T | ww
+        rows = torch.empty((n, fns["row_words"](n)), dtype=torch.int32,
+                           device=dev)
+        _run("twopl_admit", fns["twopl_admit"](
+            raw.data_ptr(), ww.data_ptr(), valid.data_ptr(), n,
+            rows.data_ptr(), admitted.data_ptr(), _stream(dev)))
     return admitted
 
 

@@ -5,7 +5,9 @@
 state carried across chunks of any size from 1 to 128 (the model uses
 128, the TPU wrapper's default is 64).  It also takes an initial state
 and writes the final one, which the model's ``rwkv.wkv_chunked``
-returns.  Head sizes D in {16, 32, 64}.
+returns.  Head sizes D in {16, 32, 64}.  Both dtypes take one kernel:
+its chunk products run on the tensor cores at float32 accuracy (three
+TF32 passes), a CTA per (batch, head, 32 value columns).
 
 r/k/v ``[B, H, S, D]`` (float32 or bf16, one dtype) and log_w ``[B, H,
 S, D]`` (float32) may be strided views: the model passes its ``[B, S,
@@ -38,7 +40,7 @@ def _launcher():
     if _fn is None:
         fn = build.load("wkv").wkv_launch
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 15
+                       + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 15
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -80,11 +82,16 @@ def wkv_chunked(r, k, v, log_w, u, *, chunk: int = 64, state0=None):
     state = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
     if state.numel():
         strides = [x for t in (r, k, v, log_w, out) for x in t.stride()[:3]]
+        # vector loads: 16-byte aligned rows at strides of 8 elements
+        vec = all(t.data_ptr() % 16 == 0 and not any(x % 8 for x in
+                                                      t.stride()[:3])
+                  for t in (r, k, v, log_w))
         rc = _launcher()(DTYPES[r.dtype], r.data_ptr(), k.data_ptr(),
                          v.data_ptr(), log_w.data_ptr(), u.data_ptr(),
                          0 if state0 is None else state0.data_ptr(),
                          out.data_ptr(), state.data_ptr(), b, h, s, d, chunk,
-                         *strides, torch.cuda.current_stream(dev).cuda_stream)
+                         int(vec), *strides,
+                         torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             raise RuntimeError(f"{name} launch failed: cudaError {rc}")
         launches[name] += 1

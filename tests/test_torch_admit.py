@@ -1,6 +1,7 @@
-"""The premises of ``csrc/admit.cu``'s ``ppcc_admit`` design, held on the
-CPU against the JAX reference ``repro.sched.scheduler.ppcc_tick`` and the
-port's plain version ``kernels.ref.ppcc_admit_ref``:
+"""The premises of ``csrc/admit.cu``'s ``ppcc_admit`` and ``twopl_admit``
+designs, held on the CPU against the JAX references
+``repro.sched.scheduler.ppcc_tick`` and ``twopl_tick`` and the port's
+plain versions ``kernels.ref.ppcc_admit_ref`` and ``twopl_admit_ref``:
 
 (a) ``prec`` is ``raw & admitted[:, None] & admitted[None, :]`` off the
     diagonal: the reference's row-then-column writes leave exactly that,
@@ -14,7 +15,15 @@ port's plain version ``kernels.ref.ppcc_admit_ref``:
     version;
 (c) the pack kernel's arithmetic (4 columns a lane as one word, row
     words from nibbles ORed across 8 lanes, column words gathered 8 rows a
-    word and then by bytes) equals packing ``raw`` and ``raw.T``.
+    word and then by bytes) equals packing ``raw`` and ``raw.T``; and
+    ``twopl_pack``'s, the row words of ``raw | ww`` ORed with the column
+    words of ``raw`` and the diagonal cleared, equals packing the conflict
+    rows ``(raw | raw.T | ww) & ~eye``;
+(d) for ``twopl_admit`` too a step that is not admitted changes nothing:
+    a word-level twin of its scan (the packed conflict rows, ``admitted``
+    as words owned K a thread, B steps tested at once, the first admitted
+    one applied) equals the plain version and ``twopl_tick``, also at the
+    main path's n = 4,096.
 
 Every comparison is exact: the outputs are bool."""
 import numpy as np
@@ -145,14 +154,41 @@ def _padded(words, ws):
     return out
 
 
-@pytest.mark.parametrize("n", [1, 31, 33, 70, 200])
-def test_tile_pack_is_pack_of_raw_and_its_transpose(n):
-    """(c): rows are ``pack(raw)`` and columns ``pack(raw.T)``, padded."""
+def conflict_rows_twin(raw, ww, ws):
+    """``twopl_pack``'s arithmetic: its CTA's warps take the row words of
+    ``raw | ww`` at their tile and the column words of ``raw`` at the
+    transposed tile, each a warp tile of 32 rows x 128 columns computed as
+    ``_tile_pack`` computes it; the two OR into one row, and the diagonal's
+    bit is cleared."""
+    rows = _tile_pack(raw | ww, ws)[0] | _tile_pack(raw, ws)[1]
+    for i in range(raw.shape[0]):
+        rows[i, i >> 5] &= TB.wrap32(torch.tensor(~(1 << (i & 31)) &
+                                                  0xffffffff))
+    return rows
+
+
+PACK_N = (1, 31, 33, 70, 200)
+
+
+@pytest.mark.parametrize(
+    "n,conflict", [pytest.param(n, False, id=str(n)) for n in PACK_N]
+    + [pytest.param(n, True, id=f"conflict-rows-{n}") for n in PACK_N])
+def test_tile_pack_is_pack_of_raw_and_its_transpose(n, conflict):
+    """(c): rows are ``pack(raw)`` and columns ``pack(raw.T)``, padded;
+    ``twopl_pack``'s rows are ``pack((raw | raw.T | ww) & ~eye)``."""
     raw, _, _ = _admit_inputs(n, n)
     raw |= np.random.default_rng(1).random((n, n)) < 0.3
     ws = row_words(n)
-    rows, cols = _tile_pack(raw, ws)
     t = torch.from_numpy(raw)
+    if conflict:
+        ww = np.random.default_rng(2).random((n, n)) < 0.2
+        np.fill_diagonal(raw, True)        # the diagonal is cleared anyway
+        t = torch.from_numpy(raw)
+        want = (t | t.T | torch.from_numpy(ww)) & ~torch.eye(n, dtype=bool)
+        assert torch.equal(conflict_rows_twin(raw, ww, ws),
+                           _padded(TB.pack(want), ws))
+        return
+    rows, cols = _tile_pack(raw, ws)
     assert torch.equal(rows, _padded(TB.pack(t), ws))
     assert torch.equal(cols, _padded(TB.pack(t.T.contiguous()), ws))
 
@@ -229,3 +265,65 @@ def test_row_words_routes():
     assert row_words(16_384) == 512
     assert row_words(16_385) == 1024
     assert row_words(262_144) == 8192
+
+
+def twopl_scan_twin(rows, valid):
+    """``twopl_scan`` on int32 words: ``rows`` are the packed conflict rows
+    at the kernel's width, ``admitted`` the words owned K a thread (128
+    threads up to n = 16,384, 512 above).  B steps (32, 16 at K = 4, one
+    on the CTA route) are tested at once against the same set; the first
+    valid one that meets no admitted transaction is admitted and the walk
+    resumes after it."""
+    n, ws = rows.shape
+    threads = SCAN_THREADS if n <= SCAN_THREADS * 32 * SCAN_MAX_K \
+        else CTA_THREADS
+    k = ws // threads
+    batch = 1 if threads == CTA_THREADS else (32 if k <= 2 else 16)
+    words = rows.view(n, threads, k)
+    adm = torch.zeros((threads, k), dtype=torch.int32)
+    s = 0
+    while s < n:
+        top = min(s + batch, n)
+        hit = ((words[s:top] & adm) != 0).flatten(1).any(1)
+        ok = (valid[s:top] & ~hit).nonzero()
+        if not len(ok):
+            s = top
+            continue
+        i = s + int(ok[0])
+        adm[(i >> 5) // k, (i >> 5) % k] |= TB.wrap32(
+            torch.tensor(1 << (i & 31)))
+        s = i + 1
+    return TB.unpack(adm.reshape(-1), n)
+
+
+def _twopl_inputs(seed, n, d, reads):
+    """YCSB-like read and write sets over d items (``reads`` a row on
+    average, half of them written) and the scheduler's raw and ww with
+    their diagonals, and valid at 0.9."""
+    rng = np.random.default_rng(seed)
+    read = rng.random((n, d)) < reads / d
+    write = read & (rng.random((n, d)) < 0.5)
+    r32, w32 = read.astype(np.float32), write.astype(np.float32)
+    raw = (r32 @ w32.T) > 0
+    ww = (w32 @ w32.T) > 0
+    return read, write, raw, ww, rng.random(n) < 0.9
+
+
+@pytest.mark.parametrize("n,d,reads", [(n, max(64, 2 * n), 4)
+                                       for n in TWIN_N] + [(4096, 512, 3)])
+def test_twopl_scan_twin_matches_plain_and_jax(n, d, reads):
+    """(d), from the packed rows of (c), at n off and on the word and warp
+    edges and at the main path's n = 4,096: equal to ``twopl_admit_ref``
+    and to ``twopl_tick``'s ``admitted``."""
+    read, write, raw, ww, valid = _twopl_inputs(n + d, n, d, reads)
+    t_raw, t_ww = torch.from_numpy(raw), torch.from_numpy(ww)
+    eye = torch.eye(n, dtype=torch.bool)
+    rows = _padded(TB.pack((t_raw | t_raw.T | t_ww) & ~eye), row_words(n))
+    got = twopl_scan_twin(rows, torch.from_numpy(valid))
+    want = ref.twopl_admit_ref(t_raw, t_ww, torch.from_numpy(valid))
+    assert torch.equal(got, want)
+    res = JS.twopl_tick(jnp.asarray(read), jnp.asarray(write),
+                        jnp.asarray(valid), use_kernel=False)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(res.admitted))
+    if n > 30:
+        assert want.any() and not want.all()

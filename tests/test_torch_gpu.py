@@ -573,7 +573,7 @@ def _admit_inputs(gen, n, dev):
     return raw, ww_, valid, seq, raw & ~eye
 
 
-@pytest.mark.parametrize("n", [1, 33, 255, 300, 1500, 4096])
+@pytest.mark.parametrize("n", [1, 33, 64, 255, 300, 1500, 4096])
 def test_admit_kernels_match_plain(cuda, n):
     from repro_torch.kernels import admit as kadm
     gen = torch.Generator().manual_seed(n)
@@ -631,6 +631,81 @@ def test_ppcc_admit_rejects_past_its_limit(cuda):
         kadm.ppcc_admit(one.expand(n, n), one[0].expand(n),
                         torch.zeros(1, dtype=torch.int32,
                                     device=cuda).expand(n))
+
+
+def _sparse_twopl(n, raw_ij, ww_ij, valid):
+    """2PL admission from the set entries of raw and ww (``[m, 2]`` index
+    pairs), for n too large for a dense plain version: i is admitted
+    unless an admitted j has raw[i, j], raw[j, i] or ww[i, j]."""
+    nbr = [[] for _ in range(n)]
+    for (i, j) in raw_ij.tolist():
+        nbr[i].append(j)
+        nbr[j].append(i)
+    for (i, j) in ww_ij.tolist():
+        nbr[i].append(j)
+    adm = [False] * n
+    for i, ok in enumerate(valid.tolist()):
+        adm[i] = ok and not any(adm[j] for j in nbr[i] if j != i)
+    return torch.tensor(adm)
+
+
+def _sparse_pairs(gen, n, per_row, dev):
+    """About ``per_row`` random set entries a row, as index pairs."""
+    m = per_row * n
+    return torch.stack([torch.randint(0, n, (m,), generator=gen),
+                        torch.randint(0, n, (m,), generator=gen)], 1).to(dev)
+
+
+# the scan's widths (K = 1, 2, 4 words a thread of four warps) on both
+# sides of each switch, the switch to the CTA route (16,384 | 16,385) and
+# the CTA route's K = 4
+@pytest.mark.parametrize("n", [4097, 8192, 8193, 16_384, 16_385, 32_769])
+def test_twopl_admit_routes_match_plain(cuda, n):
+    """twopl_admit on random sparse raw and ww (3 and 2 entries a row,
+    diagonals included) against the plain version and the sparse one."""
+    from repro_torch.kernels import admit as kadm
+    gen = torch.Generator().manual_seed(n)
+    raw_ij, ww_ij = (_sparse_pairs(gen, n, m, cuda) for m in (3, 2))
+    raw = torch.zeros((n, n), dtype=torch.bool, device=cuda)
+    ww = torch.zeros_like(raw)
+    raw[raw_ij[:, 0], raw_ij[:, 1]] = True
+    ww[ww_ij[:, 0], ww_ij[:, 1]] = True
+    valid = (torch.rand(n, generator=gen) < 0.9).to(cuda)
+    got = kadm.twopl_admit(raw, ww, valid)
+    want = ref.twopl_admit_ref(raw, ww, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), _sparse_twopl(n, raw_ij.cpu(),
+                                                ww_ij.cpu(), valid.cpu()))
+    assert want.any() and not want.all()
+
+
+def test_twopl_admit_at_its_limit(cuda):
+    """At its largest n (262,144; raw and ww one 68.7 GB tensor, so that
+    both fit the card) twopl_admit equals the sparse version; one more
+    raises a ValueError that names the limit, before it looks at the
+    (there stride-0) tensors."""
+    from repro_torch.kernels import admit as kadm
+    top = kadm.max_n("twopl_admit")
+    assert top >= 232_448
+    one = torch.zeros((1, 1), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError,
+                       match=f"twopl_admit: n={top + 1}; it takes at most "
+                             f"{top}"):
+        kadm.twopl_admit(one.expand(top + 1, top + 1),
+                         one.expand(top + 1, top + 1), one[0].expand(top + 1))
+    gen = torch.Generator().manual_seed(1)
+    pairs = _sparse_pairs(gen, top, 2, cuda)
+    raw = torch.zeros((top, top), dtype=torch.bool, device=cuda)
+    raw[pairs[:, 0], pairs[:, 1]] = True
+    valid = (torch.rand(top, generator=gen) < 0.9).to(cuda)
+    got = kadm.twopl_admit(raw, raw, valid)
+    torch.cuda.synchronize()
+    del raw
+    torch.cuda.empty_cache()
+    want = _sparse_twopl(top, pairs.cpu(), pairs.cpu(), valid.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert want.any() and not want.all()
 
 
 @pytest.mark.parametrize("mode", ("ppcc", "ppcc_degree", "2pl", "occ"))
@@ -796,6 +871,55 @@ def test_wkv_kernel_matches_plain(cuda, b, h, s, d, chunk, dtype):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3)
+
+
+# the CPU twin's shapes (tests/test_torch_wkv.py): D, chunk, S = chunk or
+# 8 chunk, both dtypes, with and without an initial state
+@pytest.mark.parametrize("s_mult", [1, 8])
+@pytest.mark.parametrize("chunk", [1, 16, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_matches_plain_at_twin_shapes(cuda, d, chunk, s_mult,
+                                                 dtype):
+    from repro_torch.kernels import wkv as kwkv
+    gen = torch.Generator().manual_seed(d * chunk + s_mult)
+    args = _wkv_inputs(gen, 1, 3, chunk * s_mult, d, dtype, cuda)
+    s0 = (torch.randn((1, 3, d, d), generator=gen) * 0.1).to(cuda)
+    for state0 in (None, s0):
+        got = kwkv.wkv_chunked(*args, chunk=chunk, state0=state0)
+        want = ref.wkv_chunked_ref(*args, chunk=chunk, state0=state0)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3)
+
+
+def test_wkv_kernel_at_the_main_path_layout(cuda):
+    """The rwkv6-3b prefill's shape and layout: B = 8, H = 48, S = 1,024,
+    D = 64, chunk 128, bf16 r/k/v as [B, H, S, D] views of [B, S, H*D]
+    tensors, and one unaligned layout (the scalar loads)."""
+    from repro_torch.kernels import wkv as kwkv
+    gen = torch.Generator().manual_seed(3)
+    args = _wkv_inputs(gen, 8, 48, 1024, 64, torch.bfloat16, cuda)
+    got = kwkv.wkv_chunked(*args, chunk=128)
+    want = ref.wkv_chunked_ref(*args, chunk=128)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3)
+    # rows 4 elements off 16 bytes at a stride of 260 elements: the
+    # kernel's scalar loads
+    def padded(x):
+        b, h, s, d = x.shape
+        wide = torch.zeros((b, s, h * d + 4), dtype=x.dtype, device=cuda)
+        wide[..., 4:] = x.transpose(1, 2).reshape(b, s, h * d)
+        return wide[..., 4:].unflatten(-1, (h, d)).transpose(1, 2)
+    r, k, v, lw, u = _wkv_inputs(gen, 2, 4, 128, 64, torch.bfloat16, cuda)
+    args = tuple(padded(x) for x in (r, k, v, lw)) + (u,)
+    assert args[0].stride(2) == 260
+    got = kwkv.wkv_chunked(*args, chunk=64)
+    want = ref.wkv_chunked_ref(*args, chunk=64)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3)
 
 
 def test_wkv_rejects_what_it_does_not_take(cuda):
