@@ -41,18 +41,19 @@ back to back, and one ``ppcc`` tick with ``tick_stats``, its wall and its
 device kernel time (``tick_times``); ``twopl_admit`` alone by
 ``cuda_times`` at the inputs of tick 4 of the ``2pl`` drain (after a
 device sleep and back to back) and one ``2pl`` tick with ``tick_stats``,
-its wall and device kernel time; the bf16 prefill of qwen3-0.6b at full
-depth on 8 x 1,024 tokens (``median_wall_ms`` of 5, seeded random
-weights); flash_attention alone on random bf16 inputs of its main-path
-shape (B = 8, H = 16, S = 1,024, D = 128, causal) by ``cuda_times``,
-after a device sleep and back to back; ``wkv_chunked`` alone on random
-inputs of the rwkv6-3b prefill's shape and layout (B = 8, H = 48, S =
-1,024, D = 64, chunk 128, bf16 r/k/v as [B, H, S, D] views of [B, S,
-H*D] tensors, log w = -exp(.), float32) the same way; and the bf16
-prefill of rwkv6-3b at full depth on 8 x 1,024 tokens.  Each run prints
-one JSON line; the last lines are the card's name and power limit and a
-summary of medians per checkout.  The script imports nothing of JAX and
-nothing of the JAX package.
+its wall and device kernel time; ``occ_admit`` and one ``occ`` tick the
+same way, at the inputs of tick 4 of the ``occ`` drain; the bf16 prefill
+of qwen3-0.6b at full depth on 8 x 1,024 tokens (``median_wall_ms`` of
+5, seeded random weights); flash_attention alone on random bf16 inputs
+of its main-path shape (B = 8, H = 16, S = 1,024, D = 128, causal) by
+``cuda_times``, after a device sleep and back to back; ``wkv_chunked``
+alone on random inputs of the rwkv6-3b prefill's shape and layout (B =
+8, H = 48, S = 1,024, D = 64, chunk 128, bf16 r/k/v as [B, H, S, D]
+views of [B, S, H*D] tensors, log w = -exp(.), float32) the same way;
+and the bf16 prefill of rwkv6-3b at full depth on 8 x 1,024 tokens.
+Each run prints one JSON line; the last lines are the card's name and
+power limit and a summary of medians per checkout.  The script imports
+nothing of JAX and nothing of the JAX package.
 """
 import inspect
 import json
@@ -192,20 +193,22 @@ def measure(root: Path) -> dict:
     del r8
     (out["ppcc_tick_wall_ms"], out["ppcc_tick_device_ms"],
      _) = smoke.tick_times(read, write, torch)
-    # twopl_admit alone at the inputs of tick 4 of the 2pl drain, and one
-    # 2pl tick with tick_stats
-    steps4, _ = W.drain(read, write, "2pl", 4)
-    full = kconf.conflict_fused_full(read, write)
-    targs = (full[0], full[1],
-             smoke.pending_at(steps4, read.shape[0], dev, torch))
-    del steps4, full
-    out["twopl_admit_ms"] = smoke.cuda_times(
-        lambda: kadm.twopl_admit(*targs), 10, torch)
-    out["twopl_admit_ms_no_sleep"] = smoke.cuda_times(
-        lambda: kadm.twopl_admit(*targs), 10, torch, sleep=False)
-    del targs
-    (out["twopl_tick_wall_ms"], out["twopl_tick_device_ms"],
-     _) = smoke.tick_times(read, write, torch, "2pl")
+    # twopl_admit and occ_admit alone at the inputs of tick 4 of the 2pl
+    # and occ drains, and one 2pl and one occ tick with tick_stats
+    for key, mode in (("twopl", "2pl"), ("occ", "occ")):
+        steps4, _ = W.drain(read, write, mode, 4)
+        full = kconf.conflict_fused_full(read, write)
+        targs = (full[0], full[1],
+                 smoke.pending_at(steps4, read.shape[0], dev, torch))
+        del steps4, full
+        fn = getattr(kadm, f"{key}_admit")
+        out[f"{key}_admit_ms"] = smoke.cuda_times(lambda: fn(*targs), 10,
+                                                  torch)
+        out[f"{key}_admit_ms_no_sleep"] = smoke.cuda_times(
+            lambda: fn(*targs), 10, torch, sleep=False)
+        del targs
+        (out[f"{key}_tick_wall_ms"], out[f"{key}_tick_device_ms"],
+         _) = smoke.tick_times(read, write, torch, mode)
     del read, write
     torch.cuda.empty_cache()
 

@@ -54,25 +54,26 @@ Phases (any failure exits non-zero):
      (ppcc, ppcc by degree with the carry threaded and one carry repeat,
      2pl, occ) and txstore.apply_tick per policy, every result equal to
      the golden; the conflict and admission launches equal to the ticks
-     that reach them; the device's share of a ppcc and of a 2pl tick from
-     torch.profiler; the three conflict entry points and the three
+     that reach them; the device's share of a ppcc, a 2pl and an occ tick
+     from torch.profiler; the three conflict entry points and the three
      admission scans bit-equal to their plain versions at inputs
      captured mid-drain and at edge shapes, the two fused conflict
      entries also on the route the card chooses and on each route forced
      (gather, dense) at the YCSB batch, random sets of read density 1/8
      and 1/2, three edge batches (every other row empty, a row holding
      every page, a page written by all) and both sides of the route
-     switch, ppcc_admit and twopl_admit also on both sides of their switch
+     switch, the three admission scans also on both sides of their switch
      from four warps to a CTA of 512 threads (n = 16,384 and 16,385),
-     twopl_admit also at serve()'s n = 64; their times beside their
-     bounds (the fused conflict entries' the byte bound, with the dense
-     route's 32-bit-logic bound and int8 tensor-core floor beside it,
-     their times also at density 1/8 and 1/2 and a sweep of both routes
-     over density; the scans' also beside the bound of their chain of
-     dependent steps through the admitted transactions), the device
-     kernels per call of the fused conflict entries, ppcc_admit and
-     twopl_admit, their plain versions and, for the conflict kernels, one
-     library call (a bf16 matmul of the unpacked bits);
+     twopl_admit and occ_admit also at serve()'s n = 64; their times
+     beside their bounds (the fused conflict entries' the byte bound,
+     with the dense route's 32-bit-logic bound and int8 tensor-core floor
+     beside it, their times also at density 1/8 and 1/2 and a sweep of
+     both routes over density; the scans' also beside the bound of their
+     chain of dependent steps through the admitted transactions), the
+     device kernels per call of the fused conflict entries and the three
+     admission scans (twopl_admit's and occ_admit's pack and scan apart),
+     their plain versions and, for the conflict kernels, one library call
+     (a bf16 matmul of the unpacked bits);
   6. the delta-maintained, instrumented fleet: run_grid(delta=True,
      telemetry=True, trace_every=8, trace_len=256) at run_grid's defaults
      but the horizon (10,000), with every lane's metrics equal to the JAX
@@ -156,11 +157,12 @@ OCC_EDGES = [("no committer", 2, 160, 500, 0.0),
              ("W = 303 (chunks of 31)", 2, 100, 303 * 32, 0.5),
              ("W = 384 (chunks of 25)", 2, 40, 384 * 32, 0.6),
              ("n = 77", 3, 77, 500, 0.5)]
-# ppcc_admit and twopl_admit on both sides of their switch from four warps
+# the three admission scans on both sides of their switch from four warps
 # to a CTA of 512 threads
 PPCC_ROUTE_N = (16_384, 16_385)
-# twopl_admit at serve()'s n (a YCSB batch of 64 over 512 pages)
-TWOPL_SERVE_N = 64
+# twopl_admit and occ_admit at serve()'s n (a YCSB batch of 64 over 512
+# pages)
+ADMIT_SERVE_N = 64
 # the chain bounds of the scans: a dependent integer or float instruction
 # issues at least this many SM cycles after the one it waits on (sm_90's
 # fixed-latency pipes), and a warp vote or reduction is counted as one
@@ -637,6 +639,39 @@ def device_profile(fn, reps: int, torch, tries: int = 3):
             sum(c for _, c in per.values()), per)
 
 
+def sleep_timeline(fn, torch, reps: int = 5) -> list:
+    """[(kernel, start us, end us)] of ``fn()``'s device kernels after a
+    device sleep, from the sleep's end, each the median over ``reps``
+    profiled calls: how a call timed the way ``cuda_times`` times it
+    splits into kernels and the idle time between them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    calls = []
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        if "spin_kernel" in e.name:
+            calls.append((e.time_range.end, []))
+        elif calls:
+            t0, kernels = calls[-1]
+            kernels.append((e.name, e.time_range.start - t0,
+                            e.time_range.end - t0))
+    calls = [k for _, k in calls if k]
+    if not calls or any(len(k) != len(calls[0]) for k in calls):
+        return []
+    return [(calls[0][i][0],
+             statistics.median(k[i][1] for k in calls),
+             statistics.median(k[i][2] for k in calls))
+            for i in range(len(calls[0]))]
+
+
 def largest(per: dict, k: int) -> list:
     """The ``k`` largest (device ms, kernel) of a ``device_profile``."""
     return sorted(((ms, key) for key, (ms, _) in per.items()),
@@ -781,9 +816,9 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
     for k, v in store_counts.items():
         counts[k] += v
 
-    # ---- the device's share of a tick: a ppcc and a 2pl tick + tick_stats,
-    # first input
-    for policy in ("ppcc", "2pl"):
+    # ---- the device's share of a tick: a ppcc, a 2pl and an occ tick +
+    # tick_stats, first input
+    for policy in ("ppcc", "2pl", "occ"):
         tick_ms, dev_ms, per = tick_times(read, write, torch, policy)
         if dev_ms > 0:
             log(f"[5] {policy} tick + tick_stats: {tick_ms:.3f} ms wall "
@@ -922,27 +957,29 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
         log(f"[5] ppcc_admit bit-equal to its plain version at n={en} "
             f"({'four warps' if en <= 16_384 else 'a CTA of 512 threads'}; "
             f"random arcs, 3 a row; {int(got_e[0].sum())} admitted)")
-        # twopl_admit on the same side: random raw (3 a row) and ww (2 a
-        # row), diagonals included
+        # twopl_admit and occ_admit on the same side: random raw (3 a row)
+        # and ww (2 a row), diagonals included
         eww = torch.rand((en, en), generator=g_, device=dev) < 2.0 / en
         eraw |= torch.rand((en, en), generator=g_, device=dev) < 1.0 / en
-        got_t = kadm.twopl_admit(eraw, eww, ev)
-        hold("twopl_admit", got_t, ref.twopl_admit_ref(eraw, eww, ev))
-        log(f"[5] twopl_admit bit-equal to its plain version at n={en} "
-            f"({'four warps' if en <= 16_384 else 'a CTA of 512 threads'}; "
-            f"{int(got_t.sum())} admitted)")
+        for name in ("twopl_admit", "occ_admit"):
+            got_t = getattr(kadm, name)(eraw, eww, ev)
+            hold(name, got_t, getattr(ref, f"{name}_ref")(eraw, eww, ev))
+            log(f"[5] {name} bit-equal to its plain version at n={en} "
+                f"({'four warps' if en <= 16_384 else 'a CTA of 512 threads'}"
+                f"; {int(got_t.sum())} admitted)")
         del eraw, eww, got_e, got_t
-    srw, sww = W.ycsb_batch(n=TWOPL_SERVE_N, d=8 * TWOPL_SERVE_N,
-                            seed=TWOPL_SERVE_N)
+    srw, sww = W.ycsb_batch(n=ADMIT_SERVE_N, d=8 * ADMIT_SERVE_N,
+                            seed=ADMIT_SERVE_N)
     sraw, sww_m, *_ = ref.conflict_fused_ref(
         torch.from_numpy(srw.view(np.int32)).to(dev),
         torch.from_numpy(sww.view(np.int32)).to(dev))
-    sv = torch.ones(TWOPL_SERVE_N, dtype=torch.bool, device=dev)
-    got_t = kadm.twopl_admit(sraw, sww_m, sv)
-    hold("twopl_admit", got_t, ref.twopl_admit_ref(sraw, sww_m, sv))
-    log(f"[5] twopl_admit bit-equal to its plain version at serve()'s "
-        f"n={TWOPL_SERVE_N} (a YCSB batch over {8 * TWOPL_SERVE_N} pages, "
-        f"{int(got_t.sum())} admitted)")
+    sv = torch.ones(ADMIT_SERVE_N, dtype=torch.bool, device=dev)
+    for name in ("twopl_admit", "occ_admit"):
+        got_t = getattr(kadm, name)(sraw, sww_m, sv)
+        hold(name, got_t, getattr(ref, f"{name}_ref")(sraw, sww_m, sv))
+        log(f"[5] {name} bit-equal to its plain version at serve()'s "
+            f"n={ADMIT_SERVE_N} (a YCSB batch over {8 * ADMIT_SERVE_N} "
+            f"pages, {int(got_t.sum())} admitted)")
 
     # ---- times at the full-width shape
     def library(name):
@@ -1104,20 +1141,29 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
     log(f"[5] ppcc_admit issues {len(a_per)} device kernels a call, "
         f"{a_ms:.4f} ms of device time (profiled, 10 calls): " + ", ".join(
             f"{k[:48]} {v:.4f} ms" for v, k in largest(a_per, 4)))
-    # twopl_admit's (pack, scan) at the tick-4 inputs of the 2pl drain
-    t_ms, _, t_per = device_profile(
-        lambda: kadm.twopl_admit(*adm["twopl_admit"]), 10, torch)
-    row = next(r for r in table if r["name"] == "twopl_admit")
-    row["device_kernels_per_call"] = len(t_per)
-    row["device_ms_by_kernel"] = {k[:60]: v for k, (v, _) in t_per.items()}
-    if t_per:
-        log(f"[5] twopl_admit issues {len(t_per)} device operations a call, "
-            f"{t_ms:.4f} ms of device time (profiled, 10 calls): "
-            + ", ".join(f"{k[:48]} {v:.4f} ms"
-                        for v, k in largest(t_per, 4)))
-    else:
-        log("[5] twopl_admit's device operations: not measured (the "
-            "profiler saw no device time)")
+    # twopl_admit's and occ_admit's (pack, scan) at the tick-4 inputs of
+    # the 2pl and occ drains, back to back and after a device sleep
+    for name in ("twopl_admit", "occ_admit"):
+        t_ms, _, t_per = device_profile(
+            lambda: getattr(kadm, name)(*adm[name]), 10, torch)
+        row = next(r for r in table if r["name"] == name)
+        row["device_kernels_per_call"] = len(t_per)
+        row["device_ms_by_kernel"] = {k[:60]: v
+                                      for k, (v, _) in t_per.items()}
+        if t_per:
+            log(f"[5] {name} issues {len(t_per)} device operations a call, "
+                f"{t_ms:.4f} ms of device time (profiled, 10 calls): "
+                + ", ".join(f"{k[:56]} {v:.4f} ms"
+                            for v, k in largest(t_per, 4)))
+        else:
+            log(f"[5] {name}'s device operations: not measured (the "
+                "profiler saw no device time)")
+        line = sleep_timeline(lambda: getattr(kadm, name)(*adm[name]), torch)
+        row["after_sleep_us"] = [[k[:60], a, b] for k, a, b in line]
+        log(f"[5] {name} after a device sleep (profiled, median of 5): "
+            + ("; ".join(f"{k[:56]} {a:.1f}-{b:.1f} us" for k, a, b in line)
+               if line else "not measured (the profiler saw no device "
+               "time)"))
     return table
 
 

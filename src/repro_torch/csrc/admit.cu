@@ -19,7 +19,8 @@
 //
 // Bound.  A step reads one or two rows of n bools: at n = 4,096 raw is 16
 // MB; ppcc reads it and writes 16 MB of prec, twopl reads raw and ww:
-// about 10 us of bytes at 3.35 TB/s.
+// about 10 us of bytes at 3.35 TB/s; occ needs only the half j < i of raw
+// and ww, 5 us.
 // What bounds the scans is their chain of dependent steps: a step whose
 // transaction is not admitted changes nothing, so the chain runs through
 // the admitted ones; chip_smoke.py models it beside the byte bound.
@@ -57,37 +58,40 @@
 //      after the scan writes it from the packed rows, so prec needs no
 //      zero fill.
 //
-// Design of twopl_admit: two device kernels a call, the same walk.
-//   1. twopl_pack: one packed conflict row a transaction, raw[i, :] |
-//      raw[:, i] | ww[i, :] with the diagonal cleared, and no transposed
-//      copy of raw: a CTA owns 256 rows x 4 words of the output, reads raw |
-//      ww at that tile (row words by butterfly shuffles, as ppcc_pack) and
-//      raw at the transposed tile (column words, as ppcc_pack), and ORs
-//      both in shared memory, so no two CTAs write one word.  It reads raw
-//      twice: 3 n^2 bytes, 50 MB at n = 4,096.
-//   2. twopl_scan: ppcc_scan's walk with one set.  Up to n = 16,384 four
+// Design of twopl_admit and occ_admit: two device kernels a call, the same
+// walk on other rows.
+//   1. greedy_pack: one packed row a transaction, padded with 0 to the
+//      scan's row width.  A CTA owns 256 rows x 4 words of the output, so no
+//      two CTAs write one word, and takes raw | ww at that tile as ppcc_pack
+//      takes raw's rows (row words by butterfly shuffles).  For twopl the
+//      row is raw[i, :] | raw[:, i] | ww[i, :] with the diagonal cleared,
+//      and no transposed copy of raw: the CTA also reads raw at the
+//      transposed tile (column words, as ppcc_pack) and ORs both in shared
+//      memory; 3 n^2 bytes, 50 MB at n = 4,096.  For occ the row is
+//      raw[i, :] | ww[i, :] at and below i's own word: a lane reads a word
+//      only if it is not right of the row's diagonal word, and the words
+//      right of it stay 0, so the pack reads the triangle j < i the step
+//      needs, about n^2 bytes (17 MB at n = 4,096).
+//   2. greedy_scan: ppcc_scan's walk with one set.  Up to n = 16,384 four
 //      warps hold admitted in registers, K = 1, 2 or 4 words a thread, and
 //      test B = 32 steps at once (16 at K = 4) against it, one bit of a mask
 //      each; one __reduce_or_sync and one __syncthreads OR the masks, and
 //      the first valid step among them that meets no admitted transaction
 //      is admitted; the walk resumes after it.  Steps go in index order, so
 //      the rows ahead are refilled into a ring of 4 B stages by cp.async,
-//      as in ppcc_scan.  At step i only j < i can be admitted, never i, so
-//      the diagonal changes nothing (it is cleared all the same).  Above
-//      16,384 (to 262,144) a CTA of 512 threads, K = 2..16 words a thread
-//      in registers, one __syncthreads_or a step.
-//
-// occ_admit is as ported: one CTA of 1,024 threads walks the transactions
-// in order, its threads striding over j; only the entries of earlier
-// survivors j are read, and a thread issues its loads of one j together.
-// Thread t owns the j = t (mod 1,024) entries of the per-transaction flags
-// in shared memory, and __syncthreads_or gives a step's verdict.
+//      as in ppcc_scan.  Above 16,384 (to 262,144) a CTA of 512 threads,
+//      K = 2..16 words a thread in registers, one __syncthreads_or a step.
+//   At step i only j < i can be admitted, never i: so a row's bits j >= i
+//   change nothing, the diagonal (which occ keeps) and the columns right of
+//   i's word (which occ's pack leaves 0) alike.  That makes occ_tick's step,
+//   i survives unless raw | ww meets an earlier survivor, exactly
+//   twopl_tick's on the row raw | ww: "earlier" removes no bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+extern "C" int admit_row_words(int n);
 
-constexpr int kThreads = 1024;   // occ_admit
+namespace {
 
 cudaError_t allow_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -562,21 +566,25 @@ int launch_scan_cta(const void* const* a, int n, int ws, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- twopl_admit, 1. pack: the conflict rows raw[i, :] | raw[:, i] |
-// ww[i, :] as packed words, the diagonal cleared, padded with 0 to the
-// scan's row width ws.  A CTA of 8 warps owns the rows R0 .. R0 + 255 (R0 =
-// 256 blockIdx.y) and the 4 words of columns G*128 .. G*128 + 127 (G =
-// blockIdx.x), so no two CTAs write one word.  Its warps first take raw |
-// ww at those rows and columns as ppcc_pack takes raw's rows (row words
-// from nibbles by butterfly shuffles), then raw at the transposed tile
-// (rows G*128 .., columns R0 ..) as ppcc_pack takes raw's columns: warp w
-// the 32 rows of word G*4 + w % 4 and the 128 columns R0 + 128 (w / 4) ...
-// Both halves OR into a [256][4] tile in shared memory, which leaves as
-// one 16-byte store a row.
+// ---- twopl_admit and occ_admit, 1. pack: the rows the scan tests, as
+// packed words padded with 0 to the scan's row width ws; for twopl (kOcc
+// false) the conflict rows raw[i, :] | raw[:, i] | ww[i, :] with the
+// diagonal cleared, for occ raw[i, :] | ww[i, :] at and below i's word.  A
+// CTA of 8 warps owns the rows R0 .. R0 + 255 (R0 = 256 blockIdx.y) and the
+// 4 words of columns G*128 .. G*128 + 127 (G = blockIdx.x), so no two CTAs
+// write one word.  Its warps first take raw | ww at those rows and columns
+// as ppcc_pack takes raw's rows (row words from nibbles by butterfly
+// shuffles); for occ a lane whose word lies right of its warp's row word
+// (the rows of warp w share word R0 / 32 + w) reads nothing.  For twopl
+// they then take raw at the transposed tile (rows G*128 .., columns R0 ..)
+// as ppcc_pack takes raw's columns: warp w the 32 rows of word G*4 + w % 4
+// and the 128 columns R0 + 128 (w / 4) ...  Both halves OR into a [256][4]
+// tile in shared memory, which leaves as one 16-byte store a row.
+template <bool kOcc>
 __global__ void __launch_bounds__(256)
-twopl_pack_kernel(const uint8_t* __restrict__ raw,
-                  const uint8_t* __restrict__ ww, int n, int ws,
-                  uint32_t* __restrict__ rows) {
+greedy_pack_kernel(const uint8_t* __restrict__ raw,
+                   const uint8_t* __restrict__ ww, int n, int ws,
+                   uint32_t* __restrict__ rows) {
   __shared__ __align__(16) uint32_t s_out[256][4];   // [row - R0][word - 4G]
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int R0 = blockIdx.y * 256, G = blockIdx.x;
@@ -596,14 +604,17 @@ twopl_pack_kernel(const uint8_t* __restrict__ raw,
     return v;
   };
   uint32_t x[32];
-  // (a) raw | ww at rows R0 + 32 w + r, columns G*128 + 4 lane .. + 3
+  // (a) raw | ww at rows R0 + 32 w + r, columns G*128 + 4 lane .. + 3;
+  // for occ only where the column's word is not right of the row's
   {
     const int c0 = G * 128 + lane * 4;
+    const bool need = !kOcc || G * 4 + (lane >> 3) <= (R0 >> 5) + w;
 #pragma unroll
     for (int r = 0; r < 32; ++r) {
       const int i = R0 + 32 * w + r;
-      x[r] = __vcmpne4(bytes4(raw, i, c0) | bytes4(ww, i, c0), 0u) &
-             0x01010101u;
+      x[r] = need ? __vcmpne4(bytes4(raw, i, c0) | bytes4(ww, i, c0), 0u) &
+                        0x01010101u
+                  : 0u;
     }
     uint32_t keep[4];
 #pragma unroll
@@ -620,9 +631,9 @@ twopl_pack_kernel(const uint8_t* __restrict__ raw,
       s_out[32 * w + (lane & 7) + 8 * q][lane >> 3] = keep[q];
   }
   __syncthreads();
-  // (b) raw[j, i] for j in word G*4 + c (c = w % 4) and i = R0 + 128 h +
-  // 4 lane .. + 3 (h = w / 4): the column words of that tile
-  {
+  // (b) twopl only: raw[j, i] for j in word G*4 + c (c = w % 4) and i = R0 +
+  // 128 h + 4 lane .. + 3 (h = w / 4): the column words of that tile
+  if constexpr (!kOcc) {
     const int c = w & 3, h = w >> 2;
     const int i0 = R0 + 128 * h + lane * 4;
 #pragma unroll
@@ -642,43 +653,47 @@ twopl_pack_kernel(const uint8_t* __restrict__ raw,
       s_out[128 * h + lane * 4 + b][c] |= __byte_perm(
           __byte_perm(y[0], y[1], sel), __byte_perm(y[2], y[3], sel), 0x5410);
     }
+    __syncthreads();
   }
-  __syncthreads();
   const int i = R0 + threadIdx.x;
   if (i < n) {
     uint4 o = *reinterpret_cast<const uint4*>(s_out[threadIdx.x]);
-    const int d = (i >> 5) - G * 4;            // the diagonal's word, if here
-    const uint32_t off = ~(1u << (i & 31));
-    if (d == 0) o.x &= off;
-    if (d == 1) o.y &= off;
-    if (d == 2) o.z &= off;
-    if (d == 3) o.w &= off;
+    if constexpr (!kOcc) {
+      const int d = (i >> 5) - G * 4;          // the diagonal's word, if here
+      const uint32_t off = ~(1u << (i & 31));
+      if (d == 0) o.x &= off;
+      if (d == 1) o.y &= off;
+      if (d == 2) o.z &= off;
+      if (d == 3) o.w &= off;
+    }
     *reinterpret_cast<uint4*>(rows + size_t(i) * ws + G * 4) = o;
   }
 }
 
-// Steps twopl_scan tests at once: 32 (one bit each of a word), 16 at K = 4,
+// Steps greedy_scan tests at once: 32 (one bit each of a word), 16 at K = 4,
 // where a ring of 4 B rows of 128 K words must fit a CTA's shared memory.
-__host__ __device__ constexpr int twopl_batch(int k) { return k <= 2 ? 32 : 16; }
+__host__ __device__ constexpr int greedy_batch(int k) {
+  return k <= 2 ? 32 : 16;
+}
 
-// ---- twopl_admit, 2. scan: ppcc_scan's walk with one set.  admitted sits
-// in the registers of four warps, K words a thread (thread t owns words
-// t K .. t K + K - 1).  A step that is not admitted changes nothing, so the
-// CTA tests B steps at once against the same set, bit b of a mask per
-// thread (its words of row s + b meet admitted), ORs the masks over the CTA
-// (__reduce_or_sync, then one __syncthreads over four partials) and
-// admits the first valid step among them that meets nothing; the steps
-// after it are tested again from the new set.  The rows of the steps ahead
+// ---- twopl_admit and occ_admit, 2. scan: ppcc_scan's walk with one set.
+// admitted sits in the registers of four warps, K words a thread (thread t
+// owns words t K .. t K + K - 1).  A step that is not admitted changes
+// nothing, so the CTA tests B steps at once against the same set, bit b of
+// a mask per thread (its words of row s + b meet admitted), ORs the masks
+// over the CTA (__reduce_or_sync, then one __syncthreads over four
+// partials) and admits the first valid step among them that meets nothing;
+// the steps after it are tested again from the new set.  The rows of the steps ahead
 // (index order, known in advance) sit in a ring of 4 B shared-memory
 // stages, refilled at the start of each batch by cp.async copies spread
 // over the CTA, so that a refill has two batches to land.
 template <int K>
 __global__ void __launch_bounds__(kScanThreads)
-twopl_scan_kernel(const uint32_t* __restrict__ rows,
-                  const uint8_t* __restrict__ valid, int n,
-                  uint8_t* __restrict__ admitted) {
+greedy_scan_kernel(const uint32_t* __restrict__ rows,
+                   const uint8_t* __restrict__ valid, int n,
+                   uint8_t* __restrict__ admitted) {
   constexpr int WS = kScanThreads * K;
-  constexpr int B = twopl_batch(K);
+  constexpr int B = greedy_batch(K);
   constexpr int R = 4 * B;
   constexpr int kUnits = WS / 4;             // 16-byte copies a row
   constexpr int kIters = B * kUnits / kScanThreads;
@@ -760,14 +775,15 @@ twopl_scan_kernel(const uint32_t* __restrict__ rows,
   for (int k = 0; k < K; ++k) store_bytes(admitted, g * K + k, adm[k], n);
 }
 
-// ---- twopl_admit, 2'. scan above n = 16,384: a CTA of 512 threads, each
-// its K words of admitted in registers, one step at a time with the next
-// step's words loaded one step ahead and one __syncthreads_or a step.
+// ---- twopl_admit and occ_admit, 2'. scan above n = 16,384: a CTA of 512
+// threads, each its K words of admitted in registers, one step at a time
+// with the next step's words loaded one step ahead and one
+// __syncthreads_or a step.
 template <int K>
 __global__ void __launch_bounds__(kCtaThreads)
-twopl_scan_cta_kernel(const uint32_t* __restrict__ rows,
-                      const uint8_t* __restrict__ valid, int n,
-                      uint8_t* __restrict__ admitted) {
+greedy_scan_cta_kernel(const uint32_t* __restrict__ rows,
+                       const uint8_t* __restrict__ valid, int n,
+                       uint8_t* __restrict__ admitted) {
   constexpr int WS = kCtaThreads * K;
   const int g = threadIdx.x;
   uint32_t adm[K], rw[K];
@@ -799,49 +815,65 @@ twopl_scan_cta_kernel(const uint32_t* __restrict__ rows,
 }
 
 template <int K>
-int launch_twopl_scan(const uint32_t* rows, const uint8_t* valid, int n,
-                      uint8_t* admitted, cudaStream_t s) {
+int launch_greedy_scan(const uint32_t* rows, const uint8_t* valid, int n,
+                       uint8_t* admitted, cudaStream_t s) {
   const size_t bytes =
-      (size_t(4 * twopl_batch(K)) * kScanThreads * K + n / 32 + 2) *
+      (size_t(4 * greedy_batch(K)) * kScanThreads * K + n / 32 + 2) *
       sizeof(uint32_t);
   const cudaError_t e = allow_smem(
-      reinterpret_cast<const void*>(twopl_scan_kernel<K>), bytes);
+      reinterpret_cast<const void*>(greedy_scan_kernel<K>), bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  twopl_scan_kernel<K><<<1, kScanThreads, bytes, s>>>(rows, valid, n,
-                                                       admitted);
+  greedy_scan_kernel<K><<<1, kScanThreads, bytes, s>>>(rows, valid, n,
+                                                        admitted);
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void __launch_bounds__(kThreads)
-occ_admit_kernel(const uint8_t* __restrict__ raw,
-                 const uint8_t* __restrict__ ww,
-                 const uint8_t* __restrict__ valid, int n,
-                 uint8_t* __restrict__ survivors) {
-  extern __shared__ uint8_t s_surv[];
-  const int tid = threadIdx.x, bs = blockDim.x;
-  for (int j = tid; j < n; j += bs) s_surv[j] = 0;
-  for (int i = 0; i < n; ++i) {
-    const size_t row = size_t(i) * n;
-    bool hit = false;
-    for (int j = tid; j < i; j += bs)    // earlier = j < i
-      if (s_surv[j]) hit |= (raw[row + j] | ww[row + j]) != 0;
-    const bool ok = valid[i] && !__syncthreads_or(hit);
-    if (i % bs == tid) s_surv[i] = ok;
+// twopl_admit (kOcc false) and occ_admit: the pack, then the scan of the
+// width admit_row_words(n) gives.
+template <bool kOcc>
+int greedy_admit(const void* raw, const void* ww, const void* valid, int n,
+                 void* rows, void* admitted, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ws = admit_row_words(n);
+  if (!ws) return static_cast<int>(cudaErrorInvalidValue);
+  greedy_pack_kernel<kOcc><<<dim3(ws / 4, (n + 255) / 256), 256, 0, s>>>(
+      static_cast<const uint8_t*>(raw), static_cast<const uint8_t*>(ww), n,
+      ws, static_cast<uint32_t*>(rows));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const uint32_t* r = static_cast<const uint32_t*>(rows);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  uint8_t* a = static_cast<uint8_t*>(admitted);
+  if (n <= kScanThreads * 32 * kScanMaxK) {
+    switch (ws / kScanThreads) {
+      case 1: return launch_greedy_scan<1>(r, v, n, a, s);
+      case 2: return launch_greedy_scan<2>(r, v, n, a, s);
+      default: return launch_greedy_scan<4>(r, v, n, a, s);
+    }
   }
-  __syncthreads();
-  for (int j = tid; j < n; j += bs) survivors[j] = s_surv[j];
+  switch (ws / kCtaThreads) {
+    case 2: greedy_scan_cta_kernel<2><<<1, kCtaThreads, 0, s>>>(r, v, n, a);
+      break;
+    case 4: greedy_scan_cta_kernel<4><<<1, kCtaThreads, 0, s>>>(r, v, n, a);
+      break;
+    case 8: greedy_scan_cta_kernel<8><<<1, kCtaThreads, 0, s>>>(r, v, n, a);
+      break;
+    default: greedy_scan_cta_kernel<16><<<1, kCtaThreads, 0, s>>>(r, v, n, a);
+      break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// The largest n ppcc_admit and twopl_admit take.
+// The largest n each of the three scans takes.
 int admit_max_n() { return kCtaThreads * 32 * kCtaMaxK; }
 
-// Words of one packed row (and column) in ppcc_admit's and twopl_admit's
-// scratch: 128 K up to n = 16,384, 512 K on the CTA route above; 0 for an
-// n they do not take.
+// Words of one packed row (and column) in the three scans' scratch: 128 K
+// up to n = 16,384, 512 K on the CTA route above; 0 for an n they do not
+// take.
 int admit_row_words(int n) {
   if (n < 1 || n > admit_max_n()) return 0;
   const int nw = (n + 31) / 32;
@@ -859,8 +891,8 @@ int admit_row_words(int n) {
 // are one byte each: raw and prec [n, n], valid and the outputs [n].
 // ppcc_admit's scratch: rows and cols int32[n, admit_row_words(n)],
 // steps int32[n rounded up to 4], bits int32[3, admit_row_words(n)]; prec
-// needs no zero fill.  twopl_admit's scratch: rows int32[n,
-// admit_row_words(n)], the packed conflict rows.
+// needs no zero fill.  twopl_admit's and occ_admit's scratch: rows
+// int32[n, admit_row_words(n)], the packed rows their scan tests.
 int ppcc_admit_launch(const void* raw, const void* valid, const void* seq,
                       int n, void* rows, void* cols, void* steps, void* bits,
                       void* admitted, void* preceding, void* preceded,
@@ -903,48 +935,12 @@ int ppcc_admit_launch(const void* raw, const void* valid, const void* seq,
 
 int twopl_admit_launch(const void* raw, const void* ww, const void* valid,
                        int n, void* rows, void* admitted, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ws = admit_row_words(n);
-  if (!ws) return static_cast<int>(cudaErrorInvalidValue);
-  twopl_pack_kernel<<<dim3(ws / 4, (n + 255) / 256), 256, 0, s>>>(
-      static_cast<const uint8_t*>(raw), static_cast<const uint8_t*>(ww), n,
-      ws, static_cast<uint32_t*>(rows));
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const uint32_t* r = static_cast<const uint32_t*>(rows);
-  const uint8_t* v = static_cast<const uint8_t*>(valid);
-  uint8_t* a = static_cast<uint8_t*>(admitted);
-  if (n <= kScanThreads * 32 * kScanMaxK) {
-    switch (ws / kScanThreads) {
-      case 1: return launch_twopl_scan<1>(r, v, n, a, s);
-      case 2: return launch_twopl_scan<2>(r, v, n, a, s);
-      default: return launch_twopl_scan<4>(r, v, n, a, s);
-    }
-  }
-  switch (ws / kCtaThreads) {
-    case 2: twopl_scan_cta_kernel<2><<<1, kCtaThreads, 0, s>>>(r, v, n, a);
-      break;
-    case 4: twopl_scan_cta_kernel<4><<<1, kCtaThreads, 0, s>>>(r, v, n, a);
-      break;
-    case 8: twopl_scan_cta_kernel<8><<<1, kCtaThreads, 0, s>>>(r, v, n, a);
-      break;
-    default: twopl_scan_cta_kernel<16><<<1, kCtaThreads, 0, s>>>(r, v, n, a);
-      break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return greedy_admit<false>(raw, ww, valid, n, rows, admitted, stream);
 }
 
 int occ_admit_launch(const void* raw, const void* ww, const void* valid,
-                     int n, void* survivors, void* stream) {
-  const size_t bytes = size_t(n);
-  cudaError_t e =
-      allow_smem(reinterpret_cast<const void*>(occ_admit_kernel), bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  occ_admit_kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(raw), static_cast<const uint8_t*>(ww),
-      static_cast<const uint8_t*>(valid), n,
-      static_cast<uint8_t*>(survivors));
-  return static_cast<int>(cudaGetLastError());
+                     int n, void* rows, void* survivors, void* stream) {
+  return greedy_admit<true>(raw, ww, valid, n, rows, survivors, stream);
 }
 
 }  // extern "C"

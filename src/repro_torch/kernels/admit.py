@@ -8,10 +8,11 @@ transactions in torch would cost some ten launches per transaction; here
 the transactions are walked in order on the card.  ``ppcc_admit`` issues
 three device kernels a call (pack ``raw`` into words, the scan with its
 sets in the registers of four warps, ``prec`` in one pass),
-``twopl_admit`` two (pack ``raw | raw^T | ww`` into one row of words a
-transaction, the same kind of scan with one set); each counts as one
-launch.  ``occ_admit`` is one CTA.  The plain versions are
-``kernels.ref.{ppcc,twopl,occ}_admit_ref``.
+``twopl_admit`` and ``occ_admit`` two (pack one row of words a
+transaction, ``raw | raw^T | ww`` for 2PL and ``raw | ww`` at and below
+the diagonal's word for OCC, then one scan, shared, with one set); each
+counts as one launch.  All three take n up to ``max_n``.  The plain
+versions are ``kernels.ref.{ppcc,twopl,occ}_admit_ref``.
 
 Each takes CUDA tensors only and raises on anything the kernel does not
 take; ``kernels.ops`` is the dispatcher the scheduler calls.
@@ -25,7 +26,6 @@ import torch
 
 from . import build
 
-SMEM_MAX = 232_448   # shared memory one CTA may use (H100): occ_admit's n
 launches = {"ppcc_admit": 0, "twopl_admit": 0, "occ_admit": 0}
 
 _fns = None
@@ -48,8 +48,7 @@ def _launchers():
             [ctypes.c_void_p] * 3
         twopl.restype = ctypes.c_int
         occ = lib.occ_admit_launch
-        occ.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
-            [ctypes.c_void_p] * 2
+        occ.argtypes = twopl.argtypes
         occ.restype = ctypes.c_int
         _fns = {"ppcc_admit": ppcc, "twopl_admit": twopl, "occ_admit": occ,
                 "packed_max_n": lib.admit_max_n(),
@@ -58,11 +57,11 @@ def _launchers():
 
 
 def max_n(name: str) -> int:
-    """The largest n the kernel of ``name`` takes: the packed scans'
-    (``ppcc_admit``, ``twopl_admit``: 512 threads x 16 words x 32), or one
-    CTA's shared memory for a byte a transaction (``occ_admit``)."""
-    return _launchers()["packed_max_n"] \
-        if name in ("ppcc_admit", "twopl_admit") else SMEM_MAX
+    """The largest n the scan ``name`` takes, the same for all three: their
+    sets as packed words, 16 a thread of a CTA of 512 (262,144)."""
+    if name not in launches:
+        raise KeyError(f"no admission scan named {name!r}")
+    return _launchers()["packed_max_n"]
 
 
 def _check(name, raw, others, valid):
@@ -120,29 +119,28 @@ def ppcc_admit(raw, valid, seq):
     return admitted, preceding, preceded, prec
 
 
-def twopl_admit(raw, ww, valid):
-    """2PL admission of one tick in index order: ``admitted bool[n]``,
-    bit-equal to ``ref.twopl_admit_ref``."""
-    n, dev = _check("twopl_admit", raw, (("ww", ww),), valid)
+def _greedy(name, raw, ww, valid):
+    """``twopl_admit`` or ``occ_admit``: the pack and the shared scan."""
+    n, dev = _check(name, raw, (("ww", ww),), valid)
     admitted = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         fns = _launchers()
-        # scratch: the packed conflict rows raw | raw^T | ww
+        # scratch: the packed rows the scan tests
         rows = torch.empty((n, fns["row_words"](n)), dtype=torch.int32,
                            device=dev)
-        _run("twopl_admit", fns["twopl_admit"](
+        _run(name, fns[name](
             raw.data_ptr(), ww.data_ptr(), valid.data_ptr(), n,
             rows.data_ptr(), admitted.data_ptr(), _stream(dev)))
     return admitted
 
 
+def twopl_admit(raw, ww, valid):
+    """2PL admission of one tick in index order: ``admitted bool[n]``,
+    bit-equal to ``ref.twopl_admit_ref``."""
+    return _greedy("twopl_admit", raw, ww, valid)
+
+
 def occ_admit(raw, ww, valid):
     """OCC backward validation of one tick in index order:
     ``survivors bool[n]``, bit-equal to ``ref.occ_admit_ref``."""
-    n, dev = _check("occ_admit", raw, (("ww", ww),), valid)
-    survivors = torch.empty(n, dtype=torch.bool, device=dev)
-    if n:
-        _run("occ_admit", _launchers()["occ_admit"](
-            raw.data_ptr(), ww.data_ptr(), valid.data_ptr(), n,
-            survivors.data_ptr(), _stream(dev)))
-    return survivors
+    return _greedy("occ_admit", raw, ww, valid)

@@ -1,7 +1,8 @@
-"""The premises of ``csrc/admit.cu``'s ``ppcc_admit`` and ``twopl_admit``
-designs, held on the CPU against the JAX references
-``repro.sched.scheduler.ppcc_tick`` and ``twopl_tick`` and the port's
-plain versions ``kernels.ref.ppcc_admit_ref`` and ``twopl_admit_ref``:
+"""The premises of ``csrc/admit.cu``'s ``ppcc_admit``, ``twopl_admit`` and
+``occ_admit`` designs, held on the CPU against the JAX references
+``repro.sched.scheduler.ppcc_tick``, ``twopl_tick`` and ``occ_tick`` and
+the port's plain versions ``kernels.ref.ppcc_admit_ref``,
+``twopl_admit_ref`` and ``occ_admit_ref``:
 
 (a) ``prec`` is ``raw & admitted[:, None] & admitted[None, :]`` off the
     diagonal: the reference's row-then-column writes leave exactly that,
@@ -16,14 +17,22 @@ plain versions ``kernels.ref.ppcc_admit_ref`` and ``twopl_admit_ref``:
 (c) the pack kernel's arithmetic (4 columns a lane as one word, row
     words from nibbles ORed across 8 lanes, column words gathered 8 rows a
     word and then by bytes) equals packing ``raw`` and ``raw.T``; and
-    ``twopl_pack``'s, the row words of ``raw | ww`` ORed with the column
+    ``greedy_pack``'s, the row words of ``raw | ww`` ORed with the column
     words of ``raw`` and the diagonal cleared, equals packing the conflict
-    rows ``(raw | raw.T | ww) & ~eye``;
+    rows ``(raw | raw.T | ww) & ~eye``; and its OCC form's, the row words
+    of ``raw | ww`` where a lane's word is not right of its warp's row word,
+    equals packing ``raw | ww`` at and below each row's own word;
 (d) for ``twopl_admit`` too a step that is not admitted changes nothing:
     a word-level twin of its scan (the packed conflict rows, ``admitted``
     as words owned K a thread, B steps tested at once, the first admitted
     one applied) equals the plain version and ``twopl_tick``, also at the
-    main path's n = 4,096.
+    main path's n = 4,096;
+(e) ``occ_admit`` is that walk on other rows: at step i only j < i can
+    be a survivor, so ``earlier`` removes no bit and a row's bits j >= i
+    change nothing; the scan twin of (d) on the packed rows of ``raw | ww``
+    at and below each row's own word, with the diagonals of ``raw`` and
+    ``ww`` set as the scheduler leaves them, equals ``occ_admit_ref`` and
+    ``occ_tick``'s survivors, also at n = 4,096.
 
 Every comparison is exact: the outputs are bool."""
 import numpy as np
@@ -99,10 +108,12 @@ def test_prec_is_raw_between_admitted(order, n, d):
         assert cls.any() and not (cls & ~adm).any()
 
 
-def _tile_pack(raw, ws):
+def _tile_pack(raw, ws, triangle=False):
     """The pack kernel's arithmetic: warp w of CTA (G, I0 / 8) takes rows
     32 I .. 32 I + 31 (I = I0 + w) of columns 128 G .. 128 G + 127, lane l
-    the 4 columns 128 G + 4 l .. + 3 of each row as 0/1 bytes of a word.
+    the 4 columns 128 G + 4 l .. + 3 of each row as 0/1 bytes of a word
+    (with ``triangle``, as ``greedy_pack`` for OCC, only where the lane's
+    word 4 G + l / 8 is not right of the rows' word I).
     A row's word G*4 + c is the OR of the nibbles (bytes * 0x01020408 >>
     24) of lanes 8 c .. 8 c + 7, each shifted by 4 (l % 8); a column's
     word I gathers bit r of its byte over the rows, 8 rows a word by
@@ -119,11 +130,12 @@ def _tile_pack(raw, ws):
                 continue
             for big_i in range(i0, i0 + 8):
                 x = np.zeros((32, 32), np.uint32)      # [row r, lane]
+                need = (4 * grp + lanes // 8 <= big_i) | (not triangle)
                 for r in range(32):
                     i = 32 * big_i + r
                     for b in range(4):
                         c = 128 * grp + 4 * lanes + b
-                        ok = (i < n) & (c < n)
+                        ok = (i < n) & (c < n) & need
                         byte = np.where(ok, raw[min(i, n - 1)][
                             np.minimum(c, n - 1)], False)
                         x[r] |= byte.astype(np.uint32) << (8 * b)
@@ -155,11 +167,11 @@ def _padded(words, ws):
 
 
 def conflict_rows_twin(raw, ww, ws):
-    """``twopl_pack``'s arithmetic: its CTA's warps take the row words of
-    ``raw | ww`` at their tile and the column words of ``raw`` at the
-    transposed tile, each a warp tile of 32 rows x 128 columns computed as
-    ``_tile_pack`` computes it; the two OR into one row, and the diagonal's
-    bit is cleared."""
+    """``greedy_pack``'s 2PL arithmetic: its CTA's warps take the row
+    words of ``raw | ww`` at their tile and the column words of ``raw`` at
+    the transposed tile, each a warp tile of 32 rows x 128 columns computed
+    as ``_tile_pack`` computes it; the two OR into one row, and the
+    diagonal's bit is cleared."""
     rows = _tile_pack(raw | ww, ws)[0] | _tile_pack(raw, ws)[1]
     for i in range(raw.shape[0]):
         rows[i, i >> 5] &= TB.wrap32(torch.tensor(~(1 << (i & 31)) &
@@ -167,20 +179,36 @@ def conflict_rows_twin(raw, ww, ws):
     return rows
 
 
+def word_triangle(n):
+    """``tri[i, j]``: column j's word is not right of row i's."""
+    w = torch.arange(n) >> 5
+    return w[None, :] <= w[:, None]
+
+
 PACK_N = (1, 31, 33, 70, 200)
 
 
 @pytest.mark.parametrize(
-    "n,conflict", [pytest.param(n, False, id=str(n)) for n in PACK_N]
-    + [pytest.param(n, True, id=f"conflict-rows-{n}") for n in PACK_N])
-def test_tile_pack_is_pack_of_raw_and_its_transpose(n, conflict):
+    "n,kind", [pytest.param(n, "raw", id=str(n)) for n in PACK_N]
+    + [pytest.param(n, "conflict", id=f"conflict-rows-{n}") for n in PACK_N]
+    + [pytest.param(n, "occ", id=f"occ-rows-{n}") for n in PACK_N])
+def test_tile_pack_is_pack_of_raw_and_its_transpose(n, kind):
     """(c): rows are ``pack(raw)`` and columns ``pack(raw.T)``, padded;
-    ``twopl_pack``'s rows are ``pack((raw | raw.T | ww) & ~eye)``."""
+    ``greedy_pack``'s rows are ``pack((raw | raw.T | ww) & ~eye)`` for
+    2PL and ``pack((raw | ww) & tri)`` for OCC, ``tri`` the words at and
+    below each row's own (the diagonal kept)."""
     raw, _, _ = _admit_inputs(n, n)
     raw |= np.random.default_rng(1).random((n, n)) < 0.3
     ws = row_words(n)
     t = torch.from_numpy(raw)
-    if conflict:
+    if kind == "occ":
+        ww = np.random.default_rng(2).random((n, n)) < 0.2
+        np.fill_diagonal(ww, True)
+        want = (t | torch.from_numpy(ww)) & word_triangle(n)
+        got = _tile_pack(raw | ww, ws, triangle=True)[0]
+        assert torch.equal(got, _padded(TB.pack(want), ws))
+        return
+    if kind == "conflict":
         ww = np.random.default_rng(2).random((n, n)) < 0.2
         np.fill_diagonal(raw, True)        # the diagonal is cleared anyway
         t = torch.from_numpy(raw)
@@ -268,7 +296,7 @@ def test_row_words_routes():
 
 
 def twopl_scan_twin(rows, valid):
-    """``twopl_scan`` on int32 words: ``rows`` are the packed conflict rows
+    """``greedy_scan`` on int32 words: ``rows`` are the packed rows
     at the kernel's width, ``admitted`` the words owned K a thread (128
     threads up to n = 16,384, 512 above).  B steps (32, 16 at K = 4, one
     on the CTA route) are tested at once against the same set; the first
@@ -327,3 +355,24 @@ def test_twopl_scan_twin_matches_plain_and_jax(n, d, reads):
     np.testing.assert_array_equal(got.numpy(), np.asarray(res.admitted))
     if n > 30:
         assert want.any() and not want.all()
+
+
+@pytest.mark.parametrize("n,d,reads", [(n, max(64, 2 * n), 4)
+                                       for n in TWIN_N] + [(4096, 512, 3)])
+def test_occ_scan_twin_matches_plain_and_jax(n, d, reads):
+    """(e), from the packed rows of (c)'s OCC form, at n off and on the
+    word and warp edges and at the main path's n = 4,096: equal to
+    ``occ_admit_ref`` and to ``occ_tick``'s survivors."""
+    read, write, raw, ww, valid = _twopl_inputs(n + d, n, d, reads)
+    t_raw, t_ww = torch.from_numpy(raw), torch.from_numpy(ww)
+    rows = _padded(TB.pack((t_raw | t_ww) & word_triangle(n)), row_words(n))
+    got = twopl_scan_twin(rows, torch.from_numpy(valid))
+    want = ref.occ_admit_ref(t_raw, t_ww, torch.from_numpy(valid))
+    assert torch.equal(got, want)
+    res = JS.occ_tick(jnp.asarray(read), jnp.asarray(write),
+                      jnp.asarray(valid), use_kernel=False)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(res.admitted))
+    if n > 30:
+        assert want.any() and not want.all()
+        # the scheduler's diagonals, set wherever a transaction writes
+        assert t_raw.diagonal().any() and t_ww.diagonal().any()

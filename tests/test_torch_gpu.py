@@ -708,6 +708,72 @@ def test_twopl_admit_at_its_limit(cuda):
     assert want.any() and not want.all()
 
 
+def _sparse_occ(n, raw_ij, ww_ij, valid):
+    """OCC backward validation from the set entries of raw and ww (``[m,
+    2]`` index pairs), for n too large for a dense plain version: i
+    survives unless a surviving j < i has raw[i, j] or ww[i, j]."""
+    earlier = [[] for _ in range(n)]
+    for (i, j) in torch.cat([raw_ij, ww_ij]).tolist():
+        if j < i:
+            earlier[i].append(j)
+    surv = [False] * n
+    for i, ok in enumerate(valid.tolist()):
+        surv[i] = ok and not any(surv[j] for j in earlier[i])
+    return torch.tensor(surv)
+
+
+# the shared scan's widths on both sides of each switch, as for twopl_admit
+@pytest.mark.parametrize("n", [4097, 8192, 8193, 16_384, 16_385, 32_769])
+def test_occ_admit_routes_match_plain(cuda, n):
+    """occ_admit on random sparse raw and ww (3 and 2 entries a row,
+    diagonals included) against the plain version and the sparse one."""
+    from repro_torch.kernels import admit as kadm
+    gen = torch.Generator().manual_seed(n + 1)
+    raw_ij, ww_ij = (_sparse_pairs(gen, n, m, cuda) for m in (3, 2))
+    raw = torch.zeros((n, n), dtype=torch.bool, device=cuda)
+    ww = torch.zeros_like(raw)
+    raw[raw_ij[:, 0], raw_ij[:, 1]] = True
+    ww[ww_ij[:, 0], ww_ij[:, 1]] = True
+    raw.fill_diagonal_(True)
+    valid = (torch.rand(n, generator=gen) < 0.9).to(cuda)
+    got = kadm.occ_admit(raw, ww, valid)
+    want = ref.occ_admit_ref(raw, ww, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), _sparse_occ(n, raw_ij.cpu(), ww_ij.cpu(),
+                                              valid.cpu()))
+    assert want.any() and not want.all()
+
+
+def test_occ_admit_at_its_limit(cuda):
+    """At its largest n (262,144, the other two scans' too; raw and ww one
+    68.7 GB tensor, so that both fit the card) occ_admit equals the sparse
+    version; one more raises a ValueError that names the limit, before it
+    looks at the (there stride-0) tensors."""
+    from repro_torch.kernels import admit as kadm
+    top = kadm.max_n("occ_admit")
+    assert top == kadm.max_n("twopl_admit") == kadm.max_n("ppcc_admit")
+    assert top > 232_448
+    one = torch.zeros((1, 1), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError,
+                       match=f"occ_admit: n={top + 1}; it takes at most "
+                             f"{top}"):
+        kadm.occ_admit(one.expand(top + 1, top + 1),
+                       one.expand(top + 1, top + 1), one[0].expand(top + 1))
+    gen = torch.Generator().manual_seed(2)
+    pairs = _sparse_pairs(gen, top, 2, cuda)
+    raw = torch.zeros((top, top), dtype=torch.bool, device=cuda)
+    raw[pairs[:, 0], pairs[:, 1]] = True
+    valid = (torch.rand(top, generator=gen) < 0.9).to(cuda)
+    got = kadm.occ_admit(raw, raw, valid)
+    torch.cuda.synchronize()
+    del raw
+    torch.cuda.empty_cache()
+    want = _sparse_occ(top, pairs.cpu(), pairs.cpu(), valid.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert want.any() and not want.all()
+
+
 @pytest.mark.parametrize("mode", ("ppcc", "ppcc_degree", "2pl", "occ"))
 def test_tick_kernel_path_equals_plain_path(cuda, mode):
     """Three ticks of the drain loop on the card equal the same drain on
