@@ -91,9 +91,25 @@ Phases (any failure exits non-zero):
      their plain versions at the main-path inputs and at edge shapes (wkv
      at D = 16, 32 and 64, both dtypes, with and without an initial
      state); wkv's time beside its CUDA-core and its tensor-core bound,
-     and its device kernels per call.
+     and its device kernels per call;
+  8. the engine's other modes and the batch admission: the multipass PPCC
+     chain (run_grid(fused=False), phase 3's grid and golden, no megastep
+     launch, reserve_cohort once per body iteration); the one-event
+     engine (simulate_sweep(step_mode="event"), 8 seeds as lanes, Fig. 6's
+     setting at MPL 25 to horizon 1,000, cut from 3,000 for the time) and
+     simulate() (the same setting and horizon, cohort mode), each
+     protocol, against the JAX goldens
+     src/repro_torch/golden/event_h1000.json and simulate_h1000.json; the admit_ops kernel bit-equal to its plain
+     version at the sched_admit shape (n = 256, d = 1,024, m = 512), at
+     the scheduler's scale (n = 4,096, W = 1,024, m = 16,384) and at the
+     edges, admit_ops_blocked in index and degree order against
+     admit_ops, its times beside its chain and byte bounds;
+     wc_acquire_many(exact=True) through one twopl_admit launch per lane
+     at the grid's shape; the device time of one multipass iteration and
+     of one event.
 
-Phase 6 runs right after phase 3, before phase 4's profiler sessions.
+Phase 6 and phase 8's runs follow phase 3, before phase 4's profiler
+sessions; phase 8's kernel checks and times come last.
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  The script imports
 nothing of JAX and nothing of the JAX package.
@@ -116,6 +132,25 @@ PHASE3_GOLDEN = SRC / "repro_torch" / "golden" / "run_grid_h5000.json"
 PHASE6_GOLDEN = SRC / "repro_torch" / "golden" / "run_grid_h10000.json"
 TM_GOLDEN = SRC / "repro_torch" / "golden" / "telemetry_h10000.json"
 SCHED_GOLDEN = SRC / "repro_torch" / "golden" / "sched_n4096_w1024.json"
+# phase 8: the one-event engine (8 seeds as lanes, Fig. 6's setting at MPL
+# 25, horizon 1,000: cut from 3,000, whose three runs took 298.7 s) and
+# simulate() (the same setting, horizon 1,000)
+EVENT_GOLDEN = SRC / "repro_torch" / "golden" / "event_h1000.json"
+SIMULATE_GOLDEN = SRC / "repro_torch" / "golden" / "simulate_h1000.json"
+PHASE8_FIG, PHASE8_MPL = 6, 25
+# admit_ops at the reference's sched_admit shape (benchmarks/run.py:380)
+# and at the scheduler's phase-5 scale: (label, n, d, m)
+ADMIT_OPS_SHAPES = [("sched_admit", 256, 1024, 512),
+                    ("phase-5 scale", 4096, 32_768, 16_384)]
+ADMIT_OPS_EDGES = ("m = 0", "all invalid", "one txn", "one item",
+                   "writes only", "reads only")
+# one admit_ops step: the slot tests, the warp OR, the store of the warp's
+# word, the barrier, the OR of the warps' words, the verdict, the apply and
+# the load of the next op
+ADMIT_OPS_STEP_DEPS = 8
+# 32-bit logic operations of one step per slot: the two bit tests, the
+# owner and arc tests and the class-bit tests
+ADMIT_OPS_SLOT_OPS = 10
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 INT8_OPS_PER_S = 1.979e15        # H100 SXM dense int8 tensor cores (data sheet)
 # 32-bit integer and logic results per SM per clock on compute capability
@@ -178,6 +213,7 @@ ADMIT_STEP_DEPS = {"ppcc_admit": 7, "twopl_admit": 4, "occ_admit": 4}
 SLAB_EDGE_N = {1: 30, 14: 100, 33: 100, 160: 500, 300: 1000}   # n: items
 SLAB_EDGE_K = (1, 4, 40)         # and K = n
 CAPTURE_ITERS = 200              # body iterations before capturing inputs
+EVENT_CAPTURE = 50               # events before timing one (phase 8)
 TM_RUN = dict(delta=True, telemetry=True, trace_every=8, trace_len=256)
 LM_GOLDEN = SRC / "repro_torch" / "golden" / "lm_full_width.json"
 LM_ARCHES = ("qwen3_0p6b", "rwkv6_3b")
@@ -1581,6 +1617,355 @@ def lm_phase(torch, dev, smi, cuda_ms):
     return rows, busy_shares
 
 
+def admit_ops_case(label, n, d, m, gen, torch, P, dev):
+    """A PPCC state on ``dev`` with every slot begun, a first batch of m
+    ops admitted and a quarter of the slots holding locks, and an op list
+    [1, m] (random, or the edge ``label``), all drawn from ``gen``."""
+    def op_list(mm):
+        return [torch.randint(0, n, (1, mm), generator=gen,
+                              dtype=torch.int32).to(dev),
+                torch.randint(0, d, (1, mm), generator=gen,
+                              dtype=torch.int32).to(dev),
+                (torch.rand((1, mm), generator=gen) < 0.3).to(dev),
+                (torch.rand((1, mm), generator=gen) < 0.9).to(dev)]
+
+    s = P.begin_many(P.init_state(1, n, d, device=dev),
+                     torch.ones((1, n), dtype=torch.bool, device=dev))
+    s = P.admit_ops(s, *op_list(m)).state
+    s = s._replace(haslocks=(torch.rand((1, n), generator=gen)
+                             < 0.25).to(dev))
+    ops_ = op_list(0 if label == "m = 0" else m)
+    if label == "all invalid":
+        ops_[3][:] = False
+    elif label == "one txn":
+        ops_[0][:] = 5
+    elif label == "one item":
+        ops_[1][:] = 17
+    elif label == "writes only":
+        ops_[2][:] = True
+    elif label == "reads only":
+        ops_[2][:] = False
+    return s, ops_
+
+
+def phase8_runs(torch, dev, sweep, E, P, ops, golden3) -> dict:
+    """Phase 8, its runs: the multipass PPCC grid, the one-event engine and
+    simulate(), each against its JAX golden, each with its launches."""
+    import numpy as np
+    from repro_torch.core.types import SimParams, paper_figure_params
+    info = {}
+    # the multipass PPCC chain on the grid of phase 3
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out, fl = sweep.run_grid(
+        figs=golden3["figs"], mpl_grid=golden3["mpl_grid"],
+        seeds=golden3["seeds"], horizon=golden3["horizon"],
+        protocols=("ppcc",), fused=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    body = fl.body_iters["ppcc"]
+    lanes = len(golden3["figs"]) * len(golden3["mpl_grid"]) * \
+        len(golden3["seeds"])
+    log(f"[8] multipass: run_grid(horizon={golden3['horizon']:g}, "
+        f"protocols=('ppcc',), fused=False): {lanes} lanes, {body} body "
+        f"iterations, wall {wall:.3f} s ({wall / body * 1e3:.3f} ms an "
+        f"iteration); kernel launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    check_lanes(out, ("ppcc",), golden3, "8", sweep)
+    want = {"megastep": 0, "rowslab": 0, "rowslab_drain": 0,
+            "reserve_cohort": body + 1, "occ_validate": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        fail(f"[8] multipass launches {got}, expected {want}")
+    fin = fl.final["ppcc"].pstate
+    inv = {name: bool(fn(fin).all()) for name, fn in (
+        ("path_length_leq_one", P.path_length_leq_one),
+        ("acyclic", P.acyclic), ("classes_consistent", P.classes_consistent))}
+    if not all(inv.values()):
+        fail(f"[8] Theorem-1 invariants fail on the multipass states: {inv}")
+    log(f"[8] multipass: every PPCC lane equals {PHASE3_GOLDEN.name} (the "
+        f"fused grid's golden) in {sweep.METRICS + ('now',)}; megastep "
+        f"launched 0 times, reserve_cohort once per body iteration and once "
+        f"for the init; Theorem-1 invariants hold {inv}")
+    info["multipass"] = {"wall_s": wall, "iterations": body,
+                         "wall_ms_per_iteration": wall / body * 1e3,
+                         "launches": got}
+    info["multipass_parts"] = fl.parts["ppcc"]
+    del out, fl, fin
+
+    # the one-event engine, eight seeds as lanes, each protocol
+    gold = json.loads(EVENT_GOLDEN.read_text())
+    p = SimParams(**gold["params"])
+    if gold["step_mode"] != "event" or p != paper_figure_params(
+            PHASE8_FIG).with_(mpl=PHASE8_MPL, horizon=p.horizon):
+        fail(f"{EVENT_GOLDEN.name} does not hold phase 8's event runs")
+    info["event"] = {}
+    for proto in gold["protocols"]:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = E.simulate_sweep(p, proto, gold["seeds"], step_mode="event",
+                               device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = ops.launch_counts()
+        for k, want_v in gold["lanes"][proto].items():
+            mine = res[k].tolist()
+            if k == "now":
+                want_v = np.asarray(want_v, np.float32).tolist()
+            if mine != want_v:
+                lane = next(i for i, (a, b) in enumerate(zip(mine, want_v))
+                            if a != b)
+                fail(f"[8] event {proto} lane {lane} (seed "
+                     f"{gold['seeds'][lane]}): {k} {mine[lane]} on the card, "
+                     f"{want_v[lane]} in the golden")
+        if {k: v for k, v in counts.items() if v} != {"reserve_cohort": 1}:
+            fail(f"[8] the event engine launched {counts}; only the init's "
+                 f"reserve_cohort was expected")
+        events = int(res["iters"].sum())
+        most = int(res["iters"].max())
+        info["event"][proto] = {"wall_s": wall, "lane_events": events,
+                                "events_per_s": events / wall,
+                                "wall_ms_per_event": wall / most * 1e3}
+        log(f"[8] event {proto}: simulate_sweep(step_mode='event') over "
+            f"seeds {gold['seeds']} at horizon {p.horizon:g}, MPL {p.mpl}: "
+            f"every lane equals {EVENT_GOLDEN.name} in "
+            f"{list(gold['lanes'][proto])}; "
+            f"{events} lane-events (at most {most} in a lane, one batch "
+            f"iteration each) in {wall:.3f} s, {events / wall:.1f} events/s, "
+            f"{wall / most * 1e3:.3f} ms of wall an iteration; launches "
+            f"{({k: v for k, v in counts.items() if v})} (the init's FCFS "
+            f"reservation)")
+    total = sum(v["wall_s"] for v in info["event"].values())
+    log(f"[8] event engine: the three protocols took {total:.1f} s at the "
+        f"golden's horizon {p.horizon:g} (cut from 3,000, where they took "
+        f"298.7 s)" + (", over the 120 s the phase plans for them"
+                       if total > 120 else ""))
+    info["event_params"] = p
+
+    # simulate(): one lane, cohort mode, each protocol
+    gold = json.loads(SIMULATE_GOLDEN.read_text())
+    p1 = SimParams(**gold["params"])
+    if gold["step_mode"] != "cohort" or p1 != paper_figure_params(
+            PHASE8_FIG).with_(mpl=PHASE8_MPL, horizon=p1.horizon):
+        fail(f"{SIMULATE_GOLDEN.name} does not hold phase 8's single runs")
+    for proto in gold["protocols"]:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = E.simulate(p1, proto, device=dev)
+        wall = time.perf_counter() - t
+        counts = ops.launch_counts()
+        for k, v in gold["results"][proto].items():
+            if getattr(res, k) != v:
+                fail(f"[8] simulate {proto}: {k} {getattr(res, k)} on the "
+                     f"card, {v} in the golden")
+        body = counts["reserve_cohort"] - 1
+        want = {"megastep": body if proto == "ppcc" else 0,
+                "occ_validate": body if proto == "occ" else 0}
+        if body < 1 or {k: counts[k] for k in want} != want:
+            fail(f"[8] simulate {proto} launched {counts}")
+        log(f"[8] simulate({proto}) at horizon {p1.horizon:g}: "
+            f"{sim_line(res)} equal {SIMULATE_GOLDEN.name}; "
+            f"{body} body iterations in {wall:.3f} s; launches "
+            f"{({k: v for k, v in counts.items() if v})}")
+    return info
+
+
+def sim_line(res) -> str:
+    return (f"commits {res.commits}, aborts {res.aborts}, blocks "
+            f"{res.blocks}, ops {res.ops_executed}, time {res.sim_time:g}")
+
+
+def phase8_kernels(torch, dev, sweep, E, P, ops, ref, bound, info) -> dict:
+    """Phase 8, its kernels: admit_ops against its plain version at both
+    shapes and the edges, through the entry points, timed beside its
+    bounds; wc_acquire_many(exact=True) through twopl_admit; the device
+    time of one multipass iteration and of one event.  Returns the
+    admit_ops row of the kernel table."""
+    from repro_torch.core import bitset as B
+    from repro_torch.kernels import admit_ops as kao
+    gen = torch.Generator().manual_seed(21)
+    cases = {label: admit_ops_case(label, n, d, m, gen, torch, P, dev)
+             for label, n, d, m in ADMIT_OPS_SHAPES}
+    a_label = ADMIT_OPS_SHAPES[0][0]
+    edges = {label: admit_ops_case(label, *ADMIT_OPS_SHAPES[0][1:], gen,
+                                   torch, P, dev) for label in ADMIT_OPS_EDGES}
+    err = 0.0
+    plain_wall = {}
+    for label, (s, o) in {**cases, **edges}.items():
+        args = [t.contiguous() for t in (*s, *o)]
+        got = kao.admit_ops(*args)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = ref.admit_ops_ref(*args)
+        torch.cuda.synchronize()
+        plain_wall[label] = time.perf_counter() - t
+        e = max_abs_err(got, want, torch)
+        if e or not bits_equal(got, want, torch):
+            fail(f"[8] admit_ops differs from admit_ops_ref at {label}")
+        err = max(err, e)
+    log(f"[8] admit_ops bit-equal to admit_ops_ref (verdicts and every "
+        f"state leaf) at {[(lb, n, d, m) for lb, n, d, m in ADMIT_OPS_SHAPES]}"
+        f" (label, n, d, m; every slot begun, a first batch admitted, a "
+        f"quarter of the slots holding locks) and at the edges "
+        f"{list(ADMIT_OPS_EDGES)}")
+    # the entry points, counts from 0: admit_ops and admit_ops_blocked
+    ops.reset_launches()
+    res = {}
+    for label, (s, o) in cases.items():
+        res[label] = P.admit_ops(s, *o)
+        if label == a_label:
+            by_index = P.admit_ops_blocked(s, *o, order="index")
+            by_degree = P.admit_ops_blocked(s, *o, order="degree")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["admit_ops"]
+    if launches != len(cases) + 2:
+        fail(f"[8] the admission entry points launched admit_ops "
+             f"{launches} times, not {len(cases) + 2}")
+    s, o = cases[a_label]
+    for f in ("admitted", "blocked", "aborted"):
+        if not torch.equal(getattr(by_index, f), getattr(res[a_label], f)):
+            fail(f"[8] admit_ops_blocked(order='index') {f} differs")
+    if not all(torch.equal(x, y) for x, y in zip(by_index.state,
+                                                 res[a_label].state)):
+        fail("[8] admit_ops_blocked(order='index') state differs")
+    perm = P.admit_order_degree(s, *o).long()
+    on_perm = P.admit_ops(s, *(t.gather(1, perm) for t in o))
+    for f in ("admitted", "blocked", "aborted"):
+        if not torch.equal(getattr(by_degree, f).gather(1, perm),
+                           getattr(on_perm, f)):
+            fail(f"[8] admit_ops_blocked(order='degree') {f} differs")
+    if not all(torch.equal(x, y) for x, y in zip(by_degree.state,
+                                                 on_perm.state)):
+        fail("[8] admit_ops_blocked(order='degree') state differs")
+    log(f"[8] admission entry points: admit_ops at both shapes and "
+        f"admit_ops_blocked (index and degree order) at {a_label} launched "
+        f"admit_ops {launches} times; order='index' equals admit_ops on the "
+        f"list, order='degree' admit_ops on the admit_order_degree "
+        f"permutation")
+    # times and bounds
+    sm_hz = max_sm_clock_hz()
+    row = {"name": "admit_ops", "route": "cuda",
+           "source": "src/repro_torch/csrc/admit_ops.cu",
+           "replaces": "src/repro/core/ppcc.py:273-295 (an XLA scan)",
+           "launches": launches, "max_abs_err": err, "library_ms": None,
+           "entry": "core.ppcc.admit_ops / admit_ops_blocked"}
+    for label, (s, o) in cases.items():
+        args = [t.contiguous() for t in (*s, *o)]
+        lanes, n, w = s.read_set.shape
+        m = o[0].shape[1]
+        steps = int(o[3].sum())
+        ms = cuda_times(lambda: kao.admit_ops(*args), 10, torch)
+        ms0 = cuda_times(lambda: kao.admit_ops(*args), 10, torch, False)
+        # bytes: the state read and the new state written, the ops read,
+        # the verdicts written; operations: the slot tests of every step
+        state_b = lanes * (2 * n * w * 4 + n * n + 4 * n)
+        nbytes = 2 * state_b + lanes * m * 10 + 3 * lanes * m
+        b_ms, b_by = bound(nbytes, steps * n * ADMIT_OPS_SLOT_OPS)
+        chain_ms = steps * ADMIT_OPS_STEP_DEPS * DEP_CYCLES / sm_hz * 1e3
+        if label == a_label:
+            pms = cuda_times(lambda: ref.admit_ops_ref(*args), 1, torch)
+            row.update(ms=ms, ms_no_sleep=ms0, plain_ms=pms, bound_ms=b_ms,
+                       bound_by=b_by, chain_bound_ms=chain_ms,
+                       shape={"n": n, "W": w, "m": m, "valid": steps})
+        else:
+            pms = plain_wall[label] * 1e3
+            row["at_scale"] = {"n": n, "W": w, "m": m, "valid": steps,
+                               "ms": ms, "ms_no_sleep": ms0,
+                               "plain_wall_ms": pms, "bound_ms": b_ms,
+                               "bound_by": b_by, "chain_bound_ms": chain_ms}
+        log(f"[8] admit_ops at {label} (n={n}, W={w}, m={m}, {steps} valid): "
+            f"{ms:.4f} ms ({ms0:.4f} ms back to back); plain "
+            f"{pms:.1f} ms{'' if label == a_label else ' (one call, wall)'}; "
+            f"bound {b_ms:.5f} ms by {b_by} ({nbytes} B); chain bound "
+            f"{chain_ms:.5f} ms ({steps} valid steps x {ADMIT_OPS_STEP_DEPS} "
+            f"dependent instructions x {DEP_CYCLES} cycles at "
+            f"{sm_hz / 1e6:.0f} MHz); library: none")
+
+    # wc_acquire_many(exact=True) through twopl_admit at the grid's shape
+    init, cond, step = info["multipass_parts"]
+    cfg = step.cfg
+    figs = json.loads(PHASE3_GOLDEN.read_text())
+    seed_l, mpl_l, rt_l = sweep.grid_lanes(figs["figs"], figs["mpl_grid"],
+                                           figs["seeds"], dev)
+    st = init(seed_l, mpl_l, rt_l)
+    for _ in range(CAPTURE_ITERS):
+        st = sweep._select(cond(st), step(st), st)
+    c = E._classify(cfg, st)
+    lanes, n = c.wc_m.shape
+    # the captured state (its slots' write sets rarely meet) and random
+    # write sets that do: 5 of 500 items a slot, a fifth holding locks
+    wc_sets = {
+        "captured": (st.pstate, c.wc_m | (st.pstate.active & (torch.rand(
+            c.wc_m.shape, generator=gen) < 0.3).to(dev))),
+        "random": (st.pstate._replace(
+            write_set=B.pack(torch.rand((lanes, n, cfg.d), generator=gen)
+                             < 0.01).to(dev),
+            haslocks=(torch.rand((lanes, n), generator=gen) < 0.2).to(dev)),
+            (torch.rand((lanes, n), generator=gen) < 0.5).to(dev))}
+    for label, (ps, mask) in wc_sets.items():
+        ops.reset_launches()
+        got_s, got = P.wc_acquire_many(ps, mask, exact=True)
+        torch.cuda.synchronize()
+        n_launch = ops.launch_counts()["twopl_admit"]
+        want_s, want = P.wc_acquire_many(
+            P.PPCCState(*(t.cpu() for t in ps)), mask.cpu(), exact=True)
+        if not torch.equal(got.cpu(), want) or not all(
+                torch.equal(a.cpu(), b) for a, b in zip(got_s, want_s)):
+            fail(f"[8] wc_acquire_many(exact=True) on the card differs "
+                 f"from its plain loop at the {label} inputs")
+        if n_launch != lanes:
+            fail(f"[8] wc_acquire_many(exact=True) launched twopl_admit "
+                 f"{n_launch} times for {lanes} lanes")
+        wc_ms = cuda_times(lambda: P.wc_acquire_many(ps, mask, True), 5,
+                           torch)
+        log(f"[8] wc_acquire_many(exact=True) at the grid's shape, "
+            f"{label} inputs ({lanes} lanes x n={n}, W={ps.words}; "
+            f"{int(mask.sum())} masked slots, {int(got.sum())} winners) "
+            f"bit-equal to its plain loop; {n_launch} twopl_admit launches "
+            f"(one per lane), {wc_ms:.3f} ms a call")
+    row["wc_acquire_many"] = {"twopl_admit_launches": n_launch,
+                              "ms": wc_ms, "lanes": lanes}
+
+    # device time of one multipass iteration and of one event
+    m_wall = iteration_ms(cond, step, st, sweep, torch)
+    dev_ms, kernels, per = profile_iteration(cond, step, st, sweep, torch)
+    info["multipass"].update(iteration_wall_ms=m_wall,
+                             iteration_device_ms=dev_ms,
+                             iteration_kernels=kernels)
+    log(f"[8] multipass PPCC batch iteration after {CAPTURE_ITERS}: "
+        f"{m_wall:.3f} ms wall (32 iters), " + (
+            f"{dev_ms:.3f} ms device kernel time ({kernels:.0f} kernels, "
+            f"profiled), device idle {100 * (1 - dev_ms / m_wall):.1f}%"
+            if dev_ms > 0 else "device time not measured (the profiler saw "
+            "no device time)"))
+    # one PPCC event (the three protocols' events cost alike: 3,839-3,981
+    # kernels each in the first run of this phase)
+    e_init, e_cond, e_step = E.engine_parts(info["event_params"], "ppcc",
+                                            step_mode="event", device=dev)
+    se = e_init(torch.arange(8, dtype=torch.int32, device=dev))
+    for _ in range(EVENT_CAPTURE):
+        se = sweep._select(e_cond(se), e_step(se), se)
+    e_wall = iteration_ms(e_cond, e_step, se, sweep, torch, reps=8)
+    e_dev, e_k, _ = profile_iteration(e_cond, e_step, se, sweep, torch,
+                                      reps=4)
+    info["event"]["ppcc"].update(iteration_wall_ms=e_wall,
+                                 iteration_device_ms=e_dev,
+                                 iteration_kernels=e_k)
+    log(f"[8] one event (ppcc, 8 lanes) after {EVENT_CAPTURE}: "
+        f"{e_wall:.3f} ms wall (8 iters), " + (
+            f"{e_dev:.3f} ms device kernel time ({e_k:.0f} kernels, "
+            f"profiled), device idle {100 * (1 - e_dev / e_wall):.1f}%"
+            if e_dev > 0 else "device time not measured (the profiler saw "
+            "no device time)"))
+    row["phase8"] = {k: v for k, v in info.items()
+                     if k in ("multipass", "event")}
+    return row
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1995,6 +2380,11 @@ def main() -> None:
         f"relations equal a full recompute of its final state and cursor")
     del out6, fleet6, fin6, full
 
+    # ---------------- phase 8, its runs (walls before any profiler) -------
+    t8 = time.perf_counter()
+    p8 = phase8_runs(torch, dev, sweep, E, P, ops, golden3)
+    t8 = time.perf_counter() - t8
+
     # ---------------- phase 7: LM serving (walls before any profiler) ----
     lm_rows, lm_busy = lm_phase(torch, dev, smi, lambda fn, reps, sleep=True:
                                cuda_times(fn, reps, torch, sleep))
@@ -2226,6 +2616,12 @@ def main() -> None:
                              lambda fn, reps, sleep=True:
                              cuda_times(fn, reps, torch, sleep))
 
+    # ---------------- phase 8, its kernels ----------------
+    t = time.perf_counter()
+    admit_row = phase8_kernels(torch, dev, sweep, E, P, ops, ref, bound, p8)
+    log(f"[8] phase 8 in {t8 + time.perf_counter() - t:.1f} s ({t8:.1f} s "
+        f"of runs, {time.perf_counter() - t:.1f} s of kernels and times)")
+
     rows = []
     for row in grid_rows:
         if row["name"] == "rowslab":      # the drain, phase 6's path
@@ -2237,7 +2633,8 @@ def main() -> None:
     rows += sched_rows
     lm_busy()
     rows += lm_rows
-    log(f"[done] all seven phases in {time.perf_counter() - t_start:.1f} s")
+    rows.append(admit_row)
+    log(f"[done] all eight phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,31 +1,46 @@
-"""Cohort-stepped fleet engine — the port of the cohort mode of
-``repro/core/jaxsim.py`` for fleet bodies.
+"""The simulation engine — the port of ``repro/core/jaxsim.py``.
 
-The reference runs each lane of a fleet as a ``lax.while_loop`` of
-``_cohort_body`` under ``jax.vmap``.  Here the lane axis is written out:
-every ``EngState`` leaf leads with ``[L, ...]``, ``_cohort_body``
+The reference runs a lane as a ``lax.while_loop`` of one body, and a
+fleet of lanes as ``jax.vmap`` of that loop.  Here the lane axis is
+written out: every ``EngState`` leaf leads with ``[L, ...]``, a body
 advances all lanes at once, and ``sweep.run_while`` reproduces the
 vmapped while-loop (the body runs on every lane, and the lanes whose
-``cond`` was already false keep their state).  Only fleet bodies exist
-in the port: the quiet-iteration ``lax.cond`` gates of the reference's
-single-lane body, the one-event engine and the multipass PPCC chain are
-not ported.
+``cond`` was already false keep their state).  A single run is ``L = 1``.
 
-Each iteration processes the cohort of slots whose next event falls in
-the quantum ``[t_min, t_min + cohort_dt]``: PPCC through the fused
-cohort step (``ppcc.cohort_step_fused``), whose pairwise relations come
-from the cohort-step megakernel on the card; 2PL and OCC through their
-batched adapters; FCFS resource reservation and the OCC validation are
-one scan launch each (``kernels.ops``).
+Two step modes share the state (``engine_parts(step_mode=...)``):
 
-``EngCfg.delta`` (PPCC only) carries the four relations in the state
-(``EngState.rel``) instead: init seeds them from one megastep launch,
-and each iteration recomputes only the rows and mirrored columns of the
-slots it dirtied, in one row-slab drain launch (``_delta_update``).
-``EngCfg.telemetry`` folds each iteration's commits, aborts, blocks and
-waits into the ``obs.metrics`` accumulators (``EngState.tm``) and, with
-``trace_every > 0``, samples a per-lane ring buffer.  Off, ``rel`` and
-``tm`` are zero-size leaves and the results are the same bit for bit.
+* ``cohort`` (default) processes every slot whose next event falls in
+  the quantum ``[t_min, t_min + cohort_dt]``.  PPCC goes through the
+  fused cohort step (``ppcc.cohort_step_fused``), whose pairwise relations
+  come from the cohort-step megakernel on the card, or with
+  ``fused=False`` through the reference's multipass chain
+  (``ppcc.cohort_step``, then ``ppcc.wc_acquire_many`` and
+  ``ppcc.can_commit_many``; bit-identical, and no megastep launch); 2PL
+  and OCC through their batched adapters.  FCFS resource reservation and
+  the OCC validation are one scan launch each (``kernels.ops``).
+* ``event`` processes exactly one event per lane and iteration: the slot
+  with the earliest ``next_time`` (the first on a tie), through the
+  reference's five handlers.  The reference picks one handler with
+  ``lax.switch`` and nested ``lax.cond``s; here, as ``vmap`` batches
+  them, every branch is computed from the same input state and the
+  results merge by disjoint per-lane masks, each lane keeping the key
+  its own branch split.  The body reads nothing back to the host.
+
+The reference's single-lane cohort body gates its quiet iterations with
+``lax.cond``s whose branches are exact under empty masks; on the card
+each gate would be a host read, so the port runs the gate-free fleet
+body for single runs too (``make_engine``, ``make_padded_engine``,
+``simulate``, ``simulate_sweep``) and gets the same results.
+
+``EngCfg.delta`` (PPCC, fused cohort mode) carries the four relations in
+the state (``EngState.rel``) instead: init seeds them from one megastep
+launch, and each iteration recomputes only the rows and mirrored columns
+of the slots it dirtied, in one row-slab drain launch (``_delta_update``).
+``EngCfg.telemetry`` (cohort mode) folds each iteration's commits,
+aborts, blocks and waits into the ``obs.metrics`` accumulators
+(``EngState.tm``) and, with ``trace_every > 0``, samples a per-lane ring
+buffer.  Off, ``rel`` and ``tm`` are zero-size leaves and the results are
+the same bit for bit.
 
 Random numbers come from ``core.rng``, the bit-exact twin of the
 reference's ``jax.random`` stream: each lane carries its own key.  A
@@ -43,7 +58,7 @@ import torch
 from . import bitset as B
 from . import ppcc as P
 from . import rng
-from .types import SimParams
+from .types import SimParams, SimResult
 from ..device import resolve
 from ..kernels import ops as kops
 from ..kernels import ref as kref
@@ -144,6 +159,9 @@ class EngCfg:
     horizon: float
     max_iters: int
     cohort_dt: float
+    step_mode: str = "cohort"    # cohort | event (one event per iteration)
+    fused: bool = True           # ppcc cohort mode: the fused step; False
+                                 # runs the multipass chain (same results)
     pool: int = 0                # >0: pre-sample this many transactions
                                  # per lane at init and pop on commit
     order: str = "index"         # PPCC selection priority: index | degree
@@ -151,8 +169,9 @@ class EngCfg:
                                  # two scans through kernels.ops (the CUDA
                                  # kernels on the card); False runs their
                                  # plain versions inline
-    delta: bool = False          # ppcc: carry the relations, update only
-                                 # the dirty rows per iteration
+    delta: bool = False          # ppcc, fused cohort mode: carry the
+                                 # relations, update only the dirty rows
+                                 # per iteration
     delta_k: int = 0             # slab size of the plain drain (the
                                  # reference's row-slab capacity); the
                                  # drain kernel takes every dirty slot
@@ -168,16 +187,23 @@ def default_cohort_dt(p: SimParams) -> float:
 
 
 def make_cfg(p: SimParams, protocol: str, max_iters: int = 400_000,
-             cohort_dt: float = None, n_slots: int = None, pool: int = 0,
+             step_mode: str = "cohort", cohort_dt: float = None,
+             n_slots: int = None, pool: int = 0, fused: bool = True,
              order: str = "index", megakernel: bool = None,
              delta: bool = False, delta_k: int = 0,
              telemetry: bool = False, trace_every: int = 0,
              trace_len: int = 256, device=None) -> EngCfg:
     """The engine configuration of ``engine_parts``.  ``delta`` applies
-    to PPCC only; ``delta_k <= 0`` picks ``bucket(max(1, n // 4), 8)``,
-    the reference's default slab."""
+    to PPCC in fused cohort mode only, as in the reference; ``delta_k <=
+    0`` picks ``bucket(max(1, n // 4), 8)``, the reference's default
+    slab.  An unknown ``step_mode``, and ``telemetry`` with
+    ``step_mode="event"``, raise ``ValueError``."""
     if protocol not in ("ppcc", "2pl", "occ"):
         raise ValueError(f"unknown protocol: {protocol!r}")
+    if step_mode not in ("cohort", "event"):
+        raise ValueError(f"unknown step_mode: {step_mode!r}")
+    if telemetry and step_mode != "cohort":
+        raise ValueError("telemetry requires step_mode='cohort'")
     dev = resolve(device)
     if megakernel is None:
         megakernel = dev.type == "cuda"
@@ -198,8 +224,10 @@ def make_cfg(p: SimParams, protocol: str, max_iters: int = 400_000,
         io_mean=p.io_time_mean, io_spread=p.io_time_spread,
         block_timeout=p.block_timeout, restart_mean=p.restart_delay_mean,
         horizon=p.horizon, max_iters=max_iters, cohort_dt=float(cohort_dt),
-        pool=pool, order=order, megakernel=megakernel,
-        delta=delta and protocol == "ppcc", delta_k=delta_k,
+        step_mode=step_mode, fused=fused, pool=pool, order=order,
+        megakernel=megakernel,
+        delta=delta and protocol == "ppcc" and fused and
+        step_mode == "cohort", delta_k=delta_k,
         telemetry=telemetry, trace_every=trace_every, trace_len=trace_len,
         device=str(dev))
 
@@ -257,8 +285,8 @@ def sample_txn(key: torch.Tensor, cfg: EngCfg, rt: RtParams):
 
     Writes target a random previously-read, not-yet-written item, picked
     as the reference's ``jax.random.categorical`` picks it
-    (``rng.categorical_pick``).  All draws use the ``cfg.ops_draw``
-    width."""
+    (``rng.categorical_pick``, its hashes drawn for all ops at once).
+    All draws use the ``cfg.ops_draw`` width."""
     D = cfg.ops_draw
     dev = key.device
     kl, kw, ki = rng.split(key, 3).unbind(-2)
@@ -268,6 +296,7 @@ def sample_txn(key: torch.Tensor, cfg: EngCfg, rt: RtParams):
     k1, k2 = rng.split(rng.split(ki, D), 2).unbind(-2)           # [L,S,D,2]
     item_r_all = _zipf_map(_zipf_cdf(cfg, rt),
                            rng.randint(k2, (), 0, _lane(rt.d, 3)), rt)
+    pick_m = rng.mantissas(k1, D)         # [L, S, D, D]: every op's pick
 
     ar = torch.arange(D, device=dev)
     shape = tuple(key.shape[:-1])
@@ -279,8 +308,8 @@ def sample_txn(key: torch.Tensor, cfg: EngCfg, rt: RtParams):
         avail = (ar < n_read[..., None]) & ~written
         n_avail = avail.sum(-1)
         do_write = want_w[..., j] & (n_avail > 0)
-        wpick = rng.categorical_pick(k1[..., j, :],
-                                     avail | (n_avail == 0)[..., None])
+        wpick = rng.pick_mantissa(pick_m[..., j, :],
+                                  avail | (n_avail == 0)[..., None])
         item_w = read_items.gather(-1, wpick[..., None])[..., 0]
         item_r = item_r_all[..., j]
         items.append(torch.where(do_write, item_w, item_r))
@@ -355,11 +384,13 @@ def _reserve(cfg: EngCfg, cpu_free, disk_free, t_req, cpu_dur, io_dur,
 
 
 def _try_ops_cohort(cfg: EngCfg, ps: P.PPCCState, item, is_write, ready):
-    """Batched read-phase step of 2PL or OCC over a cohort of pending
-    ops: (state, verdict, selected, block-reason), as the reference's
-    ``jaxsim._try_ops_cohort``."""
+    """Batched read-phase step over a cohort of pending ops (PPCC's
+    multipass chain, 2PL, OCC): (state, verdict, selected,
+    block-reason), as the reference's ``jaxsim._try_ops_cohort``."""
     n = ps.n
     dev = item.device
+    if cfg.protocol == "ppcc":
+        return P.cohort_step(ps, item, is_write, ready)
     if cfg.protocol == "2pl":
         # lock-table ops only interact when they target the same item
         # with a write involved; keep the lowest ready claimant per item
@@ -389,9 +420,14 @@ def _try_ops_cohort(cfg: EngCfg, ps: P.PPCCState, item, is_write, ready):
 
 
 def _wc_cohort(cfg: EngCfg, ps: P.PPCCState, dirty, wc_m):
-    """Batched wait-to-commit step of 2PL or OCC: (state, flush,
-    wait_lock, wait_prec, abort) masks."""
+    """Batched wait-to-commit step (PPCC's multipass chain, 2PL, OCC):
+    (state, flush, wait_lock, wait_prec, abort) masks."""
     zeros = torch.zeros_like(wc_m)
+    if cfg.protocol == "ppcc":
+        ps2, won = P.wc_acquire_many(ps, wc_m, exact=False)
+        can = P.can_commit_many(ps2)
+        return (ps2, wc_m & won & can, wc_m & ~won, wc_m & won & ~can,
+                zeros)
     if cfg.protocol == "2pl":
         return ps, wc_m, zeros, zeros, zeros
     fail = B.overlap_rows(ps.read_set, dirty)
@@ -597,7 +633,8 @@ def _delta_update(cfg: EngCfg, s: EngState, ps5: P.PPCCState, cur_item,
 
 def _cohort_body(cfg: EngCfg, s: EngState, consts) -> EngState:
     """One cohort iteration of every lane — the reference's
-    ``jaxsim._cohort_body`` for ``fleet=True`` engines.  ``consts`` is
+    ``jaxsim._cohort_body`` for ``fleet=True`` engines (and, its gates
+    being exact, for single-lane ones).  ``consts`` is
     ``_body_consts(cfg)``."""
     n = cfg.n
     i32, i8 = torch.int32, torch.int8
@@ -616,7 +653,7 @@ def _cohort_body(cfg: EngCfg, s: EngState, consts) -> EngState:
         torch.stack([kc, kd, kr], 1), (n,), lo, hi).unbind(1)
 
     # ---------------- read-phase + wait-to-commit cohorts --------------
-    if cfg.protocol == "ppcc":
+    if cfg.protocol == "ppcc" and cfg.fused:
         rel = None
         if cfg.delta:
             # the carried relations already equal this iteration's full
@@ -877,28 +914,278 @@ def _cohort_body(cfg: EngCfg, s: EngState, consts) -> EngState:
         pool_next=pool_next, rel=rel, tm=tm)
 
 
+# --------------------------------------------------------------------------
+# the one-event body
+# --------------------------------------------------------------------------
+
+def _event_consts(cfg: EngCfg):
+    """(lo, hi): float32[6] bounds of the one-event body's six uniform
+    draws — disk, CPU, restart delay (the read phase's keys), then disk,
+    restart delay, CPU (the two-way split's key) — on the engine's
+    device."""
+    io = (cfg.io_mean - cfg.io_spread, cfg.io_mean + cfg.io_spread)
+    cpu = (cfg.cpu_mean - cfg.cpu_spread, cfg.cpu_mean + cfg.cpu_spread)
+    rs = (0.5 * cfg.restart_mean, 1.5 * cfg.restart_mean)
+    rows = (io, cpu, rs, io, rs, cpu)
+    return tuple(torch.tensor([r[k] for r in rows], dtype=torch.float32,
+                              device=cfg.device) for k in (0, 1))
+
+
+def _reserve_one(free, now, dur, req):
+    """FCFS reservation of one server per requesting lane: the lane's
+    ``argmin(free)`` (first on a tie) is busy until ``max(now, free) +
+    dur``.  Returns (free', done)."""
+    ln = torch.arange(free.shape[0], device=free.device)
+    idx = free.argmin(1)
+    at = free[ln, idx]
+    done = torch.maximum(now, at) + dur
+    out = free.clone()
+    out[ln, idx] = torch.where(req, done, at)
+    return out, done
+
+
+def _try_op_one(cfg: EngCfg, ps: P.PPCCState, i, x, is_write, me):
+    """One read-phase op of slot ``i[l]`` per lane: (state, verdict), as
+    the reference's ``jaxsim._try_op``."""
+    if cfg.protocol == "ppcc":
+        return P.try_op(ps, i, x, is_write)
+    if cfg.protocol == "2pl":
+        others = ps.active & ~me
+        x_held = (B.get_col(ps.write_set, x) & others).any(1)
+        s_held = (B.get_col(ps.read_set, x) & others).any(1)
+        ok = torch.where(is_write, ~x_held & ~s_held, ~x_held)
+        verdict = torch.where(ok, P.PROCEED, P.BLOCK)
+    else:       # occ never blocks
+        ok = torch.ones_like(is_write)
+        verdict = torch.full_like(x, P.PROCEED)
+    return ps._replace(
+        read_set=B.set_bit(ps.read_set, i, x, ok & ~is_write),
+        write_set=B.set_bit(ps.write_set, i, x, ok & is_write),
+    ), verdict.to(torch.int32)
+
+
+def _event_body(cfg: EngCfg, s: EngState, consts) -> EngState:
+    """One event of every lane — the reference's ``step_mode="event"``
+    body: slot ``i = argmin(next_time)`` runs the handler of its
+    ``next_kind`` (``_ev_attempt``, ``_ev_disk_done``, ``_ev_flush_done``,
+    ``_ev_timeout``, ``_ev_restart`` and their helpers, jaxsim.py:373-663).
+
+    Every branch is computed from the same input state and the results
+    merge by disjoint per-lane masks, as ``vmap`` batches the reference's
+    ``lax.switch`` and ``lax.cond``s.  A branch splits the key 0, 1 or 2
+    times (a read op's three-way split, then an abort's two-way one); each
+    lane keeps the key and the draws of the branch it took.  ``consts`` is
+    ``_event_consts(cfg)``."""
+    n, dev = cfg.n, s.now.device
+    i8, i32 = torch.int8, torch.int32
+    ln = torch.arange(s.now.shape[0], device=dev)
+    slots = torch.arange(n, device=dev)
+
+    # the event: the earliest slot, its time, its handler
+    i = s.next_time.argmin(1)
+    me = slots[None, :] == i[:, None]                             # [L, n]
+    now = s.next_time[ln, i]
+    i = i.to(i32)
+    kind = s.next_kind[ln, i]
+    phase_i, op_i = s.phase[ln, i], s.op_idx[ln, i]
+    dl_i, fl_i = s.deadline[ln, i], s.flush_left[ln, i]
+    n_ops = (s.kinds[ln, i] >= 0).sum(1)
+    done_reading = op_i >= n_ops
+    in_wc = (phase_i == PH_WC_LOCK) | (phase_i == PH_WC_PREC)
+    still = (phase_i == PH_BLOCKED) | (phase_i == PH_WC_LOCK)
+    expired = still & (now >= dl_i)
+    is_to = kind == EV_TIMEOUT
+    att = (kind == EV_ATTEMPT) | (is_to & ~expired)
+    rd = att & ~(done_reading | in_wc)
+    wc = att & (done_reading | in_wc)
+
+    # the keys a branch can end with, and every draw a branch can make
+    a1, a2, a3 = rng.split(s.key, 3).unbind(-2)     # read phase, begins
+    b1, b2 = a1, a2     # the two-way split: split(key, 3)'s first two keys
+    c1, c2 = rng.split(a1, 2).unbind(-2)            # a read op's abort
+    lo, hi = consts
+    io_a, cpu_a, rs_c, io_b, rs_b, cpu_b = rng.uniform(
+        torch.stack([a2, a3, c2, b2, b2, b2], 1), (), lo, hi).unbind(1)
+    fresh_kinds, fresh_items = sample_txn(a2[:, None], cfg, s.rt)
+
+    # _ev_attempt, read phase: the protocol on the pending op
+    opc = op_i.clamp(max=cfg.max_ops - 1).long()
+    x = s.items[ln, i, opc]
+    is_w = s.kinds[ln, i, opc] == 1
+    ps0 = s.pstate
+    ps_r, verdict = _try_op_one(cfg, ps0, i, x, is_w, me)
+    proceed = verdict == P.PROCEED
+    op2 = op_i + proceed.to(i32)
+    was_last = op2 >= n_ops
+    rd_go = rd & proceed
+    p_disk = rd_go & ~is_w                 # read: a disk access
+    p_to_wc = rd_go & is_w & was_last      # last write: wait-to-commit now
+    p_cpu = rd_go & is_w & ~was_last       # write: the next CPU burst
+    p_block = rd & (verdict == P.BLOCK)
+    p_abort_rd = rd & (verdict == P.ABORT)
+
+    # _ev_attempt, wait-to-commit: 0 flush, 1 wait(lock), 2 wait(prec),
+    # 3 abort
+    if cfg.protocol == "ppcc":
+        ps_w, got = P.wc_acquire_locks(ps0, i)
+        code = torch.where(~got, 1, torch.where(P.can_commit(ps_w, i), 0, 2))
+    elif cfg.protocol == "2pl":
+        ps_w, code = ps0, torch.zeros_like(i)
+    else:
+        ps_w = ps0
+        code = torch.where(B.overlap_rows(ps0.read_set[ln, i],
+                                          s.dirty[ln, i]), 3, 0)
+    n_w = B.popcount(ps_w.write_set[ln, i])
+    flush = wc & (code == 0)
+    p_flush_io = flush & (n_w > 0)
+    p_wait_lock = wc & (code == 1)
+    p_wait_prec = wc & (code == 2)
+    p_abort_wc = wc & (code == 3)
+
+    # _ev_disk_done, _ev_flush_done, _ev_timeout's abort, _ev_restart
+    is_disk = kind == EV_DISK_DONE
+    p_disk_wc = is_disk & done_reading
+    p_disk_cpu = is_disk & ~done_reading
+    is_fl = kind == EV_FLUSH_DONE
+    left = fl_i - 1
+    p_flush_more = is_fl & (left > 0)
+    p_abort_to = is_to & expired
+    p_restart = kind == EV_RESTART
+
+    # _commit (a flush with nothing to write, or the last flush write)
+    ps_base = P.PPCCState(*(P._pick(rd, a, P._pick(wc, b, c)) for a, b, c in
+                            zip(ps_r, ps_w, ps0)))
+    commit_try = (flush & (n_w == 0)) | (is_fl & (left <= 0))
+    if cfg.protocol == "occ":
+        # Kung-Robinson: re-validate at commit
+        occ_fail = commit_try & B.overlap_rows(ps_base.read_set[ln, i],
+                                               s.dirty[ln, i])
+    else:
+        occ_fail = torch.zeros_like(commit_try)
+    commit = commit_try & ~occ_fail
+    abort = p_abort_rd | p_abort_wc | occ_fail | p_abort_to
+    begin = commit | p_restart
+    leave = commit | abort
+
+    # protocol state: leave (commit or abort), then begin
+    ps = P.begin_many(P._leave_many(ps_base, me & leave[:, None]),
+                      me & begin[:, None])
+    dirty = s.dirty
+    if cfg.protocol == "occ":
+        # a commit's writes dirty every other active transaction
+        recv = ps_base.active & ~me & commit[:, None]
+        dirty = torch.where(recv[..., None],
+                            dirty | ps_base.write_set[ln, i][:, None, :],
+                            dirty)
+        dirty = B.clear_rows(dirty, me & leave[:, None])
+    else:
+        dirty = B.clear_rows(dirty, me & abort[:, None])
+
+    # resource pools: a lane reserves at most one server
+    cpu_free, cpu_done = _reserve_one(
+        s.cpu_free, now, torch.where(p_disk_cpu, cpu_b, cpu_a),
+        p_cpu | p_disk_cpu | begin)
+    disk_free, disk_done = _reserve_one(
+        s.disk_free, now, torch.where(p_disk, io_a, io_b),
+        p_disk | p_flush_io | p_flush_more)
+
+    # slot i's next event, phase and bookkeeping, by branch
+    new_dl = torch.where(phase_i == PH_BLOCKED, dl_i,
+                         now + cfg.block_timeout)
+    lock_dl = torch.where(phase_i != PH_WC_LOCK, now + cfg.block_timeout,
+                          dl_i)
+    delay = torch.where(p_abort_rd, rs_c, rs_b)
+
+    def by(cases, default):
+        out = default
+        for m, v in cases:
+            out = torch.where(m, v, out)
+        return out
+
+    inf = torch.full_like(now, INF)
+    nt_i = by([(p_disk | p_flush_io | p_flush_more, disk_done),
+               (p_to_wc | p_disk_wc, now),
+               (p_cpu | p_disk_cpu | begin, cpu_done),
+               (p_block, new_dl), (p_wait_lock, lock_dl),
+               (abort, now + delay)], inf)
+    nk_i = by([(p_disk, EV_DISK_DONE),
+               (p_to_wc | p_cpu | p_wait_prec | is_disk | begin,
+                EV_ATTEMPT),
+               (p_block | p_wait_lock, EV_TIMEOUT),
+               (p_flush_io | p_flush_more, EV_FLUSH_DONE),
+               (abort, EV_RESTART)], kind.to(i32))
+    ph_i = by([(rd_go, PH_READ), (p_block, PH_BLOCKED),
+               (flush, PH_FLUSH), (p_wait_lock, PH_WC_LOCK),
+               (p_wait_prec, PH_WC_PREC), (abort, PH_RESTART),
+               (begin, PH_READ)], phase_i.to(i32))
+    dl_new = by([(p_block, new_dl), (p_wait_lock, lock_dl)], dl_i)
+    fl_new = by([(flush, n_w), (is_fl, left), (begin, 0)], fl_i)
+    op_new = by([(rd, op2), (begin, 0)], op_i)
+
+    # _wake_waiters on a commit or an abort: every other waiting slot's
+    # next event is now
+    waiting = (s.phase == PH_BLOCKED) | (s.phase == PH_WC_LOCK) | \
+        (s.phase == PH_WC_PREC)
+    nt = torch.where(leave[:, None] & waiting & ~me, now[:, None],
+                     s.next_time)
+
+    def put(arr, val):
+        return torch.where(me, val[:, None].to(arr.dtype), arr)
+
+    # each lane keeps the key of its branch
+    key = by([(((rd & ~p_abort_rd) | begin)[:, None], a1),
+              (p_abort_rd[:, None], c1),
+              ((p_flush_io | p_abort_wc | is_disk | p_flush_more | occ_fail
+                | p_abort_to)[:, None], b1)], s.key)
+    fresh = (me & commit[:, None])[..., None]
+    return s._replace(
+        now=now, iters=s.iters + 1, key=key, pstate=ps, dirty=dirty,
+        kinds=torch.where(fresh, fresh_kinds, s.kinds),
+        items=torch.where(fresh, fresh_items, s.items),
+        op_idx=put(s.op_idx, op_new), phase=put(s.phase, ph_i),
+        next_time=put(nt, nt_i), next_kind=put(s.next_kind, nk_i),
+        deadline=put(s.deadline, dl_new),
+        flush_left=put(s.flush_left, fl_new),
+        cpu_free=cpu_free, disk_free=disk_free,
+        commits=s.commits + commit.to(i32),
+        aborts=s.aborts + abort.to(i32),
+        blocks=s.blocks + (p_block & (phase_i != PH_BLOCKED)).to(i32),
+        ops_done=s.ops_done + rd_go.to(i32))
+
+
+# --------------------------------------------------------------------------
+# entry points
+# --------------------------------------------------------------------------
+
 def engine_parts(p: SimParams, protocol: str, max_iters: int = 400_000,
-                 cohort_dt: float = None, n_slots: int = None,
-                 pool: int = 0, order: str = "index",
-                 megakernel: bool = None, delta: bool = False,
-                 delta_k: int = 0, telemetry: bool = False,
-                 trace_every: int = 0, trace_len: int = 256, device=None):
-    """``(init, cond, step)`` of a fleet engine for ``protocol``.
+                 step_mode: str = "cohort", cohort_dt: float = None,
+                 n_slots: int = None, pool: int = 0, fused: bool = True,
+                 order: str = "index", megakernel: bool = None,
+                 delta: bool = False, delta_k: int = 0,
+                 telemetry: bool = False, trace_every: int = 0,
+                 trace_len: int = 256, device=None):
+    """``(init, cond, step)`` of an engine for ``protocol``.
 
     ``init(seed, mpl, rt)`` takes per-lane ``[L]`` seeds, MPLs and
     runtime axes (``rt=None``: ``p``'s own values for every lane);
-    ``cond(s)`` is the per-lane loop condition and ``step(s)`` one
-    cohort body over all lanes.  ``megakernel=None`` runs the CUDA
-    kernels on the card and their plain versions on the CPU.  ``delta``,
-    ``delta_k``, ``telemetry``, ``trace_every`` and ``trace_len`` are
-    the reference's options of the same names.  The default ``device``
-    is the card; ``device="cpu"`` runs on the CPU."""
-    cfg = make_cfg(p, protocol, max_iters=max_iters, cohort_dt=cohort_dt,
-                   n_slots=n_slots, pool=pool, order=order,
-                   megakernel=megakernel, delta=delta, delta_k=delta_k,
-                   telemetry=telemetry, trace_every=trace_every,
-                   trace_len=trace_len, device=device)
-    consts = _body_consts(cfg)
+    ``cond(s)`` is the per-lane loop condition and ``step(s)`` one body
+    over all lanes: a cohort iteration, or one event per lane with
+    ``step_mode="event"``.  ``megakernel=None`` runs the CUDA kernels on
+    the card and their plain versions on the CPU.  ``fused``, ``order``,
+    ``delta``, ``delta_k``, ``telemetry``, ``trace_every`` and
+    ``trace_len`` are the reference's options of the same names (``order``
+    applies to the fused step only).  The default ``device`` is the card;
+    ``device="cpu"`` runs on the CPU."""
+    cfg = make_cfg(p, protocol, max_iters=max_iters, step_mode=step_mode,
+                   cohort_dt=cohort_dt, n_slots=n_slots, pool=pool,
+                   fused=fused, order=order, megakernel=megakernel,
+                   delta=delta, delta_k=delta_k, telemetry=telemetry,
+                   trace_every=trace_every, trace_len=trace_len,
+                   device=device)
+    if step_mode == "event":
+        consts, body = _event_consts(cfg), _event_body
+    else:
+        consts, body = _body_consts(cfg), _cohort_body
 
     def init_fn(seed, mpl=None, rt: RtParams = None) -> EngState:
         seed = torch.as_tensor(seed).reshape(-1)
@@ -914,17 +1201,97 @@ def engine_parts(p: SimParams, protocol: str, max_iters: int = 400_000,
         return cond(cfg, s)
 
     def step_fn(s: EngState) -> EngState:
-        return _cohort_body(cfg, s, consts)
+        return body(cfg, s, consts)
 
     init_fn.cfg = cond_fn.cfg = step_fn.cfg = cfg
     return init_fn, cond_fn, step_fn
+
+
+def _run(init_fn, cond_fn, step_fn, seed, mpl=None, rt=None) -> EngState:
+    from .sweep import run_while         # sweep builds on this module
+    return run_while(cond_fn, step_fn, init_fn(seed, mpl, rt))[0]
+
+
+def make_engine(p: SimParams, protocol: str, max_iters: int = 400_000,
+                step_mode: str = "cohort", cohort_dt: float = None,
+                device=None):
+    """``run(seed)``: one run of ``p`` to its horizon, ``seed`` an int.
+    The ``EngState`` it returns has a lane axis of 1 (``s.commits[0]``
+    is the run's commit count); a vector of seeds runs one lane each."""
+    parts = engine_parts(p, protocol, max_iters=max_iters,
+                         step_mode=step_mode, cohort_dt=cohort_dt,
+                         device=device)
+
+    def run(seed) -> EngState:
+        return _run(*parts, seed)
+
+    run.cfg = parts[0].cfg
+    return run
+
+
+def make_padded_engine(p: SimParams, protocol: str, n_slots: int,
+                       max_iters: int = 400_000, step_mode: str = "cohort",
+                       cohort_dt: float = None, pool: int = 0,
+                       fused: bool = True, order: str = "index",
+                       delta: bool = False, delta_k: int = 0,
+                       telemetry: bool = False, trace_every: int = 0,
+                       trace_len: int = 256, device=None):
+    """An engine whose MPL is a runtime value: the slot axis pads to
+    ``n_slots`` and ``run(seed, mpl, rt=None)`` activates only the first
+    ``mpl`` slots of each lane (``seed`` and ``mpl`` ints or ``[L]``
+    vectors; ``rt`` overrides the runtime workload axes, checked against
+    ``p``'s buckets).  An ``mpl`` above ``n_slots`` raises ``ValueError``.
+    The returned state keeps its lane axis."""
+    parts = engine_parts(p, protocol, max_iters=max_iters,
+                         step_mode=step_mode, cohort_dt=cohort_dt,
+                         n_slots=n_slots, pool=pool, fused=fused,
+                         order=order, delta=delta, delta_k=delta_k,
+                         telemetry=telemetry, trace_every=trace_every,
+                         trace_len=trace_len, device=device)
+
+    def run(seed, mpl, rt: RtParams = None) -> EngState:
+        hi = int(torch.as_tensor(mpl).max())
+        if hi > n_slots:
+            raise ValueError(f"mpl={hi} > n_slots={n_slots}")
+        seed = torch.as_tensor(seed).reshape(-1)
+        mpl = torch.as_tensor(mpl).reshape(-1).expand(seed.shape[0])
+        return _run(*parts, seed, mpl, rt)
+
+    run.cfg = parts[0].cfg
+    return run
+
+
+def simulate(p: SimParams, protocol: str, step_mode: str = "cohort",
+             device=None) -> SimResult:
+    """One run of ``p`` from ``p.seed``: the reference's ``SimResult``
+    (commits, aborts, blocks, ops executed, simulated time)."""
+    s = make_engine(p, protocol, step_mode=step_mode, device=device)(p.seed)
+    res = SimResult(protocol=protocol, params=p)
+    res.commits = int(s.commits[0])
+    res.aborts = int(s.aborts[0])
+    res.blocks = int(s.blocks[0])
+    res.ops_executed = int(s.ops_done[0])
+    res.sim_time = float(min(float(s.now[0]), p.horizon))
+    return res
+
+
+def simulate_sweep(p: SimParams, protocol: str, seeds,
+                   step_mode: str = "cohort", device=None) -> dict:
+    """One lane per seed, all in one batch: ``{"commits", "aborts",
+    "blocks"}`` as the reference returns them, plus ``ops_done``,
+    ``iters`` and ``now``, each a numpy array over the seeds."""
+    s = make_engine(p, protocol, step_mode=step_mode, device=device)(
+        torch.as_tensor(seeds, dtype=torch.int32))
+    return {k: getattr(s, k).cpu().numpy()
+            for k in ("commits", "aborts", "blocks", "ops_done", "iters",
+                      "now")}
 
 
 # --------------------------------------------------------------------------
 # state conversion to and from the reference's numpy view
 # --------------------------------------------------------------------------
 
-_WORDS = {"key", "read_set", "write_set", "dirty"}   # uint32 in the reference
+_WORDS = {"key", "dirty"}     # uint32 in the reference (and the set rows)
 
 
 def state_from_numpy(tree, device=None) -> EngState:
@@ -943,12 +1310,13 @@ def state_from_numpy(tree, device=None) -> EngState:
             a = a[None]
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    nested = {"pstate": P.PPCCState, "rt": RtParams, "rel": P.Relations,
-              "tm": M.Telemetry}
+    nested = {"rt": RtParams, "rel": P.Relations, "tm": M.Telemetry}
     fields = {}
     for name in EngState._fields:
         val = getattr(tree, name)
-        if name in nested:
+        if name == "pstate":
+            fields[name] = P.state_from_numpy(val, dev)
+        elif name in nested:
             cls = nested[name]
             fields[name] = cls(*(conv(f, getattr(val, f))
                                  for f in cls._fields))
@@ -968,7 +1336,9 @@ def state_to_numpy(s: EngState) -> EngState:
     fields = {}
     for name in EngState._fields:
         val = getattr(s, name)
-        if name in ("pstate", "rt", "rel", "tm"):
+        if name == "pstate":
+            fields[name] = P.state_to_numpy(val)
+        elif name in ("rt", "rel", "tm"):
             fields[name] = type(val)(*(conv(f, getattr(val, f))
                                        for f in val._fields))
         else:

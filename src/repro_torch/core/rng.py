@@ -79,7 +79,9 @@ def _hash(key: torch.Tensor, shape) -> tuple:
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (fold-like form): ``[..., 2]`` ->
-    ``[..., num, 2]``."""
+    ``[..., num, 2]``.  The i-th key hashes counter i alone, so
+    ``split(key, a)[..., i, :]`` equals ``split(key, b)[..., i, :]`` for
+    every ``i`` below both."""
     b1, b2 = _hash(key, (num,))
     return wrap32(torch.stack([b1, b2], -1))
 
@@ -119,9 +121,8 @@ def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
     """``jax.random.randint`` to int32: two 32-bit draws per value
     combined with JAX's ``2**16`` multiplier.  ``minval``/``maxval``
     are ints or tensors broadcastable to ``[..., *shape]``."""
-    k = split(key, 2)
-    higher = bits(k[..., 0, :], shape)
-    lower = bits(k[..., 1, :], shape)
+    # both halves' bits in one hash: [..., 2, *shape]
+    higher, lower = bits(split(key, 2), shape).unbind(key.dim() - 1)
     dev = higher.device
     lo = _bound(minval, torch.int64, dev)
     hi = _bound(maxval, torch.int64, dev)
@@ -133,10 +134,22 @@ def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
     return wrap32(lo + off % span)
 
 
+def mantissas(key: torch.Tensor, width: int) -> torch.Tensor:
+    """The 23 mantissa bits ``categorical_pick`` ranks by: int64
+    ``[..., width]``.  Drawing them for many keys at once costs one hash
+    instead of one per key."""
+    return bits(key, (width,)) >> 9
+
+
+def pick_mantissa(m: torch.Tensor, allowed: torch.Tensor) -> torch.Tensor:
+    """The first argmax of ``mantissas`` ``m`` over the ``allowed``
+    entries (bool ``[..., D]``): int64 ``[...]``."""
+    return torch.where(allowed, m, torch.full_like(m, -1)).argmax(-1)
+
+
 def categorical_pick(key: torch.Tensor, allowed: torch.Tensor
                      ) -> torch.Tensor:
     """``jax.random.categorical(key, where(allowed, 0, -inf))``: the
     first argmax of the 23 mantissa bits over the allowed entries.
     ``allowed`` is bool ``[..., D]``; returns int64 ``[...]``."""
-    m = bits(key, (allowed.shape[-1],)) >> 9
-    return torch.where(allowed, m, torch.full_like(m, -1)).argmax(-1)
+    return pick_mantissa(mantissas(key, allowed.shape[-1]), allowed)

@@ -75,16 +75,19 @@ class Fleet:
     lane and ``body_iters[proto]`` counts the body iterations run on the
     protocol's batch since construction.
 
-    ``delta=True`` carries the PPCC relations and updates only the dirty
-    rows per iteration; ``telemetry=True`` adds each protocol's
-    per-lane ``telemetry`` block (``TELEMETRY``) to the results.  Both
-    leave every metric unchanged.
+    ``fused=False`` runs the PPCC lanes through the multipass cohort
+    chain instead of the fused step (no megastep launch); ``delta=True``
+    carries the PPCC relations and updates only the dirty rows per
+    iteration (fused only); ``telemetry=True`` adds each protocol's
+    per-lane ``telemetry`` block (``TELEMETRY``) to the results.  All
+    three leave every metric unchanged.
     """
 
     def __init__(self, p: SimParams, protocols: Sequence[str] = PROTOCOLS,
                  n_slots: Optional[int] = None, max_iters: int = 400_000,
                  cohort_dt: Optional[float] = None,
-                 pool: Optional[int] = None, order: str = "index",
+                 pool: Optional[int] = None, fused: bool = True,
+                 order: str = "index",
                  megakernel: Optional[bool] = None, delta: bool = False,
                  delta_k: int = 0, telemetry: bool = False,
                  trace_every: int = 0, trace_len: int = 256, device=None):
@@ -102,7 +105,7 @@ class Fleet:
         self.parts = {
             proto: E.engine_parts(p, proto, max_iters=max_iters,
                                   cohort_dt=cohort_dt, n_slots=n_slots,
-                                  pool=pool, order=order,
+                                  pool=pool, fused=fused, order=order,
                                   megakernel=megakernel, delta=delta,
                                   delta_k=delta_k, telemetry=telemetry,
                                   trace_every=trace_every,
@@ -207,7 +210,8 @@ def run_grid(figs: Sequence[int] = GRID_FIGS,
              protocols: Sequence[str] = PROTOCOLS,
              n_slots: Optional[int] = None, max_iters: int = 400_000,
              fleet: Optional[Fleet] = None, megakernel: Optional[bool] = None,
-             delta: bool = False, delta_k: int = 0, telemetry: bool = False,
+             fused: bool = True, delta: bool = False, delta_k: int = 0,
+             telemetry: bool = False,
              trace_every: int = 0, trace_len: int = 256, device=None
              ) -> Tuple[Dict[int, Dict[str, Dict[str, np.ndarray]]], Fleet]:
     """Every paper figure's grid in one lane batch per protocol.
@@ -217,8 +221,8 @@ def run_grid(figs: Sequence[int] = GRID_FIGS,
     pools) and each figure's lanes carry its live values.  Returns
     ``({fig: {protocol: {metric: np.ndarray[M, S]}}}, fleet)``, with a
     ``telemetry`` block of ``[M, S, ...]`` arrays per protocol when
-    ``telemetry`` is on.  Pass ``fleet`` from an earlier call to reuse
-    it.
+    ``telemetry`` is on.  ``fused=False`` runs PPCC through the
+    multipass chain.  Pass ``fleet`` from an earlier call to reuse it.
     """
     figs = tuple(figs)
     if fleet is None:
@@ -227,9 +231,9 @@ def run_grid(figs: Sequence[int] = GRID_FIGS,
             n_slots = slot_bucket(max(mpl_grid))
         fleet = Fleet(cover, protocols=protocols, n_slots=n_slots,
                       max_iters=max_iters, megakernel=megakernel,
-                      delta=delta, delta_k=delta_k, telemetry=telemetry,
-                      trace_every=trace_every, trace_len=trace_len,
-                      device=device)
+                      fused=fused, delta=delta, delta_k=delta_k,
+                      telemetry=telemetry, trace_every=trace_every,
+                      trace_len=trace_len, device=device)
     seed_l, mpl_l, rt_l = grid_lanes(figs, mpl_grid, seeds, fleet.device)
     flat = fleet.run_lanes(seed_l, mpl_l, rt_l)
     shape = (len(figs), len(mpl_grid), len(seeds))

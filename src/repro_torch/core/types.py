@@ -1,15 +1,31 @@
-"""Shared parameter types: the port's own copy of the parts of
-``repro/core/types.py`` the fleet path needs.
+"""Shared types: the port's own copy of ``repro/core/types.py``.
 
 The paper's simulation model (Section 3.1, after Agrawal-Carey-Livny)
 is parameterised by ``SimParams``; ``paper_figure_params`` maps each of
 Figs. 5-16 to its setting and ``grid_cover_params`` gives the static
-buckets one fleet needs to run them all.
+buckets one fleet needs to run them all.  A transaction is a fixed
+sequence of ``Op``s (``core.workload``); a write always targets an item
+the same transaction read before.
 """
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Optional, Tuple
+
+
+class OpKind(enum.IntEnum):
+    READ = 0
+    WRITE = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Op:
+    kind: OpKind
+    item: int
+
+    def __repr__(self) -> str:  # compact: R(7) / W(3)
+        return f"{'RW'[self.kind]}({self.item})"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,15 +3,16 @@ their kernels.
 
 A CUDA tensor goes to the hand-written kernel (``kernels.megastep`` for
 the megastep, row-slab drain and row-slab kernels, ``kernels.scan``,
-``kernels.conflict``, ``kernels.admit``, ``kernels.flash_attention``,
-``kernels.wkv``), a CPU tensor to the kernel's plain version
-(``kernels.ref``).  There is no fallback: a failed build or launch on
-the card raises.  ``launch_counts`` reads
-the wrappers' launch counters and ``reset_launches`` sets them to 0.
+``kernels.conflict``, ``kernels.admit``, ``kernels.admit_ops``,
+``kernels.flash_attention``, ``kernels.wkv``), a CPU tensor to the
+kernel's plain version (``kernels.ref``).  There is no fallback: a failed
+build or launch on the card raises.  ``launch_counts`` reads the
+wrappers' launch counters and ``reset_launches`` sets them to 0.
 """
 from __future__ import annotations
 
 from . import admit as _admit
+from . import admit_ops as _admit_ops
 from . import conflict as _conflict
 from . import flash_attention as _flash
 from . import megastep as _megastep
@@ -126,6 +127,16 @@ def occ_admit(raw, ww, valid):
     return fn(raw, ww, valid)
 
 
+def admit_ops(read_set, write_set, prec, preceding, preceded, active,
+              haslocks, txn, item, is_write, valid):
+    """PPCC op-list admission of every lane: ``(admitted, blocked,
+    aborted, *state)`` (``core.ppcc.PPCCState``'s seven leaves)."""
+    fn = _admit_ops.admit_ops if _route(read_set, "admit_ops") \
+        else ref.admit_ops_ref
+    return fn(read_set, write_set, prec, preceding, preceded, active,
+              haslocks, txn, item, is_write, valid)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     sm_scale: float = None):
     """Flash attention: q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` ->
@@ -144,7 +155,8 @@ def wkv_chunked(r, k, v, log_w, u, *, chunk: int = 64, state0=None):
 
 
 _COUNTERS = (_megastep.launches, _scan.launches, _conflict.launches,
-             _admit.launches, _flash.launches, _wkv.launches)
+             _admit.launches, _admit_ops.launches, _flash.launches,
+             _wkv.launches)
 
 
 def launch_counts() -> dict:

@@ -328,6 +328,82 @@ def occ_admit_ref(raw: torch.Tensor, ww: torch.Tensor,
     return survivors
 
 
+# admit_ops verdicts (core.ppcc's PROCEED, BLOCK, ABORT)
+_PROCEED, _BLOCK, _ABORT = 0, 1, 2
+
+
+def admit_ops_ref(read_set: torch.Tensor, write_set: torch.Tensor,
+                  prec: torch.Tensor, preceding: torch.Tensor,
+                  preceded: torch.Tensor, active: torch.Tensor,
+                  haslocks: torch.Tensor, txn: torch.Tensor,
+                  item: torch.Tensor, is_write: torch.Tensor,
+                  valid: torch.Tensor):
+    """PPCC admission of an op list in list order, every lane at once: the
+    ``lax.scan`` of ``repro.core.ppcc.admit_ops``, one ``try_op`` step per
+    op, applied in place to a copy of the state.
+
+    The state is ``core.ppcc.PPCCState``'s seven leaves (``int32[L, n, W]``
+    sets, ``bool[L, n, n]`` prec, ``bool[L, n]`` flags); the ops are
+    ``[L, m]`` (``txn``, ``item`` int32, ``is_write``, ``valid`` bool).
+    A valid op's ``txn`` and ``item`` must lie in ``[0, n)`` and
+    ``[0, 32 W)`` (``ppcc.admit_ops`` checks); an invalid op changes
+    nothing.  Returns ``(admitted, blocked, aborted)`` ``bool[L, m]``
+    followed by the seven leaves of the new state."""
+    sets = torch.stack((read_set, write_set), 1)          # [L, 2, n, W]
+    classes = torch.stack((preceding, preceded), 1)       # [L, 2, n]
+    prec = prec.clone()
+    lanes, _, n, _ = sets.shape
+    dev = sets.device
+    ar = torch.arange(lanes, device=dev)
+    me_all = torch.arange(n, device=dev)
+    # per op: slot, word, bit, kind (an invalid op reads slot 0, item 0)
+    t_all = torch.where(valid, txn, 0).long()
+    x_all = torch.where(valid, item, 0).long()
+    steps = zip(t_all.unbind(1), (x_all >> 5).unbind(1),
+                (x_all & 31).unbind(1), is_write.long().unbind(1),
+                valid.unbind(1))
+    verdicts = []
+    for t, wd, b, w, v in steps:
+        wb = w.bool()[:, None]
+        bits = ((sets[ar, :, :, wd] >> b[:, None, None]) & 1).bool()
+        rcol, wcol = bits[:, 0], bits[:, 1]                 # [L, n]
+        me = me_all[None, :] == t[:, None]
+        prow, pcol = prec[ar, t, :], prec[ar, :, t]
+        # the lock verdict: an owner of x holds locks and writes it
+        owner = wcol & haslocks
+        lock_v = torch.where((owner & ~me).any(1), torch.where(
+            (owner & prow).any(1), _ABORT, _BLOCK), _PROCEED)
+        # the Prudent Precedence Rule on the arcs the op would add: a read
+        # t -> the active writers it does not yet precede (t must never
+        # have been preceded, none of them may precede), a write the
+        # active readers not yet preceding t -> t (the mirror image)
+        new = torch.where(wb, rcol & ~pcol, wcol & ~prow) & active & ~me
+        any_new = new.any(1)
+        mine = classes[ar, w]           # read: preceding, write: preceded
+        theirs = classes[ar, 1 - w]     # read: preceded, write: preceding
+        allowed = (lock_v == _PROCEED) & v & (~any_new | ~(
+            theirs[ar, t] | (new & mine).any(1)))
+        verdicts.append(torch.where(v, torch.where(
+            lock_v != _PROCEED, lock_v,
+            torch.where(allowed, _PROCEED, _BLOCK)), _BLOCK))
+        # apply: the set bit, the arcs, the class bits
+        add = new & allowed[:, None]
+        word = (sets[ar, w, t, wd].long() & 0xFFFFFFFF) | (
+            allowed.long() << b)
+        sets[ar, w, t, wd] = (((word + 2 ** 31) & 0xFFFFFFFF)
+                              - 2 ** 31).to(torch.int32)
+        prec[ar, t, :] = prow | (add & ~wb)
+        prec[ar, :, t] = pcol | (add & wb)
+        classes[ar, 1 - w] = theirs | add
+        classes[ar, w, t] = mine[ar, t] | (allowed & any_new)
+    verdict = torch.stack(verdicts, 1) if verdicts else \
+        torch.full((lanes, 0), _BLOCK, device=dev)
+    return ((verdict == _PROCEED) & valid, (verdict == _BLOCK) & valid,
+            (verdict == _ABORT) & valid, sets[:, 0].contiguous(),
+            sets[:, 1].contiguous(), prec, classes[:, 0].contiguous(),
+            classes[:, 1].contiguous(), active.clone(), haslocks.clone())
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         sm_scale: Optional[float] = None) -> torch.Tensor:

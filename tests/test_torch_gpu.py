@@ -222,13 +222,16 @@ def test_kernel_path_equals_plain_path(cuda, proto):
 DELTA_TM = dict(delta=True, telemetry=True, trace_every=2, trace_len=8)
 
 
-@pytest.mark.parametrize("opts", [{}, DELTA_TM], ids=["plain", "delta_tm"])
+@pytest.mark.parametrize("opts", [{}, DELTA_TM, dict(step_mode="event"),
+                                  dict(fused=False)],
+                         ids=["plain", "delta_tm", "event", "multipass"])
 @pytest.mark.parametrize("proto", TS.PROTOCOLS)
 def test_body_never_waits_for_the_device(cuda, proto, opts):
     """A batch iteration queues its work without a host-device sync
     (no ``.item()``, no blocking host-to-device copy), so host and card
     overlap; only ``run_while``'s check every 32 iterations waits.  The
-    same holds with delta-maintained relations and telemetry on."""
+    same holds with delta-maintained relations and telemetry on, for the
+    one-event body and for the multipass PPCC chain."""
     p = TT.grid_cover_params((6, 13)).with_(horizon=2000.0)
     seeds, mpls, rt = TS.grid_lanes((6, 13), (5, 50), (0, 1), cuda)
     init, cond, step = E.engine_parts(p, proto, n_slots=64, pool=512,
@@ -986,6 +989,105 @@ def test_wkv_kernel_at_the_main_path_layout(cuda):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3)
+
+
+def _admit_case(gen, kind, lanes, n, d, m):
+    """A reachable PPCC state on the CPU (every slot begun, a first batch
+    admitted, a quarter of the slots holding locks) and an op list
+    ``[L, m]``: random, or an edge list."""
+    from repro_torch.core import ppcc as TP
+
+    def op_list():
+        txn = torch.randint(0, n, (lanes, m), generator=gen,
+                            dtype=torch.int32)
+        item = torch.randint(0, d, (lanes, m), generator=gen,
+                             dtype=torch.int32)
+        wr = torch.rand((lanes, m), generator=gen) < 0.3
+        valid = torch.rand((lanes, m), generator=gen) < 0.9
+        return [txn, item, wr, valid]
+
+    s = TP.begin_many(TP.init_state(lanes, n, d, device="cpu"),
+                      torch.ones((lanes, n), dtype=torch.bool))
+    s = TP.admit_ops(s, *op_list()).state
+    s = s._replace(haslocks=torch.rand((lanes, n), generator=gen) < 0.25)
+    ops_ = op_list()
+    if kind == "one txn":
+        ops_[0][:] = 3 % n
+    elif kind == "one item":
+        ops_[1][:] = 7 % d
+    elif kind == "writes only":
+        ops_[2][:] = True
+    elif kind == "reads only":
+        ops_[2][:] = False
+    elif kind == "all invalid":
+        ops_[3][:] = False
+    return s, ops_
+
+
+@pytest.mark.parametrize("kind", ["random", "one txn", "one item",
+                                  "writes only", "reads only", "all invalid"])
+@pytest.mark.parametrize("lanes,n,d,m", [(3, 16, 40, 100), (2, 33, 100, 300),
+                                         (1, 256, 1024, 512),
+                                         (2, 1025, 64, 200),
+                                         (1, 160, 500, 0)])
+def test_admit_ops_kernel_matches_plain(cuda, kind, lanes, n, d, m):
+    """``admit_ops`` on the card: every verdict and state leaf bit-equal
+    to ``ref.admit_ops_ref``, one launch per call with ops (none for an
+    empty list), the input state left as it was."""
+    from repro_torch.kernels import admit_ops as kadm
+    gen = torch.Generator().manual_seed(lanes * n + m)
+    s, op_list = _admit_case(gen, kind, lanes, n, d, m)
+    args = [t.to(cuda).contiguous() for t in (*s, *op_list)]
+    before = [t.clone() for t in args]
+    ops.reset_launches()
+    got = kadm.admit_ops(*args)
+    assert ops.launch_counts()["admit_ops"] == (1 if m else 0)
+    want = ref.admit_ops_ref(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    for a, b in zip(args, before):
+        assert torch.equal(a, b)
+
+
+def test_admit_ops_rejects_what_it_does_not_take(cuda):
+    from repro_torch.core import ppcc as TP
+    from repro_torch.kernels import admit_ops as kadm
+    s = TP.begin_many(TP.init_state(2, 8, 40, device=cuda),
+                      torch.ones((2, 8), dtype=torch.bool, device=cuda))
+    zi = torch.zeros((2, 5), dtype=torch.int32, device=cuda)
+    zb = torch.zeros((2, 5), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):                  # txn int64
+        kadm.admit_ops(*s, zi.long(), zi, zb, zb)
+    with pytest.raises(ValueError):                  # one lane of ops
+        kadm.admit_ops(*s, zi[:1], zi[:1], zb[:1], zb[:1])
+    with pytest.raises(ValueError):                  # a CPU state
+        kadm.admit_ops(*(t.cpu() for t in s), zi, zi, zb, zb)
+    with pytest.raises(ValueError):                  # valid txn out of range
+        TP.admit_ops(s, zi + 8, zi, zb, ~zb)
+
+
+def test_wc_acquire_many_exact_rides_twopl_admit(cuda):
+    """``wc_acquire_many(exact=True)`` on the card, at the grid's shape
+    (n = 160, W = 16): one ``twopl_admit`` launch per lane, bit-equal to
+    the plain loop on the CPU."""
+    from repro_torch.core import ppcc as TP
+    gen = torch.Generator().manual_seed(3)
+    lanes, n, d = 8, 160, 500
+    s = TP.begin_many(TP.init_state(lanes, n, d, device="cpu"),
+                      torch.ones((lanes, n), dtype=torch.bool))
+    s = s._replace(
+        write_set=TB.pack(torch.rand((lanes, n, d), generator=gen) < 0.01),
+        haslocks=torch.rand((lanes, n), generator=gen) < 0.2)
+    mask = torch.rand((lanes, n), generator=gen) < 0.5
+    want_s, want = TP.wc_acquire_many(s, mask, exact=True)
+    ops.reset_launches()
+    got_s, got = TP.wc_acquire_many(
+        TP.PPCCState(*(t.to(cuda) for t in s)), mask.to(cuda), exact=True)
+    assert ops.launch_counts()["twopl_admit"] == lanes
+    assert torch.equal(got.cpu(), want) and want.any()
+    for a, b in zip(got_s, want_s):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_wkv_rejects_what_it_does_not_take(cuda):
