@@ -106,10 +106,24 @@ Phases (any failure exits non-zero):
      admit_ops, its times beside its chain and byte bounds;
      wc_acquire_many(exact=True) through one twopl_admit launch per lane
      at the grid's shape; the device time of one multipass iteration and
-     of one event.
+     of one event;
+  9. the int8 and sliding-window KV caches and the hybrid family: the
+     golden's yi-34b (int8 cache, 2 layers) and zamba2-1.2b (13 layers,
+     window cut to 64) against lm_full_width.json; zamba2-1.2b at its
+     published width and depth (prefill 4 x 8,192, flash with window
+     4,096 on its tensor cores, 6 launches) and yi-34b at its width with
+     16 of its 60 layers and its int8 cache (LM.prefill 8 x 1,024, 16
+     launches), bf16: the main path counted, serve() under each policy
+     against the reference's summaries, decode against prefill (held in
+     float32, bf16 reported), zamba2's 64-slot ring against a 96-slot
+     linear cache, flash against its plain version at both prefills'
+     layer-0 inputs with its time, bound and SDPA time; the busy shares
+     and what the Mamba2 chunk scan, the Mamba2 decode and the int8
+     dequant cost a step.
 
-Phase 6 and phase 8's runs follow phase 3, before phase 4's profiler
-sessions; phase 8's kernel checks and times come last.
+Phase 6 and phase 8's runs follow phase 3, then phases 7 and 9, all
+before phase 4's profiler sessions; phase 8's kernel checks and times
+come last, then the profiles of phases 7 and 9.
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  The script imports
 nothing of JAX and nothing of the JAX package.
@@ -222,6 +236,20 @@ LM_ARCHES = ("qwen3_0p6b", "rwkv6_3b")
 LM_KERNEL = {"dense": "flash_attention", "rwkv": "wkv_chunked"}
 PREFILL_B, PREFILL_S = 8, 1024
 DECODE_CHECK = {"qwen3_0p6b": 64, "rwkv6_3b": 128}   # prompt tokens decoded
+# phase 9: zamba2-1.2b at its published width and depth, and yi-34b at its
+# published width with its depth cut from 60 to 16 layers (20 GB of bf16
+# weights beside the earlier phases' models; 60 layers are ~70 GB)
+PHASE9 = ("zamba2_1p2b", "yi_34b")
+YI_LAYERS = 16
+# (batch, tokens) of each model's prefill: zamba2's is twice its window of
+# 4,096, so flash masks keys by the window; yi's is phase 7's
+PREFILL9 = {"zamba2_1p2b": (4, 8192), "yi_34b": (8, 1024)}
+# prompt tokens decoded; zamba2's cut from 128 to 64 (~9 s of ~67 ms
+# decode steps, bf16 and float32) to keep the script within ~120 s of its
+# length before phase 9 (on one H100: 781.1 s with 128, 647.8 s before)
+DECODE9 = {"zamba2_1p2b": 64, "yi_34b": 64}
+RING9 = (64, 96)   # zamba2's ring: the window cut to 64 slots, 96 tokens
+POLICIES = ("ppcc", "2pl", "occ")
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
 # (b, Hq, Hkv, Sq, Sk, D, dtype, causal, window); the bf16 shapes take the
@@ -1203,12 +1231,110 @@ def sched_phase(torch, dev, bound, cuda_ms) -> list:
     return table
 
 
+def prefill_kernel(cfg, dtype: str):
+    """(counter, launches) of one prefill of ``cfg`` in ``dtype``: flash
+    once per attention layer (once per group of the hybrid family, whose
+    shared block closes each group), on its tensor cores in bf16 and its
+    CUDA-core route in float32; the WKV once per RWKV layer."""
+    if cfg.family == "rwkv":
+        return "wkv_chunked", cfg.n_layers
+    name = "flash_attention_tc" if dtype == "bfloat16" else "flash_attention"
+    if cfg.family == "hybrid":
+        return name, cfg.n_layers // cfg.hybrid_attn_every
+    return name, cfg.n_layers
+
+
+def lm_golden(arch, gold, dev, torch, tag) -> None:
+    """``arch``'s run of ``golden/lm_full_width.json`` (full width, cut in
+    depth, float32, seeded weights) on the card, held to the golden within
+    the model's tolerance."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch import golden as G
+    from repro_torch.models import LM, convert
+    cfg = G.golden_config(arch)
+    rec = gold["models"][arch]
+    tol = gold["tolerance"]
+    atol, rtol = tol["atol"][arch], tol["rtol"][arch]
+    prompt, cont, ids = G.inputs(cfg)
+    if ids.tolist() != rec["ids"] or hashlib.sha256(
+            prompt.tobytes() + cont.tobytes()).hexdigest() != \
+            rec["prompt_sha256"]:
+        fail(f"{tag} {arch}: the golden's tokens differ from this "
+             f"machine's draw")
+    tree = convert.random_jax_tree(cfg, G.SEED)
+    if convert.tree_sha256(tree) != rec["weights_sha256"]:
+        fail(f"{tag} {arch}: the seeded weights differ from the golden's "
+             f"(the numpy generator differs here)")
+    lm = LM(cfg, device=dev)
+    lm.load_state_dict(convert.params_from_jax(cfg, tree))
+    del tree
+    ops.reset_launches()
+    got = G.port_run(lm, prompt, cont, ids)
+    torch.cuda.synchronize()
+    kernel, want = prefill_kernel(cfg, "float32")
+    launched = ops.launch_counts()[kernel]
+    if launched != want:
+        fail(f"{tag} {arch} golden run: {kernel} launched {launched} "
+             f"times, not once per attention application of the prefill "
+             f"({want})")
+    worst = 0.0
+    for key, val in got.items():
+        want_v = np.asarray(rec[key])
+        err = np.abs(val - want_v)
+        bad = err > atol + rtol * np.abs(want_v)
+        if bad.any():
+            fail(f"{tag} {arch} {key}: max abs err {err.max():.3g} beyond "
+                 f"the golden's atol {atol}, rtol {rtol} at "
+                 f"{int(bad.sum())} entries")
+        worst = max(worst, float(err.max()))
+    cuts = G.CUTS.get(arch)
+    int8 = tol.get("int8_step", {}).get(arch)
+    log(f"{tag} {arch} at full width ({cfg.d_model} wide, vocab "
+        f"{cfg.vocab}), {cfg.n_layers} layers"
+        + (f", cut {cuts}" if cuts else "")
+        + f", float32, {cfg.cache_dtype} cache, seeded weights (sha256 "
+        f"equal): prefill of {G.B} x {G.S} ({kernel} x {launched}) and "
+        f"{G.STEPS} decode steps"
+        + (" after the prompt decoded from empty caches"
+           if G.decodes_prompt(cfg) else "")
+        + f" equal {LM_GOLDEN.name} at {G.N_IDS} ids and every logsumexp, "
+        f"max abs err {worst:.3g} (atol {atol}, rtol {rtol}; CPU port "
+        f"{tol['cpu_max_abs_err'][arch]:.3g}"
+        + (f"; one int8 step on every code {int8}" if int8 else "") + ")")
+    del lm, got
+    torch.cuda.empty_cache()
+
+
+def decode_prompt(lm, prompt, torch):
+    """(last logits of decoding ``prompt`` token by token from empty
+    caches, seconds per step after the first)."""
+    caches = lm.init_caches(prompt.shape[0], prompt.shape[1])
+    with torch.inference_mode():
+        lg, caches = lm.decode_step(caches, prompt[:, :1], 0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(1, prompt.shape[1]):
+            lg, caches = lm.decode_step(caches, prompt[:, i:i + 1], i)
+        torch.cuda.synchronize()
+    return lg.float(), (time.perf_counter() - t) / (prompt.shape[1] - 1)
+
+
+def against_prefill(lm, prompt, torch):
+    """(max |decode - prefill| of the last logits, the prefill's largest
+    magnitude, at least 1, seconds per decode step)."""
+    from repro_torch.launch import steps
+    want_l = steps.make_prefill_step(lm)({"tokens": prompt}).float()
+    got_l, sec = decode_prompt(lm, prompt, torch)
+    return (float((got_l - want_l).abs().max()),
+            max(1.0, float(want_l.abs().max())), sec)
+
+
 def lm_phase(torch, dev, smi, cuda_ms):
     """Phase 7: LM serving at full width.  Returns (the kernel-table rows
     of flash_attention and wkv_chunked, a function that takes the
     device's busy share of a decode and a prefill step, to run after
     every wall of the script)."""
-    import numpy as np
     import torch.nn.functional as F
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as kflash
@@ -1217,58 +1343,16 @@ def lm_phase(torch, dev, smi, cuda_ms):
     from repro_torch.launch import golden as G
     from repro_torch.launch import serve as srv
     from repro_torch.launch import steps
-    from repro_torch.models import LM, convert
+    from repro_torch.models import LM
 
     gold = json.loads(LM_GOLDEN.read_text())
-    tol = gold["tolerance"]
-    if gold["run"] != {"seed": G.SEED, "batch": G.B, "prompt": G.S,
-                       "steps": G.STEPS, "ids": G.N_IDS,
-                       "layers": G.LAYERS}:
+    if gold["run"] != G.run_record():
         fail(f"{LM_GOLDEN.name} was written for another run: {gold['run']}")
     t7 = time.perf_counter()
 
     # ---- (b) full width, 2 layers, float32, against the JAX golden
     for arch in LM_ARCHES:
-        cfg = G.golden_config(arch)
-        rec = gold["models"][arch]
-        prompt, cont, ids = G.inputs(cfg)
-        if ids.tolist() != rec["ids"] or hashlib.sha256(
-                prompt.tobytes() + cont.tobytes()).hexdigest() != \
-                rec["prompt_sha256"]:
-            fail(f"[7] {arch}: the golden's tokens differ from this "
-                 f"machine's draw")
-        tree = convert.random_jax_tree(cfg, G.SEED)
-        if convert.tree_sha256(tree) != rec["weights_sha256"]:
-            fail(f"[7] {arch}: the seeded weights differ from the golden's "
-                 f"(the numpy generator differs here)")
-        lm = LM(cfg, device=dev)
-        lm.load_state_dict(convert.params_from_jax(cfg, tree))
-        del tree
-        ops.reset_launches()
-        got = G.port_run(lm, prompt, cont, ids)
-        torch.cuda.synchronize()
-        kernel = LM_KERNEL[cfg.family]
-        launched = ops.launch_counts()[kernel]
-        if launched != cfg.n_layers:
-            fail(f"[7] {arch} golden run: {kernel} launched {launched} "
-                 f"times, not once per layer of the prefill")
-        worst = 0.0
-        for key, val in got.items():
-            want = np.asarray(rec[key])
-            err = np.abs(val - want)
-            bad = err > tol["atol"] + tol["rtol"] * np.abs(want)
-            if bad.any():
-                fail(f"[7] {arch} {key}: max abs err {err.max():.3g} beyond "
-                     f"the golden's atol {tol['atol']}, rtol {tol['rtol']} "
-                     f"at {int(bad.sum())} entries")
-            worst = max(worst, float(err.max()))
-        log(f"[7] {arch} at full width ({cfg.d_model} wide, vocab "
-            f"{cfg.vocab}), {cfg.n_layers} layers, float32, seeded weights "
-            f"(sha256 equal): prefill of {G.B} x {G.S} and {G.STEPS} decode "
-            f"steps equal {LM_GOLDEN.name} at {G.N_IDS} ids and every "
-            f"logsumexp, max abs err {worst:.3g} (atol {tol['atol']}, rtol "
-            f"{tol['rtol']}; CPU port {tol['cpu_max_abs_err'][arch]:.3g})")
-        del lm, got
+        lm_golden(arch, gold, dev, torch, "[7]")
 
     # ---- (c) full depth, bf16: the main path, counted
     lms, toks = {}, {}
@@ -1348,34 +1432,13 @@ def lm_phase(torch, dev, smi, cuda_ms):
     # ---- walls: prefill, decode against prefill, serve
     walls, drift = {}, {}
 
-    def decode_prompt(lm, prompt):
-        """(last logits of decoding ``prompt`` token by token, seconds per
-        step after the first)."""
-        caches = lm.init_caches(prompt.shape[0], prompt.shape[1])
-        with torch.inference_mode():
-            lg, caches = lm.decode_step(caches, prompt[:, :1], 0)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for i in range(1, prompt.shape[1]):
-                lg, caches = lm.decode_step(caches, prompt[:, i:i + 1], i)
-            torch.cuda.synchronize()
-        return lg.float(), (time.perf_counter() - t) / (prompt.shape[1] - 1)
-
-    def against_prefill(lm, prompt):
-        """(max |decode - prefill| of the last logits, the prefill's
-        largest magnitude, at least 1)."""
-        want_l = steps.make_prefill_step(lm)({"tokens": prompt}).float()
-        got_l, sec = decode_prompt(lm, prompt)
-        return (float((got_l - want_l).abs().max()),
-                max(1.0, float(want_l.abs().max())), sec)
-
     for arch, lm in lms.items():
         prefill = steps.make_prefill_step(lm)
         walls[arch, "prefill"] = median_wall_ms(
             lambda: prefill({"tokens": toks[arch]}), 3, torch) / 1e3
         n = DECODE_CHECK[arch]
         err, scale, walls[arch, "decode"] = against_prefill(
-            lm, toks[arch][:, :n])
+            lm, toks[arch][:, :n], torch)
         drift[arch, "bf16"] = (err, scale)
         out = srv.serve(lm, policy="ppcc")
         walls[arch, "serve"] = out["wall"]
@@ -1396,7 +1459,7 @@ def lm_phase(torch, dev, smi, cuda_ms):
                              cache_dtype="float32")
         lm32 = LM(cfg32, device=dev)
         lm32.load_state_dict(lm.state_dict())
-        err, scale, _ = against_prefill(lm32, toks[arch][:, :n])
+        err, scale, _ = against_prefill(lm32, toks[arch][:, :n], torch)
         del lm32
         torch.cuda.empty_cache()
         if not err <= 3e-2 * scale:
@@ -1615,6 +1678,391 @@ def lm_phase(torch, dev, smi, cuda_ms):
                         f"(profiler saw no device time)")
 
     return rows, busy_shares
+
+
+def phase9_config(arch):
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    return cfg.with_(n_layers=YI_LAYERS) if arch == "yi_34b" else cfg
+
+
+def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that flash's mask keeps: key j for query i when
+    i >= j (causal) and i - j < window (window > 0)."""
+    total = 0
+    for i in range(sq):
+        hi = min(i, sk - 1) if causal else sk - 1
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_ref_pieces(q, k, v, torch, *, causal=True, window=0, sm_scale=None,
+                     budget=2**30):
+    """``ref.flash_attention_ref`` over batch rows and groups of query
+    heads, each piece's float32 scores at most ``budget`` bytes: the plain
+    version at shapes whose whole score tensor would not fit the card."""
+    from repro_torch.kernels import ref
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    per = max(g, (budget // (4 * sq * sk)) // g * g)
+    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    for i in range(b):
+        for h0 in range(0, hq, per):
+            h1 = min(hq, h0 + per)
+            out[i:i + 1, h0:h1] = ref.flash_attention_ref(
+                q[i:i + 1, h0:h1], k[i:i + 1, h0 // g:-(-h1 // g)],
+                v[i:i + 1, h0 // g:-(-h1 // g)], causal=causal,
+                window=window, sm_scale=sm_scale)
+    return out
+
+
+def hybrid_int8_phase(torch, dev, smi, cuda_ms):
+    """Phase 9: the int8 and sliding-window KV caches and the hybrid
+    family.  The golden's yi-34b and zamba2-1.2b runs; zamba2-1.2b at its
+    published width and depth and yi-34b at its width with 16 layers, in
+    bf16: the main path counted (one prefill and ``serve()`` under each
+    policy), decode against prefill, zamba2's ring against a linear cache,
+    flash against its plain version at both prefills' layer-0 inputs, its
+    times beside its bound and SDPA.  Returns (flash's entries at the two
+    shapes, flash's launches on each prefill, a function that takes the
+    device's busy shares, to run after every wall of the script)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops
+    from repro_torch.launch import golden as G
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch import steps
+    from repro_torch.models import LM
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+
+    t9 = time.perf_counter()
+    gold = json.loads(LM_GOLDEN.read_text())
+    if gold["run"] != G.run_record():
+        fail(f"{LM_GOLDEN.name} was written for another run: {gold['run']}")
+    for arch in PHASE9:
+        lm_golden(arch, gold, dev, torch, "[9]")
+    log(f"[9] goldens in {time.perf_counter() - t9:.1f} s")
+
+    # ---- the main path of each model, counted
+    lms, toks, prefills, outs, launches = {}, {}, {}, {}, {}
+    captured = {}
+    real_flash, real_ssd = kflash.flash_attention, ssm_mod.ssd_chunked
+
+    def spy(mod, name, fn, key, store):
+        """Replace ``mod.name`` by ``fn`` that keeps copies of its first
+        call's arguments in ``store[key]``."""
+        def call(*args, **kw):
+            if key not in store:
+                store[key] = ([a.clone() if torch.is_tensor(a) else a
+                               for a in args], dict(kw))
+            return fn(*args, **kw)
+        setattr(mod, name, call)
+
+    for arch in PHASE9:
+        cfg = phase9_config(arch)
+        gen = torch.Generator(dev).manual_seed(0)
+        lm = LM(cfg, device=dev).init(gen)
+        b, s_ = PREFILL9[arch]
+        tok = torch.randint(0, cfg.vocab, (b, s_), generator=gen, device=dev)
+        lms[arch], toks[arch] = lm, tok
+        if cfg.family == "dense":
+            def prefill(batch, lm=lm):
+                with torch.inference_mode():
+                    return lm.prefill(batch)[0]
+        else:
+            prefill = steps.make_prefill_step(lm)
+        prefills[arch] = prefill
+        n_par = sum(p_.numel() for p_ in lm.parameters())
+        log(f"[9] {arch}: {cfg.n_layers} layers"
+            + (f" (cut from 60 for the card's memory)"
+               if arch == "yi_34b" else "")
+            + f", d={cfg.d_model}, {cfg.n_heads} query heads"
+            + (f" padded to {cfg.pad_q_heads}" if cfg.pad_q_heads else "")
+            + f" over {cfg.n_kv_heads * cfg.kv_repeat} KV heads of "
+            f"{cfg.head_dim}, window {cfg.sliding_window}, {cfg.cache_dtype} "
+            f"cache; {n_par / 1e9:.3f} G parameters in bf16 from a "
+            f"torch.Generator on the card; prefill {b} x {s_}")
+        spy(kflash, "flash_attention", real_flash, (arch, "flash"), captured)
+        spy(ssm_mod, "ssd_chunked", real_ssd, (arch, "ssd"), captured)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        try:
+            outs[arch, "prefill"] = prefill({"tokens": tok})
+            for policy in POLICIES:
+                outs[arch, policy] = srv.serve(lm, policy=policy)
+            torch.cuda.synchronize()
+        finally:
+            kflash.flash_attention = real_flash
+            ssm_mod.ssd_chunked = real_ssd
+        counts = ops.launch_counts()
+        kernel, n_attn = prefill_kernel(cfg, "bfloat16")
+        want = {"flash_attention_tc": n_attn, "flash_attention": 0}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            fail(f"[9] {arch}: flash launches on the main path {got}, "
+                 f"expected one per attention application of the prefill "
+                 f"on the tensor cores {want}")
+        launches[arch] = got["flash_attention_tc"]
+        sched = {k: v_ for k, v_ in counts.items() if v_ and k not in want}
+        if not sched.get("conflict_fused") or not sched.get("ppcc_admit"):
+            fail(f"[9] {arch}: serve() launched no admission kernels: "
+                 f"{sched}")
+        lg = outs[arch, "prefill"]
+        if lg.shape != (b, cfg.vocab) or \
+                not bool(torch.isfinite(lg.float()).all()):
+            fail(f"[9] {arch} prefill logits {tuple(lg.shape)} not finite "
+                 f"or of the wrong shape")
+        ref_s = gold["serve"]["by_arch"][arch]
+        for policy in POLICIES:
+            o = outs[arch, policy]
+            if (o["ticks"], o["tokens"]) != (ref_s[policy]["ticks"],
+                                             ref_s[policy]["tokens"]):
+                fail(f"[9] {arch} serve({policy}): ticks {o['ticks']}, "
+                     f"tokens {o['tokens']}; the reference's "
+                     f"{ref_s[policy]}")
+        log(f"[9] {arch} main path (one prefill, serve() under ppcc, 2pl, "
+            f"occ): flash launches {got}, one per attention application, "
+            f"on its tensor-core route; admission kernels {sched}; serve() "
+            f"ticks and tokens equal the reference's (python -m "
+            f"repro.launch.serve --arch {arch}) under every policy: "
+            + ", ".join(f"{p_} {outs[arch, p_]['ticks']}/"
+                        f"{outs[arch, p_]['tokens']}" for p_ in POLICIES))
+        del outs[arch, "prefill"]
+
+    # ---- walls: prefill, decode step, serve
+    walls = {}
+    for arch, lm in lms.items():
+        b, s_ = PREFILL9[arch]
+        tok = toks[arch]
+        walls[arch, "prefill"] = median_wall_ms(
+            lambda: prefills[arch]({"tokens": tok}), 3, torch) / 1e3
+        err, scale, walls[arch, "decode"] = against_prefill(
+            lm, tok[:, :DECODE9[arch]], torch)
+        walls[arch, "drift"] = (err, scale)
+        out = srv.serve(lm, policy="ppcc")
+        walls[arch, "serve"] = out
+        log(f"[9] {arch}: prefill {b} x {s_} in "
+            f"{walls[arch, 'prefill'] * 1e3:.2f} ms "
+            f"({b * s_ / walls[arch, 'prefill']:.0f} tokens/s); decode "
+            f"{walls[arch, 'decode'] * 1e3:.3f} ms per step at batch {b}; "
+            f"serve(ppcc) {out['tokens']} tokens in {out['wall']:.3f} s "
+            f"({out['tokens'] / out['wall']:.1f} tokens/s) [{smi}]")
+
+    # ---- decode against prefill, held in float32 (weights widened; the
+    # hybrid model's caches float32, yi's cache int8), bf16 reported
+    for arch, lm in lms.items():
+        n = DECODE9[arch]
+        kw = dict(param_dtype="float32", compute_dtype="float32")
+        if lm.cfg.cache_dtype != "int8":
+            kw["cache_dtype"] = "float32"
+        torch.cuda.empty_cache()
+        lm32 = LM(lm.cfg.with_(**kw), device=dev)
+        lm32.load_state_dict(lm.state_dict())
+        err, scale, _ = against_prefill(lm32, toks[arch][:, :n], torch)
+        del lm32
+        torch.cuda.empty_cache()
+        if not err <= 3e-2 * scale:
+            fail(f"[9] {arch} float32: decode over {n} prompt tokens "
+                 f"differs from the prefill's last logits by {err:.4g} > "
+                 f"3e-2 x {scale:.3g}")
+        b_err, b_scale = walls[arch, "drift"]
+        empty = "empty int8" if lm.cfg.cache_dtype == "int8" else "empty"
+        log(f"[9] {arch} decode over {n} prompt tokens from {empty} "
+            f"caches against the prefill's last logits: float32 "
+            f"{err:.4g} (within 3e-2 x {scale:.3g}); bf16 {b_err:.4g} "
+            f"(largest logit {b_scale:.3g}; reported, not held)")
+
+    # ---- zamba2's ring on the card: window cut to 64, a ring of 64 slots
+    # against a linear cache of 96, the same weights
+    lm = lms["zamba2_1p2b"]
+    window, n = RING9
+    lm_r = LM(lm.cfg.with_(sliding_window=window), device="meta")
+    lm_r.load_state_dict(lm.state_dict(), assign=True)
+    lin = LM(lm.cfg.with_(sliding_window=0), device="meta")
+    lin.load_state_dict(lm.state_dict(), assign=True)
+    prompt = toks["zamba2_1p2b"][:, :n]
+    ring = lm_r.init_caches(prompt.shape[0], n)
+    big = lin.init_caches(prompt.shape[0], n)
+    if (ring["shared_attn"].k.shape[2], big["shared_attn"].k.shape[2]) != \
+            (window, n):
+        fail(f"[9] zamba2 ring check: caches of "
+             f"{ring['shared_attn'].k.shape[2]} and "
+             f"{big['shared_attn'].k.shape[2]} slots")
+    worst, top = 0.0, 1.0
+    with torch.inference_mode():
+        for t in range(n):
+            lr, ring = lm_r.decode_step(ring, prompt[:, t:t + 1], t)
+            lb, big = lm_r.decode_step(big, prompt[:, t:t + 1], t)
+            worst = max(worst, float((lr.float() - lb.float()).abs().max()))
+            top = max(top, float(lb.float().abs().max()))
+    if not worst <= 3e-2 * top:
+        fail(f"[9] zamba2 ring of {window} slots against a linear cache of "
+             f"{n}: logits differ by {worst:.4g} > 3e-2 x {top:.3g}")
+    log(f"[9] zamba2_1p2b at full depth and width, bf16, window cut to "
+        f"{window}: {n} decode steps through a ring of {window} slots (it "
+        f"wraps at step {window}) and a linear cache of {n} agree at every "
+        f"step within 3e-2 x {top:.3g} (max abs diff {worst:.4g})")
+    del lm_r, lin, ring, big
+
+    # ---- flash against its plain version, times, bound, SDPA
+    shapes = []
+    for arch in PHASE9:
+        (q, k, v), kw = captured[arch, "flash"]
+        b, hq, sq, d = q.shape
+        hkv, sk = k.shape[1], k.shape[2]
+        causal, window = kw.get("causal", True), kw.get("window", 0)
+        got = real_flash(q, k, v, **kw)
+        want = flash_ref_pieces(q, k, v, torch, **kw)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        bad = (got.double() - want.double()).abs() > \
+            2e-2 + 2e-2 * want.double().abs()
+        if bool(bad.any()):
+            fail(f"[9] flash_attention differs from its plain version at "
+                 f"the {arch} prefill's layer-0 inputs: max abs err "
+                 f"{err:.4g}")
+        del got, want
+        ms = cuda_ms(lambda: real_flash(q, k, v, **kw), 20)
+        plain = cuda_ms(lambda: flash_ref_pieces(q, k, v, torch, **kw), 2)
+        pairs = unmasked_pairs(sq, sk, causal, window)
+        nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * b * hq * d * pairs
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+        bound, by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o
+                                          else "operations")
+        g = hq // hkv
+        kx = k.repeat_interleave(g, 1) if g > 1 else k
+        vx = v.repeat_interleave(g, 1) if g > 1 else v
+        mask = None
+        if window:
+            i = torch.arange(sq, device=dev)[:, None]
+            j = torch.arange(sk, device=dev)[None, :]
+            mask = (i - j < window) & ((i >= j) if causal else True)
+        lib_causal = causal and mask is None
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, kx, vx, attn_mask=mask, is_causal=lib_causal)
+
+        backend = SDPBackend(torch._fused_sdp_choice(
+            q, kx, vx, mask, 0.0, lib_causal)).name
+        torch.testing.assert_close(library().float(),
+                                   real_flash(q, k, v, **kw).float(),
+                                   atol=2e-2, rtol=2e-2)
+        lib = cuda_ms(library, 10)
+        label = (f"B={b} Hq={hq} Hkv={hkv} S={sq} D={d} "
+                 f"{str(q.dtype)[6:]} causal={causal} window={window}")
+        log(f"[9] flash_attention at {label} ({arch}'s prefill, layer 0; "
+            f"within 2e-2 of its plain version, max abs err {err:.4g}): "
+            f"{ms:.4f} ms (plain {plain:.4f} ms over pieces; SDPA "
+            f"{lib:.4f} ms, backend {backend}, "
+            + ("the window as a boolean mask" if mask is not None else
+               f"is_causal with K/V expanded to {hq} heads")
+            + f"; bound {bound:.5f} ms by {by}: {nbytes / 1e6:.1f} MB at "
+            f"3.35 TB/s against {flops / 1e9:.2f} GFLOP over the "
+            f"{pairs} unmasked (query, key) pairs at 989 TFLOP/s); "
+            f"{ms / lib:.2f}x SDPA, {ms / bound:.2f}x its bound [{smi}]")
+        shapes.append({"path": f"{arch} prefill", "shape": label,
+                       "launches": launches[arch], "max_abs_err": err,
+                       "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                       "bound_by": by, "library_ms": lib,
+                       "library": f"scaled_dot_product_attention "
+                                  f"({backend})"})
+        del kx, vx, mask
+    ssd_args = captured["zamba2_1p2b", "ssd"]
+    del captured
+    torch.cuda.empty_cache()
+    log(f"[9] phase 9 walls and checks in {time.perf_counter() - t9:.1f} s")
+
+    def busy_shares():
+        """Device kernel time of one decode and one prefill step of each
+        model from torch.profiler, over the walls taken above; and what
+        the Mamba2 chunk scan (``ssd_chunked``) costs zamba2's prefill,
+        the Mamba2 decode its decode step and the int8 dequant yi's."""
+        for arch, lm in lms.items():
+            cfg = lm.cfg
+            b, _ = PREFILL9[arch]
+            n = DECODE9[arch]
+            caches = lm.init_caches(b, n)
+            tok = toks[arch][:, :1]
+            for label, fn, reps in (
+                    ("decode", lambda: lm.decode_step(caches, tok, n // 2),
+                     4),
+                    ("prefill", lambda: prefills[arch](
+                        {"tokens": toks[arch]}), 1)):
+                with torch.inference_mode():
+                    fn()
+                    torch.cuda.synchronize()
+                    dev_ms, kernels, per = device_profile(fn, reps, torch)
+                wall_ms = walls[arch, label] * 1e3
+                if dev_ms > 0:
+                    log(f"[9] {arch} {label} step: {dev_ms:.3f} ms device "
+                        f"kernel time ({kernels:.0f} kernels, profiled) over "
+                        f"{wall_ms:.3f} ms wall (unprofiled): device busy "
+                        f"{100 * dev_ms / wall_ms:.1f}%; largest: "
+                        + ", ".join(f"{k_[:40]} {v_:.3f} ms"
+                                    for v_, k_ in largest(per, 3))
+                        + f" [{smi}]")
+                else:
+                    log(f"[9] {arch} {label} step: device time not measured "
+                        f"(profiler saw no device time)")
+                walls[arch, label, "device"] = dev_ms
+        # the parts, each profiled alone at inputs of the main path
+        part = {}
+        real_dec, real_deq = ssm_mod.mamba2_decode, attn_mod._dequant
+        for arch, name, mod, real in (
+                ("zamba2_1p2b", "mamba2_decode", ssm_mod, real_dec),
+                ("yi_34b", "_dequant", attn_mod, real_deq)):
+            lm = lms[arch]
+            caches = lm.init_caches(PREFILL9[arch][0], DECODE9[arch])
+            spy(mod, name, real, (arch, name), part)
+            try:
+                with torch.inference_mode():
+                    lm.decode_step(caches, toks[arch][:, :1], 0)
+            finally:
+                setattr(mod, name, real)
+        del caches
+        (a, kw) = ssd_args
+        with torch.inference_mode():
+            ssd_ms, _, _ = device_profile(lambda: real_ssd(*a, **kw), 2, torch)
+        n_mamba = lms["zamba2_1p2b"].cfg.n_layers
+        pre = walls["zamba2_1p2b", "prefill", "device"]
+        if ssd_ms > 0 and pre > 0:
+            log(f"[9] zamba2_1p2b prefill: the Mamba2 chunk scan "
+                f"(ssd_chunked, profiled alone at layer 0's inputs) "
+                f"{ssd_ms:.3f} ms a layer, x {n_mamba} layers = "
+                f"{ssd_ms * n_mamba:.3f} ms of the step's {pre:.3f} ms of "
+                f"device time ({100 * ssd_ms * n_mamba / pre:.1f}%)")
+        (a, kw) = part["zamba2_1p2b", "mamba2_decode"]
+        with torch.inference_mode():
+            dec_ms, dec_k, _ = device_profile(lambda: real_dec(*a, **kw), 4,
+                                              torch)
+        step = walls["zamba2_1p2b", "decode", "device"]
+        if dec_ms > 0 and step > 0:
+            log(f"[9] zamba2_1p2b decode step: the Mamba2 decode "
+                f"(mamba2_decode, profiled alone at a step's layer-0 "
+                f"inputs) {dec_ms:.4f} ms and {dec_k:.0f} kernels a layer, "
+                f"x {n_mamba} = {dec_ms * n_mamba:.3f} ms of the step's "
+                f"{step:.3f} ms of device time "
+                f"({100 * dec_ms * n_mamba / step:.1f}%)")
+        (a, kw) = part["yi_34b", "_dequant"]
+        with torch.inference_mode():
+            dq_ms, _, _ = device_profile(lambda: real_deq(*a, **kw), 4,
+                                         torch)
+        n_yi = 2 * lms["yi_34b"].cfg.n_layers
+        step = walls["yi_34b", "decode", "device"]
+        if dq_ms > 0 and step > 0:
+            log(f"[9] yi_34b decode step: the int8 dequant of one cache "
+                f"tensor {tuple(a[0].shape)} (_dequant, profiled alone) "
+                f"{dq_ms:.4f} ms, x {n_yi} (k and v of {n_yi // 2} layers) "
+                f"= {dq_ms * n_yi:.3f} ms of the step's {step:.3f} ms of "
+                f"device time ({100 * dq_ms * n_yi / step:.1f}%)")
+
+    return shapes, launches, busy_shares
 
 
 def admit_ops_case(label, n, d, m, gen, torch, P, dev):
@@ -2389,6 +2837,11 @@ def main() -> None:
     lm_rows, lm_busy = lm_phase(torch, dev, smi, lambda fn, reps, sleep=True:
                                cuda_times(fn, reps, torch, sleep))
 
+    # ---------------- phase 9: int8 and ring caches, the hybrid family ----
+    p9_shapes, p9_launches, p9_busy = hybrid_int8_phase(
+        torch, dev, smi, lambda fn, reps, sleep=True:
+        cuda_times(fn, reps, torch, sleep))
+
     # ---------------- phase 4: times ----------------
     torch.cuda.synchronize()
     mega_ms = cuda_times(lambda: kmega.megastep(*margs), 50, torch)
@@ -2632,9 +3085,17 @@ def main() -> None:
         rows.append(row)
     rows += sched_rows
     lm_busy()
+    p9_busy()
+    for row in lm_rows:
+        if row["name"] == "flash_attention":
+            row["launches_by_path"] = {
+                "qwen3_0p6b prefill (phase 7)": row["launches"],
+                **{f"{a} prefill (phase 9)": n for a, n in
+                   p9_launches.items()}}
+            row["at_shapes"] = p9_shapes
     rows += lm_rows
     rows.append(admit_row)
-    log(f"[done] all eight phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] all nine phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ Each module defines ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family configuration for CPU tests), copied
 from ``repro/configs``.  ``get(name)`` / ``get_smoke(name)`` /
 ``ARCH_NAMES`` / ``ALIASES`` are the public API; ``--arch <id>`` in the
-launchers resolves through here.  The reference's other architectures
-are not ported yet (ROADMAP.md, queue 1) and raise ``KeyError``.
+launchers resolves through here.  The reference's moe, vlm and audio
+architectures (``NOT_PORTED``) raise ``KeyError`` naming ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -16,20 +16,20 @@ from typing import Dict, List
 from ..models.config import ModelConfig
 
 ARCH_NAMES: List[str] = [
+    "yi_34b",
     "llama3p2_1b",
     "qwen3_0p6b",
     "stablelm_1p6b",
     "rwkv6_3b",
+    "zamba2_1p2b",
 ]
 
 # the reference's architectures that wait for a feature of a later slice
 NOT_PORTED: Dict[str, str] = {
-    "yi_34b": "the int8 KV cache",
     "llama4_maverick_400b": "the moe family",
     "dbrx_132b": "the moe family",
     "llama3p2_vision_11b": "the vlm family",
     "hubert_xlarge": "the audio family",
-    "zamba2_1p2b": "the hybrid family",
 }
 
 # accepted aliases (assignment spelling -> module name)

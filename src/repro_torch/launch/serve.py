@@ -7,7 +7,10 @@ policy's admission scan on the card) admits a serializable subset of the
 queued requests, which contend for shared KV-page slots (shared prefixes
 read-shared, per-request pages written); admitted requests take free
 slots, every occupied slot runs one batched ``decode_step``, and
-finished requests free their slots for queued ones.
+finished requests free their slots for queued ones.  The decode caches
+are whatever ``lm.init_caches`` gives the model's family: an int8 or
+bf16 KV cache, a sliding-window ring (``seq`` beyond the window), the
+RWKV state or the hybrid family's Mamba2 and shared-attention caches.
 
 ``serve(lm, ...)`` runs the loop on the model's device and returns
 ``{ticks, tokens, wall}``; ``main()`` keeps the reference's flags, its

@@ -16,7 +16,8 @@ from ..models.lm import LM
 
 def make_prefill_step(lm: LM):
     """Inference forward over the full sequence -> last-token logits
-    ``[B, V]``."""
+    ``[B, V]``, for every ported family (the hybrid family's backbone
+    included)."""
     cfg = lm.cfg
 
     @torch.inference_mode()
@@ -31,8 +32,10 @@ def make_prefill_step(lm: LM):
 
 
 def make_serve_step(lm: LM):
-    """One decode step: (caches, token, pos) -> (logits, caches); the
-    caches are updated in place."""
+    """One decode step: (caches, token, pos) -> (logits, caches), the
+    caches those of ``lm.init_caches`` (a stacked ``KVCache``, bf16,
+    float32 or int8 with its scales; an ``RWKVCache``; the hybrid
+    family's dict), updated in place."""
 
     @torch.inference_mode()
     def serve_step(caches, token, pos):

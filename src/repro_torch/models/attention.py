@@ -6,18 +6,28 @@ Two branches of the reference's ``attention()`` are ported:
 * **decode** (``:294``): one new token; its k/v are written into the
   cache at ``cache_pos`` and the token attends over the cached slots
   through ``_sdpa`` (``:237``), plain torch as in the reference, which
-  computes it outside any Pallas kernel.
+  computes it outside any Pallas kernel.  The mask comes from the
+  absolute position stored per slot, so one code serves a linear cache
+  and a sliding-window ring (``cfg.sliding_window``: a slot is seen only
+  while ``pos > abs_pos - window``).  An int8 cache (``cache_dtype=
+  "int8"``) stores each token's k and v as codes with one float32 scale
+  per (token, head) (``_quantize``) and dequantises the whole cache in
+  the compute dtype before ``_sdpa`` (``_dequant``), as the reference.
 * **full sequence, causal self-attention** (``:328`` and ``:342``): the
   prefill and the backbone.  It goes through ``kernels.ops.
   flash_attention``, the hand-written CUDA kernel on the card (the
   reference names its Pallas ``flash_attention`` for this branch under
-  either ``attn_impl``) and its plain version on the CPU.  The kernel
-  reads q, k and v in the model's ``[B, S, H, Dh]`` layout through
-  strides and writes its output in that layout.
+  either ``attn_impl``) and its plain version on the CPU, with the
+  sliding window as the kernel's ``window``.  The kernel reads q, k and
+  v in the model's ``[B, S, H, Dh]`` layout through strides and writes
+  its output in that layout.  The cache it returns holds k and v in the
+  compute dtype whatever ``cache_dtype`` is: the reference's prefill
+  does not quantise (``:334-337``, ``:358-362``), and the port keeps
+  that behaviour.
 
-Not ported yet (``NotImplementedError``, ROADMAP.md queue 1): the int8
-cache, the sliding-window ring cache, cross-attention and
-``kv_override`` (vlm), and the sharding pins ``_pin``/``_dax``.
+Not ported yet (``NotImplementedError``, ROADMAP.md queue 1):
+cross-attention and ``kv_override`` (vlm), and the sharding pins
+``_pin``/``_dax`` (``act_constraints``).
 
 Query heads can be padded (``pad_q_heads``): the padded heads' rows of
 ``wo`` are zeroed, so they are exact no-ops.  KV heads are replicated
@@ -44,7 +54,9 @@ class KVCache(NamedTuple):
     k: torch.Tensor               # [B, Smax, H_eff, Dh]  (cache dtype)
     v: torch.Tensor
     pos: torch.Tensor             # int32[Smax] absolute position per slot
-                                  # (-1 = empty)
+                                  # (-1 = empty); linear or ring layout
+    k_scale: Optional[torch.Tensor] = None   # [B, Smax, H_eff, 1] float32
+    v_scale: Optional[torch.Tensor] = None   # (int8 cache only)
 
 
 def effective_kv_heads(cfg: ModelConfig, kv_repeat: int) -> int:
@@ -53,14 +65,6 @@ def effective_kv_heads(cfg: ModelConfig, kv_repeat: int) -> int:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for an attention feature that waits for a later slice."""
-    if cfg.cache_dtype == "int8":
-        raise NotImplementedError(
-            f"cache_dtype={cfg.cache_dtype!r}: the int8 KV cache is not "
-            f"ported yet (ROADMAP.md, queue 1)")
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            "sliding_window: the ring-buffer cache is not ported yet "
-            "(ROADMAP.md, queue 1)")
     if cfg.act_constraints:
         raise NotImplementedError(
             "act_constraints: the sharding pins are not ported yet "
@@ -100,17 +104,43 @@ class Attention(torch.nn.Module):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                kv_repeat: int = 1, cache_dtype: str = "bfloat16",
                device=None) -> KVCache:
-    """Zeroed bf16 (or float32/float16) cache; every slot empty."""
-    if cache_dtype == "int8":
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP.md, queue 1)")
+    """Zeroed cache, every slot empty: bf16 (or float32/float16) k/v, or
+    int8 codes with float32 scales of one."""
     h = effective_kv_heads(cfg, kv_repeat)
-    dt = layers.dtype_of(cache_dtype)
     shape = (batch, max_seq, h, cfg.head_dim)
+    pos = torch.full((max_seq,), -1, dtype=torch.int32, device=device)
+    if cache_dtype == "int8":
+        scale = (batch, max_seq, h, 1)
+        return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                       v=torch.zeros(shape, dtype=torch.int8, device=device),
+                       pos=pos,
+                       k_scale=torch.ones(scale, dtype=torch.float32,
+                                          device=device),
+                       v_scale=torch.ones(scale, dtype=torch.float32,
+                                          device=device))
+    dt = layers.dtype_of(cache_dtype)
     return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
-                   v=torch.zeros(shape, dtype=dt, device=device),
-                   pos=torch.full((max_seq,), -1, dtype=torch.int32,
-                                  device=device))
+                   v=torch.zeros(shape, dtype=dt, device=device), pos=pos)
+
+
+def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes and float32 scales over the last axis: the scale is
+    ``max|x| / 127 + 1e-8`` and the code ``round(x / scale)`` (half to
+    even, as ``jnp.round``) clipped to +-127."""
+    x = x.float()
+    scale = x.abs().amax(-1, keepdim=True) / 127.0 + 1e-8
+    q = torch.round(x / scale).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant(q: torch.Tensor, scale: Optional[torch.Tensor], dtype
+             ) -> torch.Tensor:
+    """Codes times scales, both cast to the compute dtype first (the
+    reference's choice: half the bytes of a float32 dequant in bf16);
+    without scales, a plain cast."""
+    if scale is None:
+        return q.to(dtype)
+    return q.to(dtype) * scale.to(dtype)
 
 
 def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -176,12 +206,23 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         slot = min(max(int(cache_pos), 0), cache.k.shape[1] - 1)
         abs_pos = positions.reshape(()).to(torch.int32)
         cache.pos[slot] = abs_pos
-        cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
-        cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+        if cache.k.dtype == torch.int8:
+            kq, ks = _quantize(k[:, 0])
+            vq, vs = _quantize(v[:, 0])
+            cache.k[:, slot] = kq
+            cache.v[:, slot] = vq
+            cache.k_scale[:, slot] = ks
+            cache.v_scale[:, slot] = vs
+        else:
+            cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+            cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
         new_cache = cache
         valid = (cache.pos >= 0) & (cache.pos <= abs_pos)
+        if cfg.sliding_window:
+            valid &= cache.pos > abs_pos - cfg.sliding_window
         mask = valid[None, None, None, None, :]              # [1,1,1,1,T]
-        out = _sdpa(q, cache.k.to(q.dtype), cache.v.to(q.dtype), mask)
+        out = _sdpa(q, _dequant(cache.k, cache.k_scale, q.dtype),
+                    _dequant(cache.v, cache.v_scale, q.dtype), mask)
     else:
         # --- full sequence: the flash kernel, [B,H,S,D] views -------------
         o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),

@@ -1,8 +1,8 @@
 """Unified model configuration for all assigned architecture families.
 
 A copy of ``repro/models/config.py``: the port keeps its own.  The port
-runs the ``dense`` and ``rwkv`` families; the other fields are kept so a
-configuration reads the same in both packages.
+runs the ``dense``, ``rwkv`` and ``hybrid`` families; the other fields
+are kept so a configuration reads the same in both packages.
 """
 from __future__ import annotations
 

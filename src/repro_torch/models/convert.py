@@ -1,10 +1,13 @@
 """Carry parameters between the JAX package's layout and the port's.
 
 The reference keeps a model's parameters as a nested dict whose block
-leaves are stacked along a leading layer axis (``blocks/attn/wq`` is
-``[L, d, Hq*Dh]``); the port's ``LM`` holds one module per block
-(``blocks.3.attn.wq`` is ``[d, Hq*Dh]``).  Weight layouts are the same
-(``[d_in, d_out]``), so a tensor carries over as it is.
+leaves are stacked along leading axes (``blocks/attn/wq`` is ``[L, d,
+Hq*Dh]``; the hybrid family's ``mamba_groups/ssm/wz`` is ``[n_groups,
+every, d, d_inner]``, ``mamba_tail/...`` ``[tail, ...]`` and
+``shared_attn/...`` unstacked); the port's ``LM`` holds one module per
+block (``blocks.3.attn.wq`` is ``[d, Hq*Dh]``, ``mamba_groups.1.4.ssm.wz``
+is ``[d, d_inner]``).  Weight layouts are the same (``[d_in, d_out]``),
+so a tensor carries over as it is.
 
 * ``jax_tree_shapes(cfg)``: ``{path: shape}`` of the reference's tree,
   derived from the port's modules (no JAX needed).
@@ -13,7 +16,9 @@ leaves are stacked along a leading layer axis (``blocks/attn/wq`` is
 * ``random_jax_tree(cfg, seed)``: a tree of seeded float32 numpy
   weights in the reference's layout, the same on every machine (one
   PCG64 stream per tensor, uniform draws only), for checks that need
-  the same weights in both packages.
+  the same weights in both packages.  float32 is the reference's dtype
+  of every leaf at ``param_dtype="float32"``, and of the Mamba2 mixers'
+  ``A_log``, ``D`` and ``dt_bias`` at any ``param_dtype``.
 """
 from __future__ import annotations
 
@@ -34,22 +39,26 @@ def _port_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return {k: tuple(v.shape) for k, v in lm.state_dict().items()}
 
 
-def _jax_path(name: str) -> Tuple[Path, int]:
-    """``blocks.3.attn.wq`` -> (("blocks", "attn", "wq"), 3); a top-level
-    leaf -> ((name,), -1)."""
+def _jax_path(name: str) -> Tuple[Path, Tuple[int, ...]]:
+    """A port name -> (the reference's path, the indices into its
+    leading stack axes): ``blocks.3.attn.wq`` -> (("blocks", "attn",
+    "wq"), (3,)); ``mamba_groups.1.4.ln`` -> (("mamba_groups", "ln"),
+    (1, 4)); ``shared_attn.attn.wq`` or a top-level leaf -> (path, ())."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        return ("blocks", *parts[2:]), int(parts[1])
-    return tuple(parts), -1
+    idx = tuple(int(a) for a in parts[1:] if a.isdigit())
+    return (parts[0], *(a for a in parts[1:] if not a.isdigit())), idx
 
 
 def jax_tree_shapes(cfg: ModelConfig) -> Dict[Path, tuple]:
-    """``{path: shape}`` of the reference's parameter tree for ``cfg``."""
-    out = {}
+    """``{path: shape}`` of the reference's parameter tree for ``cfg``:
+    each stacked leaf's leading axes are its largest indices plus one."""
+    shapes, lead = {}, {}
     for name, shape in _port_shapes(cfg).items():
-        path, layer = _jax_path(name)
-        out[path] = (cfg.n_layers, *shape) if layer >= 0 else shape
-    return out
+        path, idx = _jax_path(name)
+        shapes[path] = shape
+        lead[path] = tuple(max(a, i + 1) for a, i in
+                           zip(lead.get(path, (0,) * len(idx)), idx))
+    return {path: (*lead[path], *shape) for path, shape in shapes.items()}
 
 
 def _leaf(tree, path: Path):
@@ -72,10 +81,8 @@ def params_from_jax(cfg: ModelConfig, tree) -> Dict[str, torch.Tensor]:
     dtype; raises on a missing leaf or a shape that differs."""
     sd = {}
     for name, shape in _port_shapes(cfg).items():
-        path, layer = _jax_path(name)
-        a = _leaf(tree, path)
-        if layer >= 0:
-            a = a[layer]
+        path, idx = _jax_path(name)
+        a = _leaf(tree, path)[idx]
         if tuple(a.shape) != shape:
             raise ValueError(f"{'/'.join(path)}: shape {tuple(a.shape)}, "
                              f"the port's {name} is {shape}")
@@ -85,11 +92,20 @@ def params_from_jax(cfg: ModelConfig, tree) -> Dict[str, torch.Tensor]:
 
 def _scale_shift(path: Path, shape: tuple):
     """(scale, centre) of a leaf's random values, after the reference's
-    init: ones for norms, 0.5 for mixes, -6 for w0, fan-in scale for
-    weights, with some spread everywhere."""
+    init: ones for norms and ``D``, 0.5 for mixes, -6 for w0, the
+    Mamba2 mixers' ``A_log`` (log 1 .. log 16) and ``dt_bias`` (the
+    inverse softplus of 1e-3 .. 0.1) about their ranges, fan-in scale
+    for weights and conv taps, with some spread everywhere."""
     leaf = path[-1]
-    if leaf.startswith("ln") or leaf.endswith("_norm"):
+    if leaf.startswith("ln") or leaf.endswith("_norm") or \
+            leaf in ("norm_g", "D"):
         return 0.1, 1.0
+    if leaf == "A_log":
+        return 0.8, 1.4
+    if leaf == "dt_bias":
+        return 1.0, -4.5
+    if leaf == "conv_b":
+        return 0.1, 0.0
     if leaf.startswith("mu_"):
         return 0.1, 0.5
     if leaf == "w0":

@@ -1,20 +1,30 @@
-"""The language model of the dense and RWKV families: the port of
-``repro/models/lm.py``.
+"""The language model of the dense, RWKV and hybrid families: the port
+of ``repro/models/lm.py``.
 
-  dense   [attn + mlp] x L           (qwen3, llama3.2, stablelm)
-  rwkv    [time-mix + channel-mix] x L   (rwkv6)
+  dense   [attn + mlp] x L                       (yi, qwen3, llama3.2,
+                                                  stablelm)
+  rwkv    [time-mix + channel-mix] x L           (rwkv6)
+  hybrid  mamba2 stacks + shared attn block      (zamba2)
 
 ``LM`` is an ``nn.Module`` that holds its parameters (inference only:
 none requires a gradient) under the reference's names, block ``i`` of
-the reference's stacked ``blocks`` tree being ``blocks.i``
-(``models.convert`` carries a JAX parameter tree across).  The other
-families (moe, vlm, audio, hybrid) and training wait for later slices
-(ROADMAP.md, queue 1) and raise ``NotImplementedError``.
+the reference's stacked ``blocks`` tree being ``blocks.i``; the hybrid
+family's ``mamba_groups`` (``[n_groups, every, ...]`` in the reference)
+are ``mamba_groups.g.j``, its ``mamba_tail`` is ``mamba_tail.i`` and its
+``shared_attn`` one ``DenseBlock`` (``models.convert`` carries a JAX
+parameter tree across).  The moe, vlm and audio families and training
+wait for later slices (ROADMAP.md, queue 1) and raise
+``NotImplementedError``.
 
-Caches are stacked along a leading layer axis as in the reference
-(``KVCache`` with ``k [L, B, S, H, Dh]``; ``RWKVCache`` with ``state
-[L, B, H, dk, dv]``); ``decode_step`` updates them in place and returns
-them.
+Caches are stacked along leading axes as in the reference
+(``KVCache`` with ``k [L, B, S, H, Dh]``, and the int8 cache's scales
+``[L, B, S, H, 1]``; ``RWKVCache`` with ``state [L, B, H, dk, dv]``; the
+hybrid family's dict of ``mamba_groups`` (``SSMCache`` ``[n_groups,
+every, ...]``), ``shared_attn`` (``KVCache`` ``[n_groups, ...]``, one per
+application of the shared block) and ``mamba_tail``).  With a sliding
+window the attention cache holds ``min(window, seq)`` slots and is
+written as a ring (``_slot``).  ``decode_step`` updates the caches in
+place and returns them.
 """
 from __future__ import annotations
 
@@ -24,11 +34,17 @@ import torch
 
 from ..device import resolve
 from . import attention as attn_mod
-from . import layers, rwkv as rwkv_mod
+from . import layers, rwkv as rwkv_mod, ssm as ssm_mod
 from . import transformer as tf
 from .config import ModelConfig
 
-FAMILIES = ("dense", "rwkv")
+FAMILIES = ("dense", "rwkv", "hybrid")
+
+
+def _map(fn, cache):
+    """``fn`` applied to every tensor of a cache NamedTuple; the absent
+    scales of a bf16 or float32 ``KVCache`` stay ``None``."""
+    return type(cache)(*(None if a is None else fn(a) for a in cache))
 
 
 def _check(cfg: ModelConfig) -> None:
@@ -36,7 +52,7 @@ def _check(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
             f"queue 1); the port runs {FAMILIES}")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "hybrid"):
         attn_mod.check_supported(cfg)
     elif cfg.rwkv_wkv_pins or cfg.act_constraints:
         raise NotImplementedError(
@@ -54,8 +70,17 @@ class LM(torch.nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = layers.param((cfg.d_model, cfg.vocab), dt, dev)
         self.ln_f = layers.param((cfg.d_model,), dt, dev)
-        block = tf.DenseBlock if cfg.family == "dense" else tf.RWKVBlock
-        self.blocks = tf.stack_init(cfg.n_layers, lambda: block(cfg, dev))
+        if cfg.family == "hybrid":
+            n_groups, every, tail = hybrid_layout(cfg)
+            self.mamba_groups = tf.stack_init(n_groups, lambda: tf.stack_init(
+                every, lambda: tf.MambaBlock(cfg, dev)))
+            if tail:
+                self.mamba_tail = tf.stack_init(
+                    tail, lambda: tf.MambaBlock(cfg, dev))
+            self.shared_attn = tf.shared_attn_block(cfg, dev)
+        else:
+            block = tf.DenseBlock if cfg.family == "dense" else tf.RWKVBlock
+            self.blocks = tf.stack_init(cfg.n_layers, lambda: block(cfg, dev))
 
     @property
     def device(self) -> torch.device:
@@ -67,13 +92,19 @@ class LM(torch.nn.Module):
     def init(self, generator: torch.Generator) -> "LM":
         """Random initialisation from ``generator`` (on the model's
         device), with the reference's distributions: truncated normals
-        at fan-in scale, ones for norms, zeroed padded-head rows."""
+        at fan-in scale, ones for norms, zeroed padded-head rows, the
+        Mamba2 mixers' own (``ssm.Mamba2.init``)."""
         layers.embed_init(self.embed, generator)
         if not self.cfg.tie_embeddings:
             layers.dense_init(self.lm_head, generator)
         with torch.no_grad():
             self.ln_f.fill_(1)
-        for blk in self.blocks:
+        if self.cfg.family == "hybrid":
+            blocks = [*(b for g in self.mamba_groups for b in g),
+                      *getattr(self, "mamba_tail", ()), self.shared_attn]
+        else:
+            blocks = self.blocks
+        for blk in blocks:
             blk.init(generator)
         return self
 
@@ -97,7 +128,7 @@ class LM(torch.nn.Module):
         if cfg.family == "dense":
             for blk in self.blocks:
                 x, _ = tf.dense_block(blk, cfg, x, positions)
-        else:
+        elif cfg.family == "rwkv":
             for blk in self.blocks:
                 h, _, _ = rwkv_mod.time_mix_forward(
                     blk.time, cfg, layers.rmsnorm(x, blk.ln1, cfg.norm_eps))
@@ -105,28 +136,54 @@ class LM(torch.nn.Module):
                 h2, _ = rwkv_mod.channel_mix_forward(
                     blk.chan, cfg, layers.rmsnorm(y, blk.ln2, cfg.norm_eps))
                 x = y + h2
+        else:
+            def mamba(x, blk):
+                h, _ = ssm_mod.mamba2_forward(
+                    blk.ssm, cfg, layers.rmsnorm(x, blk.ln, cfg.norm_eps))
+                return x + h
+            for group in self.mamba_groups:
+                for blk in group:
+                    x = mamba(x, blk)
+                x, _ = tf.dense_block(self.shared_attn, cfg, x, positions)
+            for blk in getattr(self, "mamba_tail", ()):
+                x = mamba(x, blk)
         return x, aux
 
     # ------------------------------------------------------------------
     # caches
     # ------------------------------------------------------------------
     def cache_len(self, seq_len: int) -> int:
+        """Attention cache slots for a context of ``seq_len``: a sliding
+        window caps them at the window (a ring)."""
+        if self.cfg.sliding_window:
+            return min(self.cfg.sliding_window, seq_len)
         return seq_len
 
     def init_caches(self, batch: int, seq_len: int):
         """Zeroed decode caches sized for a context of ``seq_len``,
-        stacked along a leading layer axis."""
-        cfg, dev, L = self.cfg, self.device, self.cfg.n_layers
+        stacked along the reference's leading axes."""
+        cfg, dev = self.cfg, self.device
+
+        def stack(lead, one):
+            return _map(lambda a: a.expand(*lead, *a.shape).clone(), one)
+
+        def kv():
+            return attn_mod.init_cache(
+                cfg, batch, self.cache_len(seq_len), kv_repeat=cfg.kv_repeat,
+                cache_dtype=cfg.cache_dtype, device=dev)
+
         if cfg.family == "dense":
-            one = attn_mod.init_cache(cfg, batch, self.cache_len(seq_len),
-                                      kv_repeat=cfg.kv_repeat,
-                                      cache_dtype=cfg.cache_dtype,
-                                      device=dev)
-            return attn_mod.KVCache(*(a.expand(L, *a.shape).clone()
-                                      for a in one))
-        one = rwkv_mod.init_rwkv_cache(cfg, batch, device=dev)
-        return rwkv_mod.RWKVCache(*(a.expand(L, *a.shape).clone()
-                                    for a in one))
+            return stack((cfg.n_layers,), kv())
+        if cfg.family == "rwkv":
+            return stack((cfg.n_layers,),
+                         rwkv_mod.init_rwkv_cache(cfg, batch, device=dev))
+        n_groups, every, tail = hybrid_layout(cfg)
+        ssm = ssm_mod.init_ssm_cache(cfg, batch, device=dev)
+        caches = {"mamba_groups": stack((n_groups, every), ssm),
+                  "shared_attn": stack((n_groups,), kv())}
+        if tail:
+            caches["mamba_tail"] = stack((tail,), ssm)
+        return caches
 
     # ------------------------------------------------------------------
     # decode step (one new token against an existing cache)
@@ -134,7 +191,9 @@ class LM(torch.nn.Module):
     def decode_step(self, caches, token: torch.Tensor,
                     pos: Union[int, torch.Tensor]):
         """token ``[B, 1]`` int, pos an int (or a 0-d tensor) -> (logits
-        ``[B, V]``, caches).  The caches are updated in place."""
+        ``[B, V]``, caches).  The caches are updated in place; the
+        attention write slot is ``pos``, or ``pos % window`` in a ring
+        (``_slot``)."""
         cfg = self.cfg
         pos = int(pos)
         x = self.embed[token]
@@ -142,11 +201,10 @@ class LM(torch.nn.Module):
         if cfg.family == "dense":
             slot = self._slot(pos, caches.k.shape[2])
             for i, blk in enumerate(self.blocks):
-                layer = attn_mod.KVCache(caches.k[i], caches.v[i],
-                                         caches.pos[i])
-                x, _ = tf.dense_block(blk, cfg, x, positions, cache=layer,
-                                      cache_pos=slot)
-        else:
+                x, _ = tf.dense_block(
+                    blk, cfg, x, positions, cache_pos=slot,
+                    cache=_map(lambda a: a[i], caches))
+        elif cfg.family == "rwkv":
             for i, blk in enumerate(self.blocks):
                 h, state, last_t = rwkv_mod.time_mix_decode(
                     blk.time, cfg, layers.rmsnorm(x, blk.ln1, cfg.norm_eps),
@@ -159,11 +217,36 @@ class LM(torch.nn.Module):
                 caches.shift_c[i].copy_(last_c)
                 caches.state[i].copy_(state)
                 x = y + h2
+        else:
+            attn = caches["shared_attn"]
+            slot = self._slot(pos, attn.k.shape[2])
+
+            def mamba(x, blk, cache):
+                h, new = ssm_mod.mamba2_decode(
+                    blk.ssm, cfg, layers.rmsnorm(x, blk.ln, cfg.norm_eps),
+                    cache)
+                for a, b in zip(cache, new):
+                    a.copy_(b)
+                return x + h
+
+            groups = caches["mamba_groups"]
+            for g, group in enumerate(self.mamba_groups):
+                for j, blk in enumerate(group):
+                    x = mamba(x, blk, _map(lambda a: a[g, j], groups))
+                x, _ = tf.dense_block(
+                    self.shared_attn, cfg, x, positions, cache_pos=slot,
+                    cache=_map(lambda a: a[g], attn))
+            for i, blk in enumerate(getattr(self, "mamba_tail", ())):
+                x = mamba(x, blk, _map(lambda a: a[i], caches["mamba_tail"]))
         x = layers.rmsnorm(x, self.ln_f, cfg.norm_eps)
         logits = self._unembed(x)[:, 0, :]
         return logits, caches
 
     def _slot(self, pos: int, cache_size: int) -> int:
+        """The write slot of position ``pos``: ``pos % cache_size`` in a
+        ring (a sliding window no shorter than the cache), else ``pos``."""
+        if self.cfg.sliding_window and cache_size <= self.cfg.sliding_window:
+            return pos % cache_size
         return pos
 
     # ------------------------------------------------------------------
@@ -171,7 +254,9 @@ class LM(torch.nn.Module):
     # ------------------------------------------------------------------
     def prefill(self, batch: Dict[str, torch.Tensor]):
         """Returns (last-token logits ``[B, V]``, caches ready for
-        decode).  The dense family only, as in the reference."""
+        decode).  The dense family only, as in the reference; the caches
+        hold k and v in the compute dtype even for an int8
+        ``cache_dtype``, as the reference's do."""
         cfg = self.cfg
         if cfg.family != "dense":
             raise NotImplementedError(
@@ -180,14 +265,21 @@ class LM(torch.nn.Module):
         x = self._embed(batch)
         s = x.shape[1]
         positions = torch.arange(s, device=x.device)
-        ks, vs, ps = [], [], []
+        layer_caches = []
         for blk in self.blocks:
             x, nc = tf.dense_block(blk, cfg, x, positions, return_cache=True)
-            ks.append(nc.k)
-            vs.append(nc.v)
-            ps.append(nc.pos)
-        caches = attn_mod.KVCache(torch.stack(ks), torch.stack(vs),
-                                  torch.stack(ps))
+            layer_caches.append(nc)
+        caches = attn_mod.KVCache(*(torch.stack(a) for a in
+                                    zip(*(c[:3] for c in layer_caches))))
         x = layers.rmsnorm(x, self.ln_f, cfg.norm_eps)
         logits = self._unembed(x[:, -1:, :])[:, 0, :]
         return logits, caches
+
+
+def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(groups, Mamba2 blocks per group, tail blocks) of the hybrid
+    family: each group is followed by one application of the shared
+    attention block (``repro/models/lm.py:91-106``)."""
+    every = cfg.hybrid_attn_every
+    n_groups = cfg.n_layers // every
+    return n_groups, every, cfg.n_layers - n_groups * every

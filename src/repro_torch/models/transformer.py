@@ -1,5 +1,5 @@
-"""Blocks of the dense and RWKV families: the port of
-``repro/models/transformer.py:40-65, 124-136``.
+"""Blocks of the dense, RWKV and hybrid families: the port of
+``repro/models/transformer.py:40-65, 124-150``.
 
 The reference stacks each block's parameters along a leading layer axis
 and scans over it; here a stack is an ``nn.ModuleList`` of blocks
@@ -12,7 +12,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from . import attention as attn_mod
-from . import layers, rwkv as rwkv_mod
+from . import layers, rwkv as rwkv_mod, ssm as ssm_mod
 from .config import ModelConfig
 
 
@@ -72,3 +72,24 @@ class RWKVBlock(torch.nn.Module):
             self.ln2.fill_(1)
         self.time.init(gen)
         self.chan.init(gen)
+
+
+class MambaBlock(torch.nn.Module):
+    """``mamba_block_init``: ``ln``, ``ssm`` (a Mamba2 mixer)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.ln = layers.param((cfg.d_model,),
+                               layers.dtype_of(cfg.param_dtype), device)
+        self.ssm = ssm_mod.Mamba2(cfg, device)
+
+    def init(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.ln.fill_(1)
+        self.ssm.init(gen)
+
+
+def shared_attn_block(cfg: ModelConfig, device) -> DenseBlock:
+    """``shared_attn_block_init``: zamba2's one attention + MLP block,
+    whose weights every application along the depth shares."""
+    return DenseBlock(cfg, device)
