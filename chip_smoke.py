@@ -96,10 +96,11 @@ Phases (any failure exits non-zero):
      chain (run_grid(fused=False), phase 3's grid and golden, no megastep
      launch, reserve_cohort once per body iteration); the one-event
      engine (simulate_sweep(step_mode="event"), 8 seeds as lanes, Fig. 6's
-     setting at MPL 25 to horizon 1,000, cut from 3,000 for the time) and
-     simulate() (the same setting and horizon, cohort mode), each
+     setting at MPL 25 to horizon 600, cut from 3,000 for the time) and
+     simulate() (the same setting to horizon 1,000, cohort mode), each
      protocol, against the JAX goldens
-     src/repro_torch/golden/event_h1000.json and simulate_h1000.json; the admit_ops kernel bit-equal to its plain
+     src/repro_torch/golden/event_h600.json and simulate_h1000.json; the
+     admit_ops kernel bit-equal to its plain
      version at the sched_admit shape (n = 256, d = 1,024, m = 512), at
      the scheduler's scale (n = 4,096, W = 1,024, m = 16,384) and at the
      edges, admit_ops_blocked in index and degree order against
@@ -119,11 +120,28 @@ Phases (any failure exits non-zero):
      linear cache, flash against its plain version at both prefills'
      layer-0 inputs with its time, bound and SDPA time; the busy shares
      and what the Mamba2 chunk scan, the Mamba2 decode and the int8
-     dequant cost a step.
+     dequant cost a step;
+ 10. the moe, vlm and audio families at published width, bf16: the
+     golden's dbrx-132b (1 layer), llama-3.2-vision-11b (5 layers) and
+     hubert-xlarge (48 layers) against lm_full_width.json; dbrx-132b with
+     6 of its 40 layers, llama4-maverick with 2 of its 48 (one dense, one
+     MoE), llama-3.2-vision-11b and hubert-xlarge at full depth, each
+     built, measured and freed in turn: a prefill of 8 x 1,024 (vision
+     over 1,601 image tokens, hubert on frames) with flash launched once
+     per attention layer (6, 2, 40 = 32 self + 8 cross, 48), serve() under
+     ppcc for dbrx and vision against the reference's counts, the decode
+     step at batch 8 over caches of 1,040 slots (vision's cross caches
+     projected from its image tokens), flash against its plain version
+     at every prefill's first self-attention and vision's first cross
+     call (Sk = 1,601) with its time, bound and SDPA, decode against
+     prefill in float32 for the three decoders at 2, 2 and 5 layers (the
+     capacity factor the expert count, vision's gates non-zero and its
+     cross caches filled), the MoE layer's routing and dispatch beside
+     its expert products; the busy shares at the end.
 
-Phase 6 and phase 8's runs follow phase 3, then phases 7 and 9, all
+Phase 6 and phase 8's runs follow phase 3, then phases 10, 7 and 9, all
 before phase 4's profiler sessions; phase 8's kernel checks and times
-come last, then the profiles of phases 7 and 9.
+come last, then the profiles of phases 7, 9 and 10.
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  The script imports
 nothing of JAX and nothing of the JAX package.
@@ -147,9 +165,10 @@ PHASE6_GOLDEN = SRC / "repro_torch" / "golden" / "run_grid_h10000.json"
 TM_GOLDEN = SRC / "repro_torch" / "golden" / "telemetry_h10000.json"
 SCHED_GOLDEN = SRC / "repro_torch" / "golden" / "sched_n4096_w1024.json"
 # phase 8: the one-event engine (8 seeds as lanes, Fig. 6's setting at MPL
-# 25, horizon 1,000: cut from 3,000, whose three runs took 298.7 s) and
+# 25, horizon 600: cut from 3,000, whose three runs took 298.7 s, then from
+# 1,000, where they took 152-188 s; at 600 every lane commits) and
 # simulate() (the same setting, horizon 1,000)
-EVENT_GOLDEN = SRC / "repro_torch" / "golden" / "event_h1000.json"
+EVENT_GOLDEN = SRC / "repro_torch" / "golden" / "event_h600.json"
 SIMULATE_GOLDEN = SRC / "repro_torch" / "golden" / "simulate_h1000.json"
 PHASE8_FIG, PHASE8_MPL = 6, 25
 # admit_ops at the reference's sched_admit shape (benchmarks/run.py:380)
@@ -249,6 +268,26 @@ PREFILL9 = {"zamba2_1p2b": (4, 8192), "yi_34b": (8, 1024)}
 # length before phase 9 (on one H100: 781.1 s with 128, 647.8 s before)
 DECODE9 = {"zamba2_1p2b": 64, "yi_34b": 64}
 RING9 = (64, 96)   # zamba2's ring: the window cut to 64 slots, 96 tokens
+# phase 10: the moe, vlm and audio families at published width, bf16, the
+# layers each keeps (0: all): dbrx-132b 6 of 40 (41.6 GB; 40 are 264 GB),
+# llama4-maverick 2 of 48 (one dense and one MoE layer, 37.4 GB; 48 are
+# ~800 GB), llama-3.2-vision-11b all 40 (32 self + 8 cross, 19.6 GB),
+# hubert-xlarge all 48 (2.5 GB); each prefill 8 x 1,024, the vision
+# model's over 1,601 image tokens, hubert's on frames
+PHASE10 = {"dbrx_132b": 6, "llama4_maverick_400b": 2,
+           "llama3p2_vision_11b": 0, "hubert_xlarge": 0}
+GOLDEN10 = ("dbrx_132b", "llama3p2_vision_11b", "hubert_xlarge")
+SERVE10 = ("dbrx_132b", "llama3p2_vision_11b")     # serve() under ppcc
+# decode steps timed at batch 8 (the decoders), over caches of the
+# prefill's length and these: a step attends over every slot
+DECODE10 = 16
+# decode against prefill in float32 (the bf16 weights widened, float32
+# caches, the capacity factor the expert count, so that the prefill drops
+# no token), at the depth that fits the card in float32: dbrx 2 layers
+# (31 GB), maverick its 2 (74.8 GB), vision one group of 4 self blocks
+# and its cross block (8.6 GB)
+CHECK10 = {"dbrx_132b": 2, "llama4_maverick_400b": 2,
+           "llama3p2_vision_11b": 5}
 POLICIES = ("ppcc", "2pl", "occ")
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
@@ -1256,11 +1295,10 @@ def lm_golden(arch, gold, dev, torch, tag) -> None:
     rec = gold["models"][arch]
     tol = gold["tolerance"]
     atol, rtol = tol["atol"][arch], tol["rtol"][arch]
-    prompt, cont, ids = G.inputs(cfg)
-    if ids.tolist() != rec["ids"] or hashlib.sha256(
-            prompt.tobytes() + cont.tobytes()).hexdigest() != \
-            rec["prompt_sha256"]:
-        fail(f"{tag} {arch}: the golden's tokens differ from this "
+    prompt, cont, ids, extra = G.inputs(cfg)
+    if ids.tolist() != rec["ids"] or \
+            G.inputs_sha256(prompt, cont, extra) != rec["prompt_sha256"]:
+        fail(f"{tag} {arch}: the golden's inputs differ from this "
              f"machine's draw")
     tree = convert.random_jax_tree(cfg, G.SEED)
     if convert.tree_sha256(tree) != rec["weights_sha256"]:
@@ -1270,7 +1308,7 @@ def lm_golden(arch, gold, dev, torch, tag) -> None:
     lm.load_state_dict(convert.params_from_jax(cfg, tree))
     del tree
     ops.reset_launches()
-    got = G.port_run(lm, prompt, cont, ids)
+    got = G.port_run(lm, prompt, cont, ids, extra)
     torch.cuda.synchronize()
     kernel, want = prefill_kernel(cfg, "float32")
     launched = ops.launch_counts()[kernel]
@@ -1293,11 +1331,15 @@ def lm_golden(arch, gold, dev, torch, tag) -> None:
     log(f"{tag} {arch} at full width ({cfg.d_model} wide, vocab "
         f"{cfg.vocab}), {cfg.n_layers} layers"
         + (f", cut {cuts}" if cuts else "")
-        + f", float32, {cfg.cache_dtype} cache, seeded weights (sha256 "
-        f"equal): prefill of {G.B} x {G.S} ({kernel} x {launched}) and "
-        f"{G.STEPS} decode steps"
-        + (" after the prompt decoded from empty caches"
-           if G.decodes_prompt(cfg) else "")
+        + ", float32"
+        + (f", {cfg.cache_dtype} cache" if G.decodes(cfg) else "")
+        + f", seeded weights (sha256 "
+        f"equal): prefill of {G.B} x {G.S} ({kernel} x {launched})"
+        + (f" on seeded {', '.join(sorted(extra))}" if extra else "")
+        + ((f" and {G.STEPS} decode steps"
+            + (" after the prompt decoded from empty caches"
+               if G.decodes_prompt(cfg) else ""))
+           if G.decodes(cfg) else ", no decode (an encoder)")
         + f" equal {LM_GOLDEN.name} at {G.N_IDS} ids and every logsumexp, "
         f"max abs err {worst:.3g} (atol {atol}, rtol {rtol}; CPU port "
         f"{tol['cpu_max_abs_err'][arch]:.3g}"
@@ -1306,26 +1348,51 @@ def lm_golden(arch, gold, dev, torch, tag) -> None:
     torch.cuda.empty_cache()
 
 
-def decode_prompt(lm, prompt, torch):
-    """(last logits of decoding ``prompt`` token by token from empty
-    caches, seconds per step after the first)."""
-    caches = lm.init_caches(prompt.shape[0], prompt.shape[1])
+def fill_cross_caches(lm, caches, img, torch):
+    """Write the image tokens' keys and values into the vlm family's
+    ``cross_k``/``cross_v`` caches, projected by each cross block as the
+    prefill projects them (the reference leaves the caches to its
+    caller)."""
+    from repro_torch.models import attention as attn_mod
+    src = img.to(caches["cross_k"].dtype)
     with torch.inference_mode():
-        lg, caches = lm.decode_step(caches, prompt[:, :1], 0)
+        for g, cross in enumerate(lm.cross_blocks):
+            _, k, v = attn_mod._project_qkv(cross.xattn, lm.cfg, src[:, :1],
+                                            src, None, lm.cfg.kv_repeat)
+            caches["cross_k"][g].copy_(k)
+            caches["cross_v"][g].copy_(v)
+
+
+def decode_prompt(lm, prompt, torch, start=0, img=None):
+    """(last logits of decoding ``prompt`` token by token from empty
+    caches of ``start`` + its length slots, its first token at position
+    ``start``, seconds per step after the first).  A step attends over
+    every slot, filled or not, so it costs what it would after a context
+    of ``start`` tokens.  The vlm family's cross caches hold ``img``'s
+    keys and values."""
+    caches = lm.init_caches(prompt.shape[0], start + prompt.shape[1])
+    if img is not None:
+        fill_cross_caches(lm, caches, img, torch)
+    with torch.inference_mode():
+        lg, caches = lm.decode_step(caches, prompt[:, :1], start)
         torch.cuda.synchronize()
         t = time.perf_counter()
         for i in range(1, prompt.shape[1]):
-            lg, caches = lm.decode_step(caches, prompt[:, i:i + 1], i)
+            lg, caches = lm.decode_step(caches, prompt[:, i:i + 1], start + i)
         torch.cuda.synchronize()
     return lg.float(), (time.perf_counter() - t) / (prompt.shape[1] - 1)
 
 
-def against_prefill(lm, prompt, torch):
+def against_prefill(lm, prompt, torch, img=None):
     """(max |decode - prefill| of the last logits, the prefill's largest
-    magnitude, at least 1, seconds per decode step)."""
+    magnitude, at least 1, seconds per decode step); ``img`` is the vlm
+    family's source, in the prefill's batch and the decode's cross
+    caches."""
     from repro_torch.launch import steps
-    want_l = steps.make_prefill_step(lm)({"tokens": prompt}).float()
-    got_l, sec = decode_prompt(lm, prompt, torch)
+    batch = {"tokens": prompt} if img is None else {"tokens": prompt,
+                                                    "img": img}
+    want_l = steps.make_prefill_step(lm)(batch).float()
+    got_l, sec = decode_prompt(lm, prompt, torch, img=img)
     return (float((got_l - want_l).abs().max()),
             max(1.0, float(want_l.abs().max())), sec)
 
@@ -1718,6 +1785,78 @@ def flash_ref_pieces(q, k, v, torch, *, causal=True, window=0, sm_scale=None,
     return out
 
 
+def flash_at_shape(q, k, v, kw, path, where, launches, torch, smi, cuda_ms,
+                   tag) -> dict:
+    """Flash at one call's captured inputs: held to its plain version (run
+    in pieces) within 2e-2, timed beside its plain version, SDPA (K/V
+    expanded to the query heads; a window as a boolean mask) and its
+    bound (the bytes of q, k, v and the output against the operations of
+    the unmasked (query, key) pairs on the bf16 tensor cores).  Logs one
+    line and returns the kernel row's ``at_shapes`` entry."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    from repro_torch.kernels import flash_attention as kflash
+    flash = kflash.flash_attention
+    dev = q.device
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    got = flash(q, k, v, **kw)
+    want = flash_ref_pieces(q, k, v, torch, **kw)
+    torch.cuda.synchronize()
+    err = float((got.double() - want.double()).abs().max())
+    bad = (got.double() - want.double()).abs() > \
+        2e-2 + 2e-2 * want.double().abs()
+    if bool(bad.any()):
+        fail(f"{tag} flash_attention differs from its plain version at "
+             f"{where}'s inputs: max abs err {err:.4g}")
+    del got, want
+    ms = cuda_ms(lambda: flash(q, k, v, **kw), 20)
+    plain = cuda_ms(lambda: flash_ref_pieces(q, k, v, torch, **kw), 2)
+    pairs = unmasked_pairs(sq, sk, causal, window)
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * b * hq * d * pairs
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    bound, by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o
+                                      else "operations")
+    g = hq // hkv
+    kx = k.repeat_interleave(g, 1) if g > 1 else k
+    vx = v.repeat_interleave(g, 1) if g > 1 else v
+    mask = None
+    if window:
+        i = torch.arange(sq, device=dev)[:, None]
+        j = torch.arange(sk, device=dev)[None, :]
+        mask = (i - j < window) & ((i >= j) if causal else True)
+    lib_causal = causal and mask is None
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q, kx, vx, attn_mask=mask, is_causal=lib_causal)
+
+    backend = SDPBackend(torch._fused_sdp_choice(
+        q, kx, vx, mask, 0.0, lib_causal)).name
+    torch.testing.assert_close(library().float(), flash(q, k, v, **kw).float(),
+                               atol=2e-2, rtol=2e-2)
+    lib = cuda_ms(library, 10)
+    label = (f"B={b} Hq={hq} Hkv={hkv} S={sq}"
+             + (f" Sk={sk}" if sk != sq else "")
+             + f" D={d} {str(q.dtype)[6:]} causal={causal} window={window}")
+    log(f"{tag} flash_attention at {label} ({where}; within 2e-2 of its "
+        f"plain version, max abs err {err:.4g}): {ms:.4f} ms (plain "
+        f"{plain:.4f} ms over pieces; SDPA {lib:.4f} ms, backend {backend}, "
+        + ("the window as a boolean mask" if mask is not None else
+           f"{'is_causal' if lib_causal else 'no mask'} with K/V expanded "
+           f"to {hq} heads")
+        + f"; bound {bound:.5f} ms by {by}: {nbytes / 1e6:.1f} MB at "
+        f"3.35 TB/s against {flops / 1e9:.2f} GFLOP over the {pairs} "
+        f"unmasked (query, key) pairs at 989 TFLOP/s); {ms / lib:.2f}x "
+        f"SDPA, {ms / bound:.2f}x its bound [{smi}]")
+    return {"path": path, "shape": label, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
+            "library": f"scaled_dot_product_attention ({backend})"}
+
+
 def hybrid_int8_phase(torch, dev, smi, cuda_ms):
     """Phase 9: the int8 and sliding-window KV caches and the hybrid
     family.  The golden's yi-34b and zamba2-1.2b runs; zamba2-1.2b at its
@@ -1728,8 +1867,6 @@ def hybrid_int8_phase(torch, dev, smi, cuda_ms):
     times beside its bound and SDPA.  Returns (flash's entries at the two
     shapes, flash's launches on each prefill, a function that takes the
     device's busy shares, to run after every wall of the script)."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ops
     from repro_torch.launch import golden as G
@@ -1912,67 +2049,10 @@ def hybrid_int8_phase(torch, dev, smi, cuda_ms):
     shapes = []
     for arch in PHASE9:
         (q, k, v), kw = captured[arch, "flash"]
-        b, hq, sq, d = q.shape
-        hkv, sk = k.shape[1], k.shape[2]
-        causal, window = kw.get("causal", True), kw.get("window", 0)
-        got = real_flash(q, k, v, **kw)
-        want = flash_ref_pieces(q, k, v, torch, **kw)
-        torch.cuda.synchronize()
-        err = float((got.double() - want.double()).abs().max())
-        bad = (got.double() - want.double()).abs() > \
-            2e-2 + 2e-2 * want.double().abs()
-        if bool(bad.any()):
-            fail(f"[9] flash_attention differs from its plain version at "
-                 f"the {arch} prefill's layer-0 inputs: max abs err "
-                 f"{err:.4g}")
-        del got, want
-        ms = cuda_ms(lambda: real_flash(q, k, v, **kw), 20)
-        plain = cuda_ms(lambda: flash_ref_pieces(q, k, v, torch, **kw), 2)
-        pairs = unmasked_pairs(sq, sk, causal, window)
-        nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
-        flops = 4 * b * hq * d * pairs
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
-        bound, by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o
-                                          else "operations")
-        g = hq // hkv
-        kx = k.repeat_interleave(g, 1) if g > 1 else k
-        vx = v.repeat_interleave(g, 1) if g > 1 else v
-        mask = None
-        if window:
-            i = torch.arange(sq, device=dev)[:, None]
-            j = torch.arange(sk, device=dev)[None, :]
-            mask = (i - j < window) & ((i >= j) if causal else True)
-        lib_causal = causal and mask is None
-
-        def library():
-            return F.scaled_dot_product_attention(
-                q, kx, vx, attn_mask=mask, is_causal=lib_causal)
-
-        backend = SDPBackend(torch._fused_sdp_choice(
-            q, kx, vx, mask, 0.0, lib_causal)).name
-        torch.testing.assert_close(library().float(),
-                                   real_flash(q, k, v, **kw).float(),
-                                   atol=2e-2, rtol=2e-2)
-        lib = cuda_ms(library, 10)
-        label = (f"B={b} Hq={hq} Hkv={hkv} S={sq} D={d} "
-                 f"{str(q.dtype)[6:]} causal={causal} window={window}")
-        log(f"[9] flash_attention at {label} ({arch}'s prefill, layer 0; "
-            f"within 2e-2 of its plain version, max abs err {err:.4g}): "
-            f"{ms:.4f} ms (plain {plain:.4f} ms over pieces; SDPA "
-            f"{lib:.4f} ms, backend {backend}, "
-            + ("the window as a boolean mask" if mask is not None else
-               f"is_causal with K/V expanded to {hq} heads")
-            + f"; bound {bound:.5f} ms by {by}: {nbytes / 1e6:.1f} MB at "
-            f"3.35 TB/s against {flops / 1e9:.2f} GFLOP over the "
-            f"{pairs} unmasked (query, key) pairs at 989 TFLOP/s); "
-            f"{ms / lib:.2f}x SDPA, {ms / bound:.2f}x its bound [{smi}]")
-        shapes.append({"path": f"{arch} prefill", "shape": label,
-                       "launches": launches[arch], "max_abs_err": err,
-                       "ms": ms, "plain_ms": plain, "bound_ms": bound,
-                       "bound_by": by, "library_ms": lib,
-                       "library": f"scaled_dot_product_attention "
-                                  f"({backend})"})
-        del kx, vx, mask
+        shapes.append(flash_at_shape(q, k, v, kw, f"{arch} prefill",
+                                     f"{arch}'s prefill, layer 0",
+                                     launches[arch], torch, smi, cuda_ms,
+                                     "[9]"))
     ssd_args = captured["zamba2_1p2b", "ssd"]
     del captured
     torch.cuda.empty_cache()
@@ -2061,6 +2141,343 @@ def hybrid_int8_phase(torch, dev, smi, cuda_ms):
                 f"{dq_ms:.4f} ms, x {n_yi} (k and v of {n_yi // 2} layers) "
                 f"= {dq_ms * n_yi:.3f} ms of the step's {step:.3f} ms of "
                 f"device time ({100 * dq_ms * n_yi / step:.1f}%)")
+
+    return shapes, launches, busy_shares
+
+
+def phase10_config(arch):
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    return cfg.with_(n_layers=PHASE10[arch]) if PHASE10[arch] else cfg
+
+
+def phase10_batch(cfg, gen, dev, torch) -> dict:
+    """The prefill's batch, drawn on the card: tokens [8, 1,024], the
+    vision model's image tokens [8, 1,601, d] beside them, hubert's
+    frames [8, 1,024, d] in their place (bf16, standard normal)."""
+    b, s_ = PREFILL_B, PREFILL_S
+    if cfg.family == "audio":
+        return {"frames": torch.randn((b, s_, cfg.d_model), generator=gen,
+                                      device=dev).bfloat16()}
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s_), generator=gen,
+                                     device=dev)}
+    if cfg.family == "vlm":
+        batch["img"] = torch.randn((b, cfg.n_img_tokens, cfg.d_model),
+                                   generator=gen, device=dev).bfloat16()
+    return batch
+
+
+def phase10_model(arch, dev, torch):
+    """(model, batch) of ``arch`` in phase 10, from seed 0 on the card."""
+    from repro_torch.models import LM
+    cfg = phase10_config(arch)
+    gen = torch.Generator(dev).manual_seed(0)
+    lm = LM(cfg, device=dev).init(gen)
+    return lm, phase10_batch(cfg, gen, dev, torch)
+
+
+def check10_config(arch):
+    """The float32 config of ``arch``'s decode-against-prefill check."""
+    cfg = phase10_config(arch)
+    kw = dict(n_layers=CHECK10[arch], param_dtype="float32",
+              compute_dtype="float32", cache_dtype="float32")
+    if cfg.family == "moe":
+        kw["capacity_factor"] = float(cfg.n_experts)
+    return cfg.with_(**kw)
+
+
+def check10_leaves(lm, arch) -> dict:
+    """Host copies of the bf16 leaves of ``lm`` that the check's cut
+    model keeps (the first layers, the embeddings and the head)."""
+    from repro_torch.models import LM
+    keep = LM(check10_config(arch), device="meta").state_dict().keys()
+    return {k: v.cpu() for k, v in lm.state_dict().items() if k in keep}
+
+
+def phase10_float32_check(arch, host, prompt, img, dev, torch):
+    """Decode ``prompt`` token by token against the prefill's last logits
+    in float32 at ``CHECK10[arch]`` layers (``check10_config``), the
+    weights the bf16 model's (``host``, emptied as each leaf is widened
+    on the host and moved to the card); the vlm family's gates set to
+    0.6 and -0.4 (0 at init, where a cross block passes its input
+    through), its cross caches filled from ``img``.
+    Returns (max abs difference, the prefill's largest magnitude, GB of
+    float32 weights, GB left free on the card beside them)."""
+    from repro_torch.models import LM
+    lm32 = LM(check10_config(arch), device="meta")
+    sd = {k: host.pop(k).float().to(dev) for k in list(host)}
+    lm32.load_state_dict(sd, assign=True)
+    del sd
+    gb = sum(p_.numel() * 4 for p_ in lm32.parameters()) / 1e9
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    if lm32.cfg.family == "vlm":
+        with torch.no_grad():
+            for cross in lm32.cross_blocks:
+                cross.gate_attn.fill_(0.6)
+                cross.gate_mlp.fill_(-0.4)
+    err, scale, _ = against_prefill(
+        lm32, prompt, torch, img=None if img is None else img.float())
+    del lm32
+    torch.cuda.empty_cache()
+    return err, scale, gb, free_gb
+
+
+def moe_split(p, cfg, x, torch, cuda_ms) -> dict:
+    """Device ms of one ``moe_apply`` at its captured inputs, of its
+    expert products alone (``moe.experts``, the function ``moe_apply``
+    calls, on an ``[E, C, d]`` block) and of its shared expert alone;
+    the rest is the router, the top-k, the sort, the dispatch gather and
+    the combine."""
+    from repro_torch.models import layers
+    from repro_torch.models import moe as moe_mod
+    n, d = x.shape[0] * x.shape[1], x.shape[-1]
+    c = moe_mod.capacity(n, cfg)
+    xe = torch.randn((cfg.n_experts, c, d), device=x.device).to(x.dtype)
+    out = {"tokens": n, "capacity": c,
+           "total": cuda_ms(lambda: moe_mod.moe_apply(p, cfg, x), 5),
+           "experts": cuda_ms(lambda: moe_mod.experts(p, xe), 5),
+           "shared": cuda_ms(lambda: layers.mlp_apply(
+               p.shared, x.reshape(n, d)), 5) if hasattr(p, "shared")
+           else 0.0}
+    out["rest"] = out["total"] - out["experts"] - out["shared"]
+    return out
+
+
+def moe_vlm_audio_phase(torch, dev, smi, cuda_ms):
+    """Phase 10: the moe, vlm and audio families at published width.
+    The golden's dbrx-132b (1 layer), llama-3.2-vision-11b (5 layers)
+    and hubert-xlarge (48 layers) runs; then each model of ``PHASE10`` in
+    bf16, one at a time, freed before the next: the main path counted
+    (one prefill, and ``serve()`` under ppcc for dbrx and vision against
+    the reference's counts), the prefill's wall, the decoders' decode
+    step at batch 8 after the prefill's length, flash against its plain
+    version at each prefill's first self-attention call (hubert's D =
+    80, non-causal) and at the vision model's first cross call (Sk =
+    1,601), with its time, bound and SDPA; the decoders' decode against
+    prefill in float32 at ``CHECK10``'s depths; what the MoE layer's
+    routing, dispatch and combine cost beside its expert products.
+    Returns (flash's entries at the five shapes, flash's
+    launches on each prefill, a function that takes the device's busy
+    shares, to run after every wall of the script)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops
+    from repro_torch.launch import golden as G
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch import steps
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.lm import vlm_layout
+
+    t10 = time.perf_counter()
+    gold = json.loads(LM_GOLDEN.read_text())
+    if gold["run"] != G.run_record():
+        fail(f"{LM_GOLDEN.name} was written for another run: {gold['run']}")
+    for arch in GOLDEN10:
+        lm_golden(arch, gold, dev, torch, "[10]")
+    log(f"[10] goldens in {time.perf_counter() - t10:.1f} s")
+
+    real_flash, real_moe = kflash.flash_attention, moe_mod.moe_apply
+    walls, shapes, launches, parts = {}, [], {}, {}
+    for arch in PHASE10:
+        t = time.perf_counter()
+        lm, batch = phase10_model(arch, dev, torch)
+        cfg = lm.cfg
+        n_cross = vlm_layout(cfg)[0] if cfg.family == "vlm" else 0
+        n_par = sum(p_.numel() for p_ in lm.parameters())
+        cut = configs.get(arch).n_layers
+        log(f"[10] {arch}: {cfg.n_layers} layers"
+            + (f" (cut from {cut} for the card's memory)"
+               if cut != cfg.n_layers else "")
+            + f", d={cfg.d_model}, {cfg.n_heads} query heads"
+            + (f" padded to {cfg.pad_q_heads}" if cfg.pad_q_heads else "")
+            + f" over {cfg.n_kv_heads * cfg.kv_repeat} KV heads of "
+            f"{cfg.head_dim}"
+            + (f", {cfg.n_experts} experts of d_ff {cfg.d_ff}, top "
+               f"{cfg.top_k}, MoE every {cfg.moe_every} layer(s)"
+               + (", a shared expert" if cfg.moe_shared_expert else "")
+               if cfg.family == "moe" else "")
+            + (f", a gated cross block every {cfg.cross_attn_every} over "
+               f"{cfg.n_img_tokens} image tokens"
+               if cfg.family == "vlm" else "")
+            + (", non-causal encoder on frames" if cfg.family == "audio"
+               else "")
+            + f"; {n_par / 1e9:.3f} G parameters in bf16 from a "
+            f"torch.Generator on the card ({time.perf_counter() - t:.1f} s); "
+            f"prefill {PREFILL_B} x {PREFILL_S}")
+        captured = {}
+
+        def flash_spy(q, k, v, **kw):
+            key = "cross" if q.shape[2] != k.shape[2] else "self"
+            if key not in captured:
+                captured[key] = ((q.clone(), k.clone(), v.clone()), dict(kw))
+            return real_flash(q, k, v, **kw)
+
+        def moe_spy(p, c, x):
+            # the prefill's and the timed decode's (batch 8), not serve()'s
+            key = "prefill" if x.shape[1] > 1 else "decode"
+            if key not in captured and x.shape[0] == PREFILL_B:
+                captured[key] = (p, c, x.clone())
+            return real_moe(p, c, x)
+
+        prefill = steps.make_prefill_step(lm)
+        kflash.flash_attention, moe_mod.moe_apply = flash_spy, moe_spy
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        try:
+            logits = prefill(batch)
+            served = srv.serve(lm, policy="ppcc") if arch in SERVE10 \
+                else None
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            # walls (spies pass straight through after their first call)
+            walls[arch, "prefill"] = median_wall_ms(
+                lambda: prefill(batch), 3, torch) / 1e3
+            if cfg.family != "audio":
+                lg, walls[arch, "decode"] = decode_prompt(
+                    lm, batch["tokens"][:, :DECODE10], torch,
+                    start=PREFILL_S, img=batch.get("img"))
+                if lg.shape != (PREFILL_B, cfg.vocab) or \
+                        not bool(torch.isfinite(lg).all()):
+                    fail(f"[10] {arch} decode logits {tuple(lg.shape)} not "
+                         f"finite or of the wrong shape")
+        finally:
+            kflash.flash_attention, moe_mod.moe_apply = real_flash, real_moe
+        want = {"flash_attention_tc": cfg.n_layers, "flash_attention": 0}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            fail(f"[10] {arch}: flash launches on the main path {got}, "
+                 f"expected one per attention layer of the prefill on the "
+                 f"tensor cores {want}")
+        launches[arch] = got["flash_attention_tc"]
+        sched = {k: v_ for k, v_ in counts.items() if v_ and k not in want}
+        if logits.shape != (PREFILL_B, cfg.vocab) or \
+                not bool(torch.isfinite(logits.float()).all()):
+            fail(f"[10] {arch} prefill logits {tuple(logits.shape)} not "
+                 f"finite or of the wrong shape")
+        line = (f"[10] {arch} main path (one prefill"
+                + (", serve() under ppcc" if served else "")
+                + f"): flash launches {got}, one per attention layer"
+                + (" ({1} self, {0} cross)".format(
+                    n_cross, cfg.n_layers - n_cross)
+                   if cfg.family == "vlm" else "")
+                + ", on its tensor-core route")
+        if served:
+            if not sched.get("conflict_fused") or \
+                    not sched.get("ppcc_admit"):
+                fail(f"[10] {arch}: serve() launched no admission kernels: "
+                     f"{sched}")
+            ref_s = gold["serve"]["by_arch"][arch]["ppcc"]
+            if (served["ticks"], served["tokens"]) != (ref_s["ticks"],
+                                                       ref_s["tokens"]):
+                fail(f"[10] {arch} serve(ppcc): ticks {served['ticks']}, "
+                     f"tokens {served['tokens']}; the reference's {ref_s}")
+            line += (f"; admission kernels {sched}; serve(ppcc) ticks and "
+                     f"tokens {served['ticks']}/{served['tokens']} equal the "
+                     f"reference's (python -m repro.launch.serve --arch "
+                     f"{arch}); {served['tokens']} tokens in "
+                     f"{served['wall']:.3f} s "
+                     f"({served['tokens'] / served['wall']:.1f} tokens/s)")
+        log(line)
+        pre = walls[arch, "prefill"]
+        log(f"[10] {arch}: prefill {PREFILL_B} x {PREFILL_S} in "
+            f"{pre * 1e3:.2f} ms ({PREFILL_B * PREFILL_S / pre:.0f} "
+            f"tokens/s)"
+            + (f"; decode {walls[arch, 'decode'] * 1e3:.3f} ms per step at "
+               f"batch {PREFILL_B} (over {DECODE10} prompt tokens at "
+               f"positions {PREFILL_S}.., caches of "
+               f"{PREFILL_S + DECODE10} slots"
+               + (", cross caches of the image tokens"
+                  if cfg.family == "vlm" else "") + ")"
+               if (arch, "decode") in walls else "; no decode (an encoder)")
+            + f" [{smi}]")
+        del logits
+        if cfg.family == "moe":
+            n_moe = cfg.n_layers // cfg.moe_every
+            for step in ("prefill", "decode"):
+                # popped: a MoE module left referenced here would keep a
+                # layer's experts on the card through the float32 check
+                sp = moe_split(*captured.pop(step), torch, cuda_ms)
+                parts[arch, step] = sp
+                wall = walls[arch, step] * 1e3
+                log(f"[10] {arch} {step}: one MoE layer at its inputs "
+                    f"({sp['tokens']} tokens, capacity {sp['capacity']} a "
+                    f"expert) {sp['total']:.4f} ms: expert products "
+                    f"{sp['experts']:.4f} ms"
+                    + (f", shared expert {sp['shared']:.4f} ms"
+                       if sp["shared"] else "")
+                    + f", routing, sort, dispatch and combine "
+                    f"{sp['rest']:.4f} ms; x {n_moe} MoE layers = "
+                    f"{sp['rest'] * n_moe:.3f} ms of routing and dispatch, "
+                    f"{100 * sp['rest'] * n_moe / wall:.1f}% of the "
+                    f"{step}'s {wall:.3f} ms wall [{smi}]")
+        for key, label in (("self", "layer 0"), ("cross", "first cross")):
+            if key in captured:
+                (q, k, v), kw = captured.pop(key)
+                shapes.append(flash_at_shape(
+                    q, k, v, kw, f"{arch} prefill", f"{arch}'s prefill, "
+                    f"{label}", launches[arch], torch, smi, cuda_ms, "[10]"))
+                del q, k, v
+        if arch in CHECK10:
+            host = check10_leaves(lm, arch)
+            prompt = batch["tokens"][:, :DECODE10].clone()
+            img = batch.get("img")
+        del lm, batch, captured, prefill
+        torch.cuda.empty_cache()
+        if arch in CHECK10:
+            t = time.perf_counter()
+            err, scale, gb, free_gb = phase10_float32_check(
+                arch, host, prompt, img, dev, torch)
+            del host, prompt, img
+            if not err <= 3e-2 * scale:
+                fail(f"[10] {arch} float32, {CHECK10[arch]} layers: decode "
+                     f"over {DECODE10} prompt tokens differs from the "
+                     f"prefill's last logits by {err:.4g} > 3e-2 x "
+                     f"{scale:.3g}")
+            log(f"[10] {arch} float32, the bf16 weights widened, "
+                f"{CHECK10[arch]} layers ({gb:.1f} GB, {free_gb:.1f} GB of "
+                f"the card left free)"
+                + (f", capacity factor {phase10_config(arch).n_experts} "
+                   f"(no token dropped)" if cfg.family == "moe" else "")
+                + (", gates 0.6 and -0.4, cross caches projected from the "
+                   "image tokens" if cfg.family == "vlm" else "")
+                + f": decode over {DECODE10} prompt tokens from empty caches "
+                f"against the prefill's last logits {err:.4g} (within 3e-2 x "
+                f"{scale:.3g}; {time.perf_counter() - t:.1f} s)")
+    log(f"[10] phase 10 walls and checks in "
+        f"{time.perf_counter() - t10:.1f} s")
+
+    def busy_shares():
+        """Device kernel time of one prefill and one decode step of each
+        model from torch.profiler, over the walls taken above; each model
+        built again from its seed, one at a time."""
+        for arch in PHASE10:
+            lm, batch = phase10_model(arch, dev, torch)
+            prefill = steps.make_prefill_step(lm)
+            runs = [("prefill", lambda: prefill(batch), 1)]
+            if lm.cfg.family != "audio":
+                caches = lm.init_caches(PREFILL_B, PREFILL_S + DECODE10)
+                tok = batch["tokens"][:, :1]
+                runs.append(("decode", lambda: lm.decode_step(
+                    caches, tok, PREFILL_S + DECODE10 // 2), 4))
+            for label, fn, reps in runs:
+                with torch.inference_mode():
+                    fn()
+                    torch.cuda.synchronize()
+                    dev_ms, kernels, per = device_profile(fn, reps, torch)
+                wall_ms = walls[arch, label] * 1e3
+                if dev_ms > 0:
+                    log(f"[10] {arch} {label} step: {dev_ms:.3f} ms device "
+                        f"kernel time ({kernels:.0f} kernels, profiled) over "
+                        f"{wall_ms:.3f} ms wall (unprofiled): device busy "
+                        f"{100 * dev_ms / wall_ms:.1f}%; largest: "
+                        + ", ".join(f"{k_[:40]} {v_:.3f} ms"
+                                    for v_, k_ in largest(per, 4))
+                        + f" [{smi}]")
+                else:
+                    log(f"[10] {arch} {label} step: device time not "
+                        f"measured (profiler saw no device time)")
+            del lm, batch, prefill, runs
+            torch.cuda.empty_cache()
 
     return shapes, launches, busy_shares
 
@@ -2189,8 +2606,9 @@ def phase8_runs(torch, dev, sweep, E, P, ops, golden3) -> dict:
     total = sum(v["wall_s"] for v in info["event"].values())
     log(f"[8] event engine: the three protocols took {total:.1f} s at the "
         f"golden's horizon {p.horizon:g} (cut from 3,000, where they took "
-        f"298.7 s)" + (", over the 120 s the phase plans for them"
-                       if total > 120 else ""))
+        f"298.7 s, and from 1,000, 152-188 s)"
+        + (", over the 100 s the phase plans for them" if total > 100
+           else ""))
     info["event_params"] = p
 
     # simulate(): one lane, cohort mode, each protocol
@@ -2833,6 +3251,13 @@ def main() -> None:
     p8 = phase8_runs(torch, dev, sweep, E, P, ops, golden3)
     t8 = time.perf_counter() - t8
 
+    # ---------------- phase 10: the moe, vlm and audio families ----------
+    # (first of the LM phases, while the card holds no model: each of its
+    # models is built, measured and freed in turn)
+    p10_shapes, p10_launches, p10_busy = moe_vlm_audio_phase(
+        torch, dev, smi, lambda fn, reps, sleep=True:
+        cuda_times(fn, reps, torch, sleep))
+
     # ---------------- phase 7: LM serving (walls before any profiler) ----
     lm_rows, lm_busy = lm_phase(torch, dev, smi, lambda fn, reps, sleep=True:
                                cuda_times(fn, reps, torch, sleep))
@@ -3086,16 +3511,21 @@ def main() -> None:
     rows += sched_rows
     lm_busy()
     p9_busy()
+    del lm_busy, p9_busy               # their models: room for phase 10's
+    torch.cuda.empty_cache()
+    p10_busy()
     for row in lm_rows:
         if row["name"] == "flash_attention":
             row["launches_by_path"] = {
                 "qwen3_0p6b prefill (phase 7)": row["launches"],
                 **{f"{a} prefill (phase 9)": n for a, n in
-                   p9_launches.items()}}
-            row["at_shapes"] = p9_shapes
+                   p9_launches.items()},
+                **{f"{a} prefill (phase 10)": n for a, n in
+                   p10_launches.items()}}
+            row["at_shapes"] = p9_shapes + p10_shapes
     rows += lm_rows
     rows.append(admit_row)
-    log(f"[done] all nine phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] all ten phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,11 @@
-"""Architecture registry of the port: the configurations whose every
-feature ``repro_torch.models`` runs.
+"""Architecture registry of the port: the reference's ten architectures,
+every feature of which ``repro_torch.models`` runs.
 
 Each module defines ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family configuration for CPU tests), copied
 from ``repro/configs``.  ``get(name)`` / ``get_smoke(name)`` /
 ``ARCH_NAMES`` / ``ALIASES`` are the public API; ``--arch <id>`` in the
-launchers resolves through here.  The reference's moe, vlm and audio
-architectures (``NOT_PORTED``) raise ``KeyError`` naming ROADMAP.md.
+launchers resolves through here.
 """
 from __future__ import annotations
 
@@ -21,16 +20,12 @@ ARCH_NAMES: List[str] = [
     "qwen3_0p6b",
     "stablelm_1p6b",
     "rwkv6_3b",
+    "llama4_maverick_400b",
+    "dbrx_132b",
+    "llama3p2_vision_11b",
+    "hubert_xlarge",
     "zamba2_1p2b",
 ]
-
-# the reference's architectures that wait for a feature of a later slice
-NOT_PORTED: Dict[str, str] = {
-    "llama4_maverick_400b": "the moe family",
-    "dbrx_132b": "the moe family",
-    "llama3p2_vision_11b": "the vlm family",
-    "hubert_xlarge": "the audio family",
-}
 
 # accepted aliases (assignment spelling -> module name)
 ALIASES: Dict[str, str] = {
@@ -49,9 +44,6 @@ ALIASES: Dict[str, str] = {
 
 def _module(name: str):
     name = ALIASES.get(name, name)
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet: it waits for "
-                       f"{NOT_PORTED[name]} (ROADMAP.md, queue 1)")
     if name not in ARCH_NAMES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     return importlib.import_module(f"{__name__}.{name}")

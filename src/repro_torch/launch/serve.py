@@ -9,8 +9,11 @@ read-shared, per-request pages written); admitted requests take free
 slots, every occupied slot runs one batched ``decode_step``, and
 finished requests free their slots for queued ones.  The decode caches
 are whatever ``lm.init_caches`` gives the model's family: an int8 or
-bf16 KV cache, a sliding-window ring (``seq`` beyond the window), the
-RWKV state or the hybrid family's Mamba2 and shared-attention caches.
+bf16 KV cache (dense, moe), a sliding-window ring (``seq`` beyond the
+window), the vlm family's self-attention caches beside its cross caches
+(zeros, as the reference serves them), the RWKV state or the hybrid
+family's Mamba2 and shared-attention caches.  The audio encoder has no
+decode caches: ``serve`` raises the reference's ``ValueError``.
 
 ``serve(lm, ...)`` runs the loop on the model's device and returns
 ``{ticks, tokens, wall}``; ``main()`` keeps the reference's flags, its

@@ -1,7 +1,7 @@
-"""GQA self-attention with RoPE and qk-norm: the port of
+"""GQA self- and cross-attention with RoPE and qk-norm: the port of
 ``repro/models/attention.py``.
 
-Two branches of the reference's ``attention()`` are ported:
+The branches of the reference's ``attention()``:
 
 * **decode** (``:294``): one new token; its k/v are written into the
   cache at ``cache_pos`` and the token attends over the cached slots
@@ -13,21 +13,27 @@ Two branches of the reference's ``attention()`` are ported:
   "int8"``) stores each token's k and v as codes with one float32 scale
   per (token, head) (``_quantize``) and dequantises the whole cache in
   the compute dtype before ``_sdpa`` (``_dequant``), as the reference.
-* **full sequence, causal self-attention** (``:328`` and ``:342``): the
-  prefill and the backbone.  It goes through ``kernels.ops.
-  flash_attention``, the hand-written CUDA kernel on the card (the
-  reference names its Pallas ``flash_attention`` for this branch under
-  either ``attn_impl``) and its plain version on the CPU, with the
-  sliding window as the kernel's ``window``.  The kernel reads q, k and
-  v in the model's ``[B, S, H, Dh]`` layout through strides and writes
-  its output in that layout.  The cache it returns holds k and v in the
-  compute dtype whatever ``cache_dtype`` is: the reference's prefill
-  does not quantise (``:334-337``, ``:358-362``), and the port keeps
-  that behaviour.
+* **kv_override** (``:277``): decode against precomputed k and v (the
+  vlm family's cross-attention caches of the image tokens): q alone is
+  projected, qk-normed and not rotated, and attends over every given key
+  through the same plain ``_sdpa``, with no mask.
+* **full sequence** (``:328`` and ``:342``): the prefill and the
+  backbone, causal or not (``cfg.causal``; hubert's encoder is not), and
+  cross-attention (``xs``: k and v projected from the source, no RoPE on
+  q or k, no mask).  It goes through ``kernels.ops.flash_attention``, the
+  hand-written CUDA kernel on the card (the reference names its Pallas
+  ``flash_attention`` for this branch under either ``attn_impl``) and
+  its plain version on the CPU, with the sliding window as the kernel's
+  ``window`` of a causal self-attention; cross-attention (Sq != Sk) and
+  non-causal self-attention take no mask and no window, as the
+  reference's ``cross or not cfg.causal`` (``:344``).  The kernel reads q, k and v in the model's ``[B, S, H, Dh]``
+  layout through strides and writes its output in that layout.  The
+  cache it returns holds k and v in the compute dtype whatever
+  ``cache_dtype`` is: the reference's prefill does not quantise
+  (``:334-337``, ``:358-362``), and the port keeps that behaviour.
 
-Not ported yet (``NotImplementedError``, ROADMAP.md queue 1):
-cross-attention and ``kv_override`` (vlm), and the sharding pins
-``_pin``/``_dax`` (``act_constraints``).
+Not ported (``NotImplementedError``, ROADMAP.md queue 1): the sharding
+pins ``_pin``/``_dax`` (``act_constraints``).
 
 Query heads can be padded (``pad_q_heads``): the padded heads' rows of
 ``wo`` are zeroed, so they are exact no-ops.  KV heads are replicated
@@ -144,19 +150,23 @@ def _dequant(q: torch.Tensor, scale: Optional[torch.Tensor], dtype
 
 
 def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, kv_repeat: int
+                 xs: Optional[torch.Tensor], positions: torch.Tensor,
+                 kv_repeat: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns q ``[B,S,Hq,Dh]``, k/v ``[B,S,H_eff,Dh]`` (self-attention,
-    RoPE on)."""
+    """Returns q ``[B,S,Hq,Dh]``, k/v ``[B,T,H_eff,Dh]``: k and v from the
+    cross source ``xs`` if given (and then no RoPE), else from ``x``
+    with RoPE on q and k."""
     dh = cfg.head_dim
+    src = x if xs is None else xs
     q = (x @ p.wq).unflatten(-1, (-1, dh))
-    k = (x @ p.wk).unflatten(-1, (-1, dh))
-    v = (x @ p.wv).unflatten(-1, (-1, dh))
+    k = (src @ p.wk).unflatten(-1, (-1, dh))
+    v = (src @ p.wv).unflatten(-1, (-1, dh))
     if cfg.qk_norm:
         q = layers.rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = layers.rmsnorm(k, p.k_norm, cfg.norm_eps)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if xs is None:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
     if kv_repeat > 1:
         k = k.repeat_interleave(kv_repeat, dim=2)
         v = v.repeat_interleave(kv_repeat, dim=2)
@@ -186,19 +196,33 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, kv_repeat: int = 1,
+              xs: Optional[torch.Tensor] = None,
               cache: Optional[KVCache] = None, cache_pos: Optional[int] = None,
-              return_cache: bool = False
+              return_cache: bool = False,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Causal self-attention.
+    """Self- or cross-attention.
 
-    * full sequence (prefill, backbone): the flash kernel; with
-      ``return_cache`` the projected k/v become the cache.
+    * full sequence (prefill, backbone): the flash kernel, causal as
+      ``cfg.causal``; with ``return_cache`` the projected k/v become the
+      cache.  With ``xs`` (``[B, T, d]``) it is cross-attention: k and v
+      from ``xs``, no RoPE, no mask.
     * decode: x is ``[B, 1, d]``; ``cache`` holds the past and
       ``cache_pos`` (an int) is the write slot, clamped into the cache as
       ``dynamic_update_slice`` clamps it.
+    * ``kv_override``: precomputed (k, v) ``[B, T, H_eff, Dh]``, attended
+      by q alone with no mask (cross-attention decode against a static
+      source).
     """
-    q, k, v = _project_qkv(p, cfg, x, positions, kv_repeat)
+    if kv_override is not None:
+        q = (x @ p.wq).unflatten(-1, (-1, cfg.head_dim))
+        if cfg.qk_norm:
+            q = layers.rmsnorm(q, p.q_norm, cfg.norm_eps)
+        out = _sdpa(q, *kv_override, None)
+        return out.to(x.dtype) @ p.wo, None
+    q, k, v = _project_qkv(p, cfg, x, xs, positions, kv_repeat)
     b, s = x.shape[0], x.shape[1]
+    cross = xs is not None
     new_cache = None
 
     if cache is not None and cache_pos is not None and s == 1:
@@ -225,9 +249,11 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     _dequant(cache.v, cache.v_scale, q.dtype), mask)
     else:
         # --- full sequence: the flash kernel, [B,H,S,D] views -------------
+        # no mask at all for cross or non-causal attention, window included
+        masked = cfg.causal and not cross
         o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=cfg.causal,
-                                window=cfg.sliding_window)
+                                v.transpose(1, 2), causal=masked,
+                                window=cfg.sliding_window if masked else 0)
         out = o.transpose(1, 2).reshape(b, s, -1)
         if return_cache:
             new_cache = KVCache(k=k, v=v, pos=positions.to(torch.int32)

@@ -2,12 +2,16 @@
 
 The reference keeps a model's parameters as a nested dict whose block
 leaves are stacked along leading axes (``blocks/attn/wq`` is ``[L, d,
-Hq*Dh]``; the hybrid family's ``mamba_groups/ssm/wz`` is ``[n_groups,
-every, d, d_inner]``, ``mamba_tail/...`` ``[tail, ...]`` and
-``shared_attn/...`` unstacked); the port's ``LM`` holds one module per
-block (``blocks.3.attn.wq`` is ``[d, Hq*Dh]``, ``mamba_groups.1.4.ssm.wz``
-is ``[d, d_inner]``).  Weight layouts are the same (``[d_in, d_out]``),
-so a tensor carries over as it is.
+Hq*Dh]``, an MoE layer's ``blocks/moe/wi_gate`` ``[L, E, d, f]``;
+llama4's ``dense_blocks/...`` and ``moe_blocks/...`` ``[L / 2, ...]``;
+the vlm family's ``self_blocks/...`` ``[n_cross, per_group, ...]`` and
+``cross_blocks/...`` ``[n_cross, ...]``, its gates ``[n_cross]``; the
+hybrid family's ``mamba_groups/ssm/wz`` ``[n_groups, every, d,
+d_inner]``, ``mamba_tail/...`` ``[tail, ...]`` and ``shared_attn/...``
+unstacked); the port's ``LM`` holds one module per block
+(``blocks.3.attn.wq`` is ``[d, Hq*Dh]``, ``self_blocks.1.2.mlp.wo``
+``[f, d]``, ``cross_blocks.1.gate_attn`` 0-d).  Weight layouts are the
+same (``[d_in, d_out]``), so a tensor carries over as it is.
 
 * ``jax_tree_shapes(cfg)``: ``{path: shape}`` of the reference's tree,
   derived from the port's modules (no JAX needed).
@@ -23,6 +27,8 @@ so a tensor carries over as it is.
 from __future__ import annotations
 
 import hashlib
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Tuple
 
 import numpy as np
@@ -42,8 +48,9 @@ def _port_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
 def _jax_path(name: str) -> Tuple[Path, Tuple[int, ...]]:
     """A port name -> (the reference's path, the indices into its
     leading stack axes): ``blocks.3.attn.wq`` -> (("blocks", "attn",
-    "wq"), (3,)); ``mamba_groups.1.4.ln`` -> (("mamba_groups", "ln"),
-    (1, 4)); ``shared_attn.attn.wq`` or a top-level leaf -> (path, ())."""
+    "wq"), (3,)); ``mamba_groups.1.4.ln`` (or ``self_blocks.1.4.ln``) ->
+    (("mamba_groups", "ln"), (1, 4)); ``shared_attn.attn.wq`` or a
+    top-level leaf -> (path, ())."""
     parts = name.split(".")
     idx = tuple(int(a) for a in parts[1:] if a.isdigit())
     return (parts[0], *(a for a in parts[1:] if not a.isdigit())), idx
@@ -82,7 +89,7 @@ def params_from_jax(cfg: ModelConfig, tree) -> Dict[str, torch.Tensor]:
     sd = {}
     for name, shape in _port_shapes(cfg).items():
         path, idx = _jax_path(name)
-        a = _leaf(tree, path)[idx]
+        a = np.asarray(_leaf(tree, path)[idx])     # a 0-d gate stays an array
         if tuple(a.shape) != shape:
             raise ValueError(f"{'/'.join(path)}: shape {tuple(a.shape)}, "
                              f"the port's {name} is {shape}")
@@ -95,8 +102,13 @@ def _scale_shift(path: Path, shape: tuple):
     init: ones for norms and ``D``, 0.5 for mixes, -6 for w0, the
     Mamba2 mixers' ``A_log`` (log 1 .. log 16) and ``dt_bias`` (the
     inverse softplus of 1e-3 .. 0.1) about their ranges, fan-in scale
-    for weights and conv taps, with some spread everywhere."""
+    for weights and conv taps, with some spread everywhere.  The cross
+    blocks' gates, 0 at init (which would pass the block's input
+    through), are drawn from 0.25 .. 0.95, so that a check that uses
+    these weights runs the cross-attention and its MLP."""
     leaf = path[-1]
+    if leaf.startswith("gate_"):
+        return 0.2, 0.6
     if leaf.startswith("ln") or leaf.endswith("_norm") or \
             leaf in ("norm_g", "D"):
         return 0.1, 1.0
@@ -119,23 +131,52 @@ def _scale_shift(path: Path, shape: tuple):
     return shape[-2] ** -0.5, 0.0
 
 
+CHUNK = 1 << 24                  # values a thread draws at once (even)
+
+
+def _fill(out: np.ndarray, entropy, start: int, scale: float,
+          centre: float) -> None:
+    """``out`` (a flat slice from value ``start``, even) as
+    ``random_jax_tree`` draws it: a PCG64 stream of ``entropy`` advanced
+    by ``start / 2`` outputs gives the values from ``start`` on (a
+    float32 draw takes half of one 64-bit output)."""
+    bits = np.random.PCG64(entropy)
+    bits.advance(start // 2)
+    np.random.Generator(bits).random(out=out, dtype=np.float32)
+    out *= np.float32(2)
+    out -= np.float32(1)
+    out *= np.float32(scale * 3 ** 0.5)
+    out += np.float32(centre)
+
+
 def random_jax_tree(cfg: ModelConfig, seed: int):
     """Seeded float32 weights in the reference's layout: leaf ``i`` (in
     sorted path order) is ``centre + scale * sqrt(3) * (2 U - 1)``, U
     from ``default_rng([seed, i]).random(dtype=float32)``; the dead
-    WKV-head rows of ``time/wo`` are zeroed, as the init does."""
+    WKV-head rows of ``time/wo`` are zeroed, as the init does.  Drawn in
+    chunks of ``CHUNK`` values on a pool of threads (numpy draws and
+    computes outside the interpreter lock), each chunk from its own
+    advanced copy of the leaf's stream, so the values are those of one
+    draw of the whole leaf (a full-width layer of dbrx-132b is 4.5 G
+    values)."""
     tree: dict = {}
+    jobs = []
     for i, (path, shape) in enumerate(sorted(jax_tree_shapes(cfg).items())):
         scale, centre = _scale_shift(path, shape)
-        u = np.random.default_rng([seed, i]).random(shape, dtype=np.float32)
-        a = (u * np.float32(2) - np.float32(1)) * np.float32(scale * 3 ** 0.5)
-        a += np.float32(centre)
-        if path[-2:] == ("time", "wo"):
-            a[:, cfg.d_model:] = 0
+        a = np.empty(shape, np.float32)
+        flat = a.reshape(-1)
+        jobs += [(flat[j:j + CHUNK], [seed, i], j, scale, centre)
+                 for j in range(0, flat.size, CHUNK)]
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = a
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        for f in [pool.submit(_fill, *job) for job in jobs]:
+            f.result()
+    for path in jax_tree_shapes(cfg):
+        if path[-2:] == ("time", "wo"):
+            _leaf(tree, path)[:, cfg.d_model:] = 0
     return tree
 
 

@@ -1,30 +1,43 @@
-"""The language model of the dense, RWKV and hybrid families: the port
-of ``repro/models/lm.py``.
+"""The language model of every family: the port of
+``repro/models/lm.py``.
 
   dense   [attn + mlp] x L                       (yi, qwen3, llama3.2,
                                                   stablelm)
+  moe     every ``moe_every``-th block MoE       (dbrx: all, llama4:
+                                                  alternating dense/MoE)
+  vlm     groups of self blocks + 1 gated cross  (llama3.2-vision:
+                                                  32 self + 8 cross)
+  audio   encoder-only dense, frame inputs       (hubert)
   rwkv    [time-mix + channel-mix] x L           (rwkv6)
   hybrid  mamba2 stacks + shared attn block      (zamba2)
 
 ``LM`` is an ``nn.Module`` that holds its parameters (inference only:
 none requires a gradient) under the reference's names, block ``i`` of
-the reference's stacked ``blocks`` tree being ``blocks.i``; the hybrid
-family's ``mamba_groups`` (``[n_groups, every, ...]`` in the reference)
-are ``mamba_groups.g.j``, its ``mamba_tail`` is ``mamba_tail.i`` and its
-``shared_attn`` one ``DenseBlock`` (``models.convert`` carries a JAX
-parameter tree across).  The moe, vlm and audio families and training
-wait for later slices (ROADMAP.md, queue 1) and raise
-``NotImplementedError``.
+the reference's stacked ``blocks`` tree being ``blocks.i``: the moe
+family's ``blocks.i`` (``moe_every`` 1) or ``dense_blocks.i`` and
+``moe_blocks.i`` (``moe_every`` 2, layer 2i dense with ``d_ff_dense``
+and 2i+1 MoE); the vlm family's ``self_blocks`` (``[n_cross, per_group,
+...]`` in the reference) are ``self_blocks.g.j`` and its
+``cross_blocks.g``; the audio family has ``in_proj [d, d]`` in place of
+``embed``; the hybrid family's ``mamba_groups`` are ``mamba_groups.g.j``,
+its ``mamba_tail`` is ``mamba_tail.i`` and its ``shared_attn`` one
+``DenseBlock`` (``models.convert`` carries a JAX parameter tree across).
+Training waits for a later slice (ROADMAP.md, queue 1).
 
 Caches are stacked along leading axes as in the reference
 (``KVCache`` with ``k [L, B, S, H, Dh]``, and the int8 cache's scales
-``[L, B, S, H, 1]``; ``RWKVCache`` with ``state [L, B, H, dk, dv]``; the
-hybrid family's dict of ``mamba_groups`` (``SSMCache`` ``[n_groups,
-every, ...]``), ``shared_attn`` (``KVCache`` ``[n_groups, ...]``, one per
-application of the shared block) and ``mamba_tail``).  With a sliding
-window the attention cache holds ``min(window, seq)`` slots and is
-written as a ring (``_slot``).  ``decode_step`` updates the caches in
-place and returns them.
+``[L, B, S, H, 1]``, for the dense and moe families, a moe model with
+``moe_every`` 2 interleaving its dense and MoE layers' caches; the vlm
+family's dict of ``self`` (``KVCache`` ``[n_self, ...]``) and
+``cross_k``/``cross_v`` ``[n_cross, B, n_img_tokens, H, Dh]``, the
+image tokens' keys and values that the cross blocks read in decode;
+``RWKVCache`` with ``state [L, B, H, dk, dv]``; the hybrid family's dict
+of ``mamba_groups`` (``SSMCache`` ``[n_groups, every, ...]``),
+``shared_attn`` (``KVCache`` ``[n_groups, ...]``, one per application of
+the shared block) and ``mamba_tail``).  The audio encoder has no decode
+caches and does not decode.  With a sliding window the attention cache
+holds ``min(window, seq)`` slots and is written as a ring (``_slot``).
+``decode_step`` updates the caches in place and returns them.
 """
 from __future__ import annotations
 
@@ -38,7 +51,7 @@ from . import layers, rwkv as rwkv_mod, ssm as ssm_mod
 from . import transformer as tf
 from .config import ModelConfig
 
-FAMILIES = ("dense", "rwkv", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "audio", "rwkv", "hybrid")
 
 
 def _map(fn, cache):
@@ -49,10 +62,8 @@ def _map(fn, cache):
 
 def _check(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            f"queue 1); the port runs {FAMILIES}")
-    if cfg.family in ("dense", "hybrid"):
+        raise ValueError(cfg.family)
+    if cfg.family != "rwkv":
         attn_mod.check_supported(cfg)
     elif cfg.rwkv_wkv_pins or cfg.act_constraints:
         raise NotImplementedError(
@@ -66,11 +77,30 @@ class LM(torch.nn.Module):
         self.cfg = cfg
         dev = resolve(device)
         dt = layers.dtype_of(cfg.param_dtype)
-        self.embed = layers.param((cfg.vocab, cfg.d_model), dt, dev)
+        d, L = cfg.d_model, cfg.n_layers
+        if cfg.family == "audio":
+            self.in_proj = layers.param((d, d), dt, dev)
+        else:
+            self.embed = layers.param((cfg.vocab, d), dt, dev)
         if not cfg.tie_embeddings:
-            self.lm_head = layers.param((cfg.d_model, cfg.vocab), dt, dev)
-        self.ln_f = layers.param((cfg.d_model,), dt, dev)
-        if cfg.family == "hybrid":
+            self.lm_head = layers.param((d, cfg.vocab), dt, dev)
+        self.ln_f = layers.param((d,), dt, dev)
+        if cfg.family == "moe" and cfg.moe_every != 1:
+            if cfg.moe_every != 2 or L % 2:
+                raise ValueError(f"moe_every={cfg.moe_every} with "
+                                 f"{L} layers: the reference takes 1, or 2 "
+                                 f"with an even depth")
+            self.dense_blocks = tf.stack_init(L // 2, lambda: tf.DenseBlock(
+                cfg, dev, d_ff=cfg.d_ff_dense))
+            self.moe_blocks = tf.stack_init(
+                L // 2, lambda: tf.MoEBlock(cfg, dev))
+        elif cfg.family == "vlm":
+            n_cross, per_group = vlm_layout(cfg)
+            self.self_blocks = tf.stack_init(n_cross, lambda: tf.stack_init(
+                per_group, lambda: tf.DenseBlock(cfg, dev)))
+            self.cross_blocks = tf.stack_init(
+                n_cross, lambda: tf.CrossBlock(cfg, dev))
+        elif cfg.family == "hybrid":
             n_groups, every, tail = hybrid_layout(cfg)
             self.mamba_groups = tf.stack_init(n_groups, lambda: tf.stack_init(
                 every, lambda: tf.MambaBlock(cfg, dev)))
@@ -79,12 +109,13 @@ class LM(torch.nn.Module):
                     tail, lambda: tf.MambaBlock(cfg, dev))
             self.shared_attn = tf.shared_attn_block(cfg, dev)
         else:
-            block = tf.DenseBlock if cfg.family == "dense" else tf.RWKVBlock
-            self.blocks = tf.stack_init(cfg.n_layers, lambda: block(cfg, dev))
+            block = {"dense": tf.DenseBlock, "audio": tf.DenseBlock,
+                     "moe": tf.MoEBlock, "rwkv": tf.RWKVBlock}[cfg.family]
+            self.blocks = tf.stack_init(L, lambda: block(cfg, dev))
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.ln_f.device
 
     # ------------------------------------------------------------------
     # init
@@ -93,8 +124,12 @@ class LM(torch.nn.Module):
         """Random initialisation from ``generator`` (on the model's
         device), with the reference's distributions: truncated normals
         at fan-in scale, ones for norms, zeroed padded-head rows, the
-        Mamba2 mixers' own (``ssm.Mamba2.init``)."""
-        layers.embed_init(self.embed, generator)
+        Mamba2 mixers' own (``ssm.Mamba2.init``), the MoE layers' experts
+        at their own fan-in, the cross blocks' gates at 0."""
+        if self.cfg.family == "audio":
+            layers.dense_init(self.in_proj, generator)
+        else:
+            layers.embed_init(self.embed, generator)
         if not self.cfg.tie_embeddings:
             layers.dense_init(self.lm_head, generator)
         with torch.no_grad():
@@ -102,6 +137,11 @@ class LM(torch.nn.Module):
         if self.cfg.family == "hybrid":
             blocks = [*(b for g in self.mamba_groups for b in g),
                       *getattr(self, "mamba_tail", ()), self.shared_attn]
+        elif self.cfg.family == "vlm":
+            blocks = [*(b for g in self.self_blocks for b in g),
+                      *self.cross_blocks]
+        elif hasattr(self, "moe_blocks"):
+            blocks = [*self.dense_blocks, *self.moe_blocks]
         else:
             blocks = self.blocks
         for blk in blocks:
@@ -112,6 +152,12 @@ class LM(torch.nn.Module):
     # input embedding / unembedding
     # ------------------------------------------------------------------
     def _embed(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Token embeddings, or the audio family's frame embeddings
+        ``batch["frames"] [B, S, d]`` in the compute dtype times
+        ``in_proj``."""
+        if self.cfg.family == "audio":
+            dt = layers.dtype_of(self.cfg.compute_dtype)
+            return batch["frames"].to(dt) @ self.in_proj
         return self.embed[batch["tokens"]]
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
@@ -121,13 +167,36 @@ class LM(torch.nn.Module):
     # ------------------------------------------------------------------
     # backbone (full sequence)
     # ------------------------------------------------------------------
-    def _backbone(self, x: torch.Tensor, positions: torch.Tensor
+    def _backbone(self, x: torch.Tensor, positions: torch.Tensor,
+                  batch: Dict[str, torch.Tensor]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The blocks over the full sequence -> (x, aux): aux is the mean
+        of the MoE layers' load-balance losses (0 for the other
+        families); ``batch["img"] [B, T, d]`` is the vlm family's cross
+        source."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "audio"):
             for blk in self.blocks:
                 x, _ = tf.dense_block(blk, cfg, x, positions)
+        elif cfg.family == "moe":
+            auxs = []
+            if cfg.moe_every == 1:
+                for blk in self.blocks:
+                    x, _, a = tf.moe_block(blk, cfg, x, positions)
+                    auxs.append(a)
+            else:
+                for dblk, mblk in zip(self.dense_blocks, self.moe_blocks):
+                    x, _ = tf.dense_block(dblk, cfg, x, positions)
+                    x, _, a = tf.moe_block(mblk, cfg, x, positions)
+                    auxs.append(a)
+            aux = torch.stack(auxs).mean()
+        elif cfg.family == "vlm":
+            img = batch["img"].to(x.dtype)
+            for selfs, cross in zip(self.self_blocks, self.cross_blocks):
+                for blk in selfs:
+                    x, _ = tf.dense_block(blk, cfg, x, positions)
+                x = tf.cross_block(cross, cfg, x, img, positions)
         elif cfg.family == "rwkv":
             for blk in self.blocks:
                 h, _, _ = rwkv_mod.time_mix_forward(
@@ -161,7 +230,9 @@ class LM(torch.nn.Module):
 
     def init_caches(self, batch: int, seq_len: int):
         """Zeroed decode caches sized for a context of ``seq_len``,
-        stacked along the reference's leading axes."""
+        stacked along the reference's leading axes; the vlm family's
+        cross caches are zeros until the caller writes the image tokens'
+        keys and values into them.  The audio encoder raises."""
         cfg, dev = self.cfg, self.device
 
         def stack(lead, one):
@@ -172,8 +243,18 @@ class LM(torch.nn.Module):
                 cfg, batch, self.cache_len(seq_len), kv_repeat=cfg.kv_repeat,
                 cache_dtype=cfg.cache_dtype, device=dev)
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             return stack((cfg.n_layers,), kv())
+        if cfg.family == "vlm":
+            n_cross, per_group = vlm_layout(cfg)
+            h = attn_mod.effective_kv_heads(cfg, cfg.kv_repeat)
+            shape = (n_cross, batch, cfg.n_img_tokens, h, cfg.head_dim)
+            dt = layers.dtype_of(cfg.compute_dtype)
+            return {"self": stack((n_cross * per_group,), kv()),
+                    "cross_k": torch.zeros(shape, dtype=dt, device=dev),
+                    "cross_v": torch.zeros(shape, dtype=dt, device=dev)}
+        if cfg.family == "audio":
+            raise ValueError(f"{cfg.family} has no decode caches")
         if cfg.family == "rwkv":
             return stack((cfg.n_layers,),
                          rwkv_mod.init_rwkv_cache(cfg, batch, device=dev))
@@ -195,15 +276,48 @@ class LM(torch.nn.Module):
         attention write slot is ``pos``, or ``pos % window`` in a ring
         (``_slot``)."""
         cfg = self.cfg
+        if cfg.family == "audio":
+            raise ValueError(f"{cfg.family} does not decode")
         pos = int(pos)
         x = self.embed[token]
         positions = torch.tensor([pos], dtype=torch.int32, device=x.device)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             slot = self._slot(pos, caches.k.shape[2])
-            for i, blk in enumerate(self.blocks):
-                x, _ = tf.dense_block(
-                    blk, cfg, x, positions, cache_pos=slot,
-                    cache=_map(lambda a: a[i], caches))
+
+            def layer(i):
+                return _map(lambda a: a[i], caches)
+            if cfg.family == "dense":
+                for i, blk in enumerate(self.blocks):
+                    x, _ = tf.dense_block(blk, cfg, x, positions,
+                                          cache=layer(i), cache_pos=slot)
+            elif cfg.moe_every == 1:
+                for i, blk in enumerate(self.blocks):
+                    x, _, _ = tf.moe_block(blk, cfg, x, positions,
+                                           cache=layer(i), cache_pos=slot)
+            else:
+                # layer 2i dense, 2i+1 MoE, over the interleaved caches
+                for i, (dblk, mblk) in enumerate(zip(self.dense_blocks,
+                                                     self.moe_blocks)):
+                    x, _ = tf.dense_block(dblk, cfg, x, positions,
+                                          cache=layer(2 * i), cache_pos=slot)
+                    x, _, _ = tf.moe_block(mblk, cfg, x, positions,
+                                           cache=layer(2 * i + 1),
+                                           cache_pos=slot)
+        elif cfg.family == "vlm":
+            selfc = caches["self"]
+            slot = self._slot(pos, selfc.k.shape[2])
+            per_group = vlm_layout(cfg)[1]
+            for g, (selfs, cross) in enumerate(zip(self.self_blocks,
+                                                   self.cross_blocks)):
+                for j, blk in enumerate(selfs):
+                    x, _ = tf.dense_block(
+                        blk, cfg, x, positions, cache_pos=slot,
+                        cache=_map(lambda a: a[g * per_group + j], selfc))
+                h, _ = attn_mod.attention(
+                    cross.xattn, cfg,
+                    layers.rmsnorm(x, cross.ln1, cfg.norm_eps), positions,
+                    kv_override=(caches["cross_k"][g], caches["cross_v"][g]))
+                x = tf.cross_residuals(cross, cfg, x, h)
         elif cfg.family == "rwkv":
             for i, blk in enumerate(self.blocks):
                 h, state, last_t = rwkv_mod.time_mix_decode(
@@ -254,7 +368,8 @@ class LM(torch.nn.Module):
     # ------------------------------------------------------------------
     def prefill(self, batch: Dict[str, torch.Tensor]):
         """Returns (last-token logits ``[B, V]``, caches ready for
-        decode).  The dense family only, as in the reference; the caches
+        decode).  The dense family only, as in the reference (the others
+        raise ``NotImplementedError``); the caches
         hold k and v in the compute dtype even for an int8
         ``cache_dtype``, as the reference's do."""
         cfg = self.cfg
@@ -274,6 +389,19 @@ class LM(torch.nn.Module):
         x = layers.rmsnorm(x, self.ln_f, cfg.norm_eps)
         logits = self._unembed(x[:, -1:, :])[:, 0, :]
         return logits, caches
+
+
+def vlm_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(cross blocks, self blocks per group) of the vlm family: each
+    group of self blocks is closed by one gated cross block
+    (``repro/models/lm.py:71-82``)."""
+    every = cfg.cross_attn_every
+    n_cross = cfg.n_layers // every
+    per_group = every - 1
+    if cfg.n_layers - n_cross != n_cross * per_group:
+        raise ValueError(f"vlm: {cfg.n_layers} layers are not groups of "
+                         f"{per_group} self blocks and one cross block")
+    return n_cross, per_group
 
 
 def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, int]:

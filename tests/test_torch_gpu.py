@@ -899,6 +899,42 @@ def test_flash_tensor_core_route(cuda):
                                        rtol=tol)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_head_dim_80(cuda, dtype, causal):
+    """D = 80 (hubert-xlarge): on the tensor cores TMA loads each row's
+    80 columns as two 64-column blocks, the second read past d = 80,
+    where the loads must give zeros (the views are TMA-ready: 160-byte
+    rows); Sq and Sk off the tiles."""
+    from repro_torch.kernels import flash_attention as kflash
+    gen = torch.Generator().manual_seed(80)
+    q, k, v = _flash_inputs(gen, 2, 16, 16, 300, 300, 80, dtype, cuda,
+                            strided=True)
+    if dtype == torch.bfloat16:
+        assert all(kflash.tma_strides(t)[1] for t in (q, k, v))
+    got = kflash.flash_attention(q, k, v, causal=causal, window=0)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cross_attention_shape(cuda, dtype):
+    """The vision model's cross-attention: Sk = 1,601 image tokens (a
+    ragged last key tile), Sq = 200 queries, GQA 8 over 4, non-causal,
+    no window."""
+    from repro_torch.kernels import flash_attention as kflash
+    gen = torch.Generator().manual_seed(1601)
+    q, k, v = _flash_inputs(gen, 2, 8, 4, 200, 1601, 128, dtype, cuda,
+                            strided=True)
+    got = kflash.flash_attention(q, k, v, causal=False, window=0)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def test_flash_rejects_what_it_does_not_take(cuda):
     from repro_torch.kernels import flash_attention as kflash
     q = torch.zeros((1, 4, 8, 16), device=cuda)
@@ -1106,7 +1142,9 @@ def test_wkv_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("arch", ["qwen3_0p6b", "llama3p2_1b", "rwkv6_3b",
-                                  "zamba2_1p2b", "yi_34b:int8"])
+                                  "zamba2_1p2b", "yi_34b:int8", "dbrx_132b",
+                                  "llama4_maverick_400b",
+                                  "llama3p2_vision_11b", "hubert_xlarge"])
 def test_lm_on_the_card_matches_the_cpu(cuda, arch):
     """The smoke model in float32: prefill, backbone and decode through the
     kernels on the card against the plain versions on the CPU.  zamba2's
@@ -1114,7 +1152,10 @@ def test_lm_on_the_card_matches_the_cpu(cuda, arch):
     block (one flash launch a group) with a window of 32, and 40 decode
     steps wrap its ring of 32 slots; yi-34b decodes through an int8 cache,
     where a k or v that differs by an ulp can round to the neighbouring
-    code, so its decode is held to 1e-2."""
+    code, so its decode is held to 1e-2.  The vision model runs with
+    non-zero gates over seeded image tokens (one more flash launch a
+    cross block) and decodes against seeded cross caches; hubert's
+    encoder runs its prefill on frames and does not decode."""
     from repro_torch import configs
     from repro_torch.launch import steps
     from repro_torch.models import LM
@@ -1124,22 +1165,102 @@ def test_lm_on_the_card_matches_the_cpu(cuda, arch):
     if cache:
         cfg = cfg.with_(cache_dtype=cache)
     cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    if cfg.family == "vlm":
+        with torch.no_grad():
+            for blk in cpu.cross_blocks:
+                blk.gate_attn.fill_(0.5)
+                blk.gate_mlp.fill_(0.7)
     gpu = LM(cfg, device=cuda)
     gpu.load_state_dict(cpu.state_dict())
-    tok = torch.randint(0, cfg.vocab, (2, 64),
-                        generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (2, 64), generator=gen)
+    batch = {"tokens": tok}
+    if cfg.family == "audio":
+        batch = {"frames": torch.randn((2, 64, cfg.d_model), generator=gen)}
+    if cfg.family == "vlm":
+        batch["img"] = torch.randn((2, cfg.n_img_tokens, cfg.d_model),
+                                   generator=gen)
     ops.reset_launches()
-    got = steps.make_prefill_step(gpu)({"tokens": tok.to(cuda)})
+    got = steps.make_prefill_step(gpu)({k: v.to(cuda)
+                                        for k, v in batch.items()})
     kernel = "wkv_chunked" if cfg.family == "rwkv" else "flash_attention"
     count = cfg.n_layers // cfg.hybrid_attn_every \
         if cfg.family == "hybrid" else cfg.n_layers
     assert ops.launch_counts()[kernel] == count
-    want = steps.make_prefill_step(cpu)({"tokens": tok})
+    want = steps.make_prefill_step(cpu)(batch)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    if cfg.family == "audio":
+        return
     steps_n = 40 if cfg.family == "hybrid" else 3
     tol = 1e-2 if cache == "int8" else 1e-4
     cg, cc = gpu.init_caches(2, steps_n), cpu.init_caches(2, steps_n)
+    if cfg.family == "vlm":
+        for key in ("cross_k", "cross_v"):
+            cc[key].copy_(torch.randn(cc[key].shape, generator=gen))
+            cg[key].copy_(cc[key])
     for t in range(steps_n):
         lg, cg = gpu.decode_step(cg, tok[:, t:t + 1].to(cuda), t)
         lc, cc = cpu.decode_step(cc, tok[:, t:t + 1], t)
         torch.testing.assert_close(lg.cpu(), lc, atol=tol, rtol=tol)
+
+
+def _moe_case(dtype, capacity_factor, dev, seed=0):
+    """(cfg, MoE on ``dev``, x) at dbrx's smoke width, the weights and
+    tokens drawn on the CPU; in bf16 every token takes every expert (a
+    near tie would flip between the card's and the CPU's roundings)."""
+    from repro_torch import configs
+    from repro_torch.models import layers
+    from repro_torch.models import moe as tmoe
+    cfg = configs.get_smoke("dbrx_132b").with_(
+        n_experts=8, capacity_factor=capacity_factor,
+        param_dtype=dtype, compute_dtype=dtype)
+    if dtype == "bfloat16":
+        cfg = cfg.with_(top_k=cfg.n_experts)
+    m = tmoe.MoE(cfg, "cpu", shared_expert=True)
+    m.init(torch.Generator().manual_seed(seed))
+    m = m.to(dev)
+    x = torch.randn((4, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(seed + 1))
+    return cfg, m, x.to(layers.dtype_of(dtype)).to(dev)
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.25])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_on_the_card_matches_the_cpu(cuda, dtype, capacity_factor):
+    """``moe_apply`` on the card against its run on the CPU, at the smoke
+    width and at a capacity that drops tokens (0.25: a quarter of the
+    routed entries fit), within 1e-4 in float32 and 2e-2 of the largest
+    magnitude in bf16; the load-balance loss within 1e-5."""
+    from repro_torch.models import moe as tmoe
+    cfg, m, x = _moe_case(dtype, capacity_factor, cuda)
+    y, aux = tmoe.moe_apply(m, cfg, x)
+    yc, auxc = tmoe.moe_apply(m.to("cpu"), cfg, x.cpu())
+    torch.cuda.synchronize()
+    if capacity_factor < 1:
+        n = x.shape[0] * x.shape[1]
+        assert tmoe.capacity(n, cfg) < n * cfg.top_k / cfg.n_experts
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    scale = 1.0 if dtype == "float32" else max(1.0, float(yc.abs().max()))
+    torch.testing.assert_close(y.float().cpu(), yc.float(), atol=tol * scale,
+                               rtol=tol if dtype == "float32" else 0)
+    torch.testing.assert_close(aux.cpu(), auxc, atol=1e-5, rtol=1e-5)
+
+
+def test_moe_on_the_card_is_deterministic(cuda):
+    """Two runs of ``moe_apply`` on the card give the same bits: the
+    combine adds each token's contributions in one order, with no
+    atomics (a drop-forcing capacity, bf16, 4,096 tokens of top 4 of
+    16 experts)."""
+    from repro_torch import configs
+    from repro_torch.models import moe as tmoe
+    cfg = configs.get_smoke("dbrx_132b").with_(
+        n_experts=16, top_k=4, d_model=256, d_ff=512, capacity_factor=0.5)
+    m = tmoe.MoE(cfg, cuda, shared_expert=True)
+    m.init(torch.Generator(cuda).manual_seed(2))
+    x = torch.randn((8, 512, cfg.d_model), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(3))
+    x = x.bfloat16()
+    y1, a1 = tmoe.moe_apply(m, cfg, x)
+    y2, a2 = tmoe.moe_apply(m, cfg, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
