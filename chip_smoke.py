@@ -96,10 +96,10 @@ Phases (any failure exits non-zero):
      chain (run_grid(fused=False), phase 3's grid and golden, no megastep
      launch, reserve_cohort once per body iteration); the one-event
      engine (simulate_sweep(step_mode="event"), 8 seeds as lanes, Fig. 6's
-     setting at MPL 25 to horizon 600, cut from 3,000 for the time) and
+     setting at MPL 25 to horizon 550, cut from 3,000 for the time) and
      simulate() (the same setting to horizon 1,000, cohort mode), each
      protocol, against the JAX goldens
-     src/repro_torch/golden/event_h600.json and simulate_h1000.json; the
+     src/repro_torch/golden/event_h550.json and simulate_h1000.json; the
      admit_ops kernel bit-equal to its plain
      version at the sched_admit shape (n = 256, d = 1,024, m = 512), at
      the scheduler's scale (n = 4,096, W = 1,024, m = 16,384) and at the
@@ -137,11 +137,26 @@ Phases (any failure exits non-zero):
      prefill in float32 for the three decoders at 2, 2 and 5 layers (the
      capacity factor the expert count, vision's gates non-zero and its
      cross caches filled), the MoE layer's routing and dispatch beside
-     its expert products; the busy shares at the end.
+     its expert products; the busy shares at the end;
+ 11. training: flash's backward kernel against its plain version in both
+     dtypes at qwen3-0.6b's training call (B 8, Hq 16, Hkv 8, S 1,024, D
+     128, causal), zamba2's window (S 8,192, window 4,096), hubert's
+     non-causal D = 80, vision's cross call (Sk 1,601) and edges (S = 1,
+     S off the tiles, g = 1, D = 256), bit-equal between two runs, its
+     time beside its bound and SDPA's backward; the float32 train golden
+     src/repro_torch/golden/train_full_width.json (qwen3-0.6b full width,
+     2 layers, 3 AdamW steps; flash on its CUDA-core route) within 1e-4;
+     qwen3-0.6b at full width and depth, bf16, 8 steps of
+     launch.train's loop on one fixed batch of 8 x 1,024 with a falling
+     loss, 28 flash forwards and 28 backwards a step and no wkv_chunked,
+     its step wall, tokens/s and peak memory; the restart check (full
+     width, 2 layers, a failure injected at step 4, checkpoints every 3
+     steps in a temporary directory it removes) against a clean run; the
+     step's busy share and the backward's share at the end.
 
-Phase 6 and phase 8's runs follow phase 3, then phases 10, 7 and 9, all
-before phase 4's profiler sessions; phase 8's kernel checks and times
-come last, then the profiles of phases 7, 9 and 10.
+Phase 6 and phase 8's runs follow phase 3, then phases 10, 11, 7 and 9,
+all before phase 4's profiler sessions; phase 8's kernel checks and times
+come last, then the profiles of phases 7, 9, 10 and 11.
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  The script imports
 nothing of JAX and nothing of the JAX package.
@@ -149,6 +164,7 @@ nothing of JAX and nothing of the JAX package.
 import hashlib
 import inspect
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -165,10 +181,11 @@ PHASE6_GOLDEN = SRC / "repro_torch" / "golden" / "run_grid_h10000.json"
 TM_GOLDEN = SRC / "repro_torch" / "golden" / "telemetry_h10000.json"
 SCHED_GOLDEN = SRC / "repro_torch" / "golden" / "sched_n4096_w1024.json"
 # phase 8: the one-event engine (8 seeds as lanes, Fig. 6's setting at MPL
-# 25, horizon 600: cut from 3,000, whose three runs took 298.7 s, then from
-# 1,000, where they took 152-188 s; at 600 every lane commits) and
-# simulate() (the same setting, horizon 1,000)
-EVENT_GOLDEN = SRC / "repro_torch" / "golden" / "event_h600.json"
+# 25, horizon 550: cut from 3,000, whose three runs took 298.7 s, then from
+# 1,000, where they took 152-188 s, then from 600 (45.7-58.2 s) when the
+# script passed 1,000 s on a slow host; at 550 every lane still commits)
+# and simulate() (the same setting, horizon 1,000)
+EVENT_GOLDEN = SRC / "repro_torch" / "golden" / "event_h550.json"
 SIMULATE_GOLDEN = SRC / "repro_torch" / "golden" / "simulate_h1000.json"
 PHASE8_FIG, PHASE8_MPL = 6, 25
 # admit_ops at the reference's sched_admit shape (benchmarks/run.py:380)
@@ -311,6 +328,25 @@ WKV_EDGE_MORE = [(16, 64, 512, False), (16, 1, 8, False),
                  (32, 64, 512, False), (32, 128, 128, False),
                  (64, 128, 1024, True), (32, 16, 128, True)]
 TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor cores
+TRAIN_GOLDEN = SRC / "repro_torch" / "golden" / "train_full_width.json"
+# phase 11: flash's forward with lse and its backward against their plain
+# versions at these calls (B, Hq, Hkv, Sq, Sk, D, causal, window), both
+# dtypes; qwen3-0.6b's training call is the main path's: its 8 KV heads
+# are repeated to 16 before flash (models/attention.py, kv_repeat = 2)
+BWD_SHAPES = [
+    ("qwen3-0.6b training", (8, 16, 16, 1024, 1024, 128, True, 0)),
+    ("GQA g=2", (2, 16, 8, 1024, 1024, 128, True, 0)),
+    ("zamba2-1.2b window", (1, 32, 32, 8192, 8192, 64, True, 4096)),
+    ("hubert-xlarge non-causal D=80", (8, 16, 16, 1024, 1024, 80, False, 0)),
+    ("llama-3.2-vision cross", (8, 32, 16, 1024, 1601, 128, False, 0)),
+    ("S=1", (2, 4, 2, 1, 1, 128, True, 0)),
+    ("S off the tiles", (2, 8, 2, 1000, 1000, 64, True, 0)),
+    ("g=1 D=256", (2, 4, 4, 300, 300, 256, True, 0)),
+    ("D=256 window", (1, 8, 2, 333, 333, 256, True, 100)),
+]
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 8      # the full-depth run
+RESTART_B, RESTART_S, RESTART_STEPS = 4, 512, 8  # the restart check
+RESTART_EVERY, RESTART_FAIL_AT = 3, 4
 SLEEP_CYCLES = 2_000_000         # ~1 ms of device sleep ahead of a timing
 
 
@@ -1765,7 +1801,7 @@ def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
 
 
 def flash_ref_pieces(q, k, v, torch, *, causal=True, window=0, sm_scale=None,
-                     budget=2**30):
+                     return_lse=False, budget=2**30):
     """``ref.flash_attention_ref`` over batch rows and groups of query
     heads, each piece's float32 scores at most ``budget`` bytes: the plain
     version at shapes whose whole score tensor would not fit the card."""
@@ -1775,14 +1811,16 @@ def flash_ref_pieces(q, k, v, torch, *, causal=True, window=0, sm_scale=None,
     g = hq // hkv
     per = max(g, (budget // (4 * sq * sk)) // g * g)
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     for i in range(b):
         for h0 in range(0, hq, per):
             h1 = min(hq, h0 + per)
-            out[i:i + 1, h0:h1] = ref.flash_attention_ref(
+            o_, l_ = ref.flash_attention_ref(
                 q[i:i + 1, h0:h1], k[i:i + 1, h0 // g:-(-h1 // g)],
                 v[i:i + 1, h0 // g:-(-h1 // g)], causal=causal,
-                window=window, sm_scale=sm_scale)
-    return out
+                window=window, sm_scale=sm_scale, return_lse=True)
+            out[i:i + 1, h0:h1], lse[i:i + 1, h0:h1] = o_, l_
+    return (out, lse) if return_lse else out
 
 
 def flash_at_shape(q, k, v, kw, path, where, launches, torch, smi, cuda_ms,
@@ -1855,6 +1893,396 @@ def flash_at_shape(q, k, v, kw, path, where, launches, torch, smi, cuda_ms,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": lib,
             "library": f"scaled_dot_product_attention ({backend})"}
+
+
+def flash_bwd_ref_pieces(q, k, v, out, lse, dout, torch, *, causal=True,
+                         window=0, budget=2**28):
+    """``ref.flash_attention_bwd_ref`` over batch rows and groups of whole
+    KV heads (with their query heads), each piece's float32 scores at
+    most ``budget`` bytes: the plain backward at shapes whose score
+    tensors would not fit the card."""
+    from repro_torch.kernels import ref
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    per = max(1, budget // (4 * sq * sk * g))          # KV heads a piece
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    kw = dict(causal=causal, window=window)
+    for i in range(b):
+        for h0 in range(0, hkv, per):
+            h1 = min(hkv, h0 + per)
+            qs = slice(h0 * g, h1 * g)
+            a, b_, c = ref.flash_attention_bwd_ref(
+                q[i:i + 1, qs], k[i:i + 1, h0:h1], v[i:i + 1, h0:h1],
+                out[i:i + 1, qs], lse[i:i + 1, qs], dout[i:i + 1, qs], **kw)
+            dq[i:i + 1, qs], dk[i:i + 1, h0:h1], dv[i:i + 1, h0:h1] = a, b_, c
+    return dq, dk, dv
+
+
+def fwd_lse_err(got, want, dtype, torch) -> tuple:
+    """The largest errors (of out, of lse) of flash's (out, lse) against its
+    plain version's; None past the tolerance: out within flash's (float32 1e-4, bf16 2e-2,
+    absolute and relative element by element), lse (float32 on both
+    routes) within 1e-4 absolute and relative, -inf (a row whose every key
+    is masked) on both sides alike."""
+    (out, lse), (w_out, w_lse) = got, want
+    t_ = 1e-4 if dtype == torch.float32 else 2e-2
+    d_o = (out.double() - w_out.double()).abs()
+    if bool((d_o > t_ + t_ * w_out.double().abs()).any()):
+        return None
+    fin = torch.isfinite(w_lse)
+    if not torch.equal(fin, torch.isfinite(lse)) or \
+            not torch.equal(lse[~fin], w_lse[~fin]):
+        return None
+    d_l = (lse[fin].double() - w_lse[fin].double()).abs()
+    if bool((d_l > 1e-4 + 1e-4 * w_lse[fin].double().abs()).any()):
+        return None
+    return (float(d_o.max()) if d_o.numel() else 0.0,
+            float(d_l.max()) if d_l.numel() else 0.0)
+
+
+def bwd_err(got, want, dtype, torch) -> float:
+    """The largest error of ``got`` against ``want`` over dq, dk, dv; fails
+    past the tolerance: float32 1e-4 absolute and relative element by
+    element, bf16 2e-2 of each tensor's largest magnitude (at least 1)."""
+    err = 0.0
+    for g, w in zip(got, want):
+        diff = (g.double() - w.double()).abs()
+        e = float(diff.max()) if diff.numel() else 0.0
+        if dtype == torch.float32:
+            ok = not bool((diff > 1e-4 + 1e-4 * w.double().abs()).any())
+        else:
+            ok = e <= 2e-2 * max(1.0, float(w.abs().max()))
+        if not ok:
+            return float("inf")
+        err = max(err, e)
+    return err
+
+
+def train_phase(torch, dev, smi, cuda_ms):
+    """Phase 11: training.  Flash's forward with lse and its backward
+    against their plain versions at ``BWD_SHAPES`` in both dtypes, the
+    backward's time beside its bound and SDPA's backward at qwen3's
+    training call (K/V repeated to 16 heads, as the main path calls it); the float32 train golden
+    (2 layers at full width, flash on its CUDA-core route); qwen3-0.6b
+    at full width and depth, bf16, 8 steps of ``launch.train``'s loop on
+    one fixed batch of 8 x 1,024 (the main path, counted); the restart
+    check at full width cut to 2 layers.  Returns (the backward's kernel
+    row, flash's forward launches in the training run, a function that
+    profiles one full-depth step, to run after every wall)."""
+    import shutil
+    import tempfile
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops, ref
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train, train_golden as TG
+    from repro_torch.models import convert
+    from repro_torch.models.config import ShapeSpec
+
+    t11 = time.perf_counter()
+    # ---- (1) the forward's lse and the backward against their plain
+    # versions, both dtypes
+    gen = torch.Generator(dev).manual_seed(24)
+    errs, f_errs, timed = {}, {}, {}
+    for label, (b, hq, hkv, sq, sk, d, causal, window) in BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            def rnd(h, n):
+                return torch.randn((b, n, h, d), generator=gen, device=dev,
+                                   dtype=torch.float32).to(dtype) \
+                    .transpose(1, 2)
+            q, k, v, dout = rnd(hq, sq), rnd(hkv, sk), rnd(hkv, sk), \
+                rnd(hq, sq)
+            kw = dict(causal=causal, window=window)
+            out, lse = kflash.flash_attention(q, k, v, return_lse=True, **kw)
+            e = fwd_lse_err((out, lse), flash_ref_pieces(
+                q, k, v, torch, return_lse=True, **kw), dtype, torch)
+            if e is None:
+                fail(f"[11] flash_attention's out or lse differs from its "
+                     f"plain version at {label}, {dtype}")
+            f_errs[label, str(dtype)[6:]] = e
+            if label == "qwen3-0.6b training" and not torch.equal(
+                    out, kflash.flash_attention(q, k, v, **kw)):
+                fail(f"[11] flash_attention's output with lse differs from "
+                     f"its output without at {label}, {dtype}")
+            got = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            want = flash_bwd_ref_pieces(q, k, v, out, lse, dout, torch, **kw)
+            again = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            torch.cuda.synchronize()
+            e = bwd_err(got, want, dtype, torch)
+            if e == float("inf"):
+                fail(f"[11] flash_attention_bwd differs from its plain "
+                     f"version at {label}, {dtype}")
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"[11] flash_attention_bwd is not deterministic at "
+                     f"{label}, {dtype}")
+            if any(x.stride() != y.stride() for x, y in zip(got, (q, k, v))):
+                fail(f"[11] flash_attention_bwd's gradients are not in the "
+                     f"layouts of q, k, v at {label}")
+            errs[label, str(dtype)[6:]] = e
+            if label == "qwen3-0.6b training":
+                timed[dtype] = (q, k, v, out, lse, dout, kw)
+            del got, want, again
+    log(f"[11] flash_attention with lse within tolerance of its plain "
+        f"version (out: float32 1e-4, bf16 2e-2 per element; lse 1e-4 per "
+        f"element, -inf rows alike), its output bit-equal with and without "
+        f"lse at qwen3-0.6b's training call, at "
+        + "; ".join(f"{lb} {dt} (max abs err out {e[0]:.3g}, lse "
+                    f"{e[1]:.3g})" for (lb, dt), e in f_errs.items()))
+    log(f"[11] flash_attention_bwd within tolerance of its plain version "
+        f"(float32 1e-4 per element, bf16 2e-2 of the largest magnitude) "
+        f"and bit-equal between two runs, dq/dk/dv in the layouts of q/k/v, "
+        f"at " + "; ".join(f"{lb} {dt} (max abs err {e:.3g})"
+                           for (lb, dt), e in errs.items()))
+    # its time at qwen3's training shape beside its bound and SDPA's
+    b, hq, hkv, sq, sk, d, causal, window = dict(BWD_SHAPES)[
+        "qwen3-0.6b training"]
+    pairs = unmasked_pairs(sq, sk, causal, window)
+    flops = 10 * b * hq * pairs * d
+    times = {}
+    for dtype, (q, k, v, out, lse, dout, kw) in timed.items():
+        esz = q.element_size()
+        # q, O, dO read and dq written; k, v read and dk, dv written; lse
+        nbytes = (4 * b * hq * sq * d + 4 * b * hkv * sk * d) * esz \
+            + 4 * b * hq * sq
+        # the card's peak for the dtype: bf16 on the tensor cores, float32
+        # outside them (the kernel runs both on the CUDA cores)
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+        ms = cuda_ms(lambda: kflash.flash_attention_bwd(
+            q, k, v, out, lse, dout, **kw), 10)
+        plain = cuda_ms(lambda: flash_bwd_ref_pieces(
+            q, k, v, out, lse, dout, torch, **kw), 2)
+        qx, kx, vx = (t.detach().clone().requires_grad_()
+                      for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qx, kx, vx, is_causal=causal)
+        lib = cuda_ms(lambda: torch.autograd.grad(
+            sdpa, (qx, kx, vx), dout, retain_graph=True), 10)
+        times[dtype] = (ms, plain, lib, max(t_b, t_o) * 1e3,
+                        "bytes" if t_b >= t_o else "operations", nbytes)
+        log(f"[11] flash_attention_bwd at B={b} Hq={hq} Hkv={hkv} S={sq} "
+            f"D={d} {str(dtype)[6:]} causal: {ms:.4f} ms (plain "
+            f"{plain:.4f} ms over pieces; SDPA's backward {lib:.4f} ms, "
+            f"is_causal; bound {times[dtype][3]:.5f} ms by "
+            f"{times[dtype][4]}: {nbytes / 1e6:.1f} MB at 3.35 TB/s against "
+            f"{flops / 1e9:.2f} GFLOP (10 x B x Hq x {pairs} unmasked pairs "
+            f"x D) at {peak / 1e12:.0f} TFLOP/s, the card's {str(dtype)[6:]} "
+            f"peak); "
+            f"{ms / lib:.2f}x SDPA's backward, "
+            f"{ms / times[dtype][3]:.2f}x its bound [{smi}]")
+    del timed, q, k, v, out, lse, dout, qx, kx, vx, sdpa
+    torch.cuda.empty_cache()
+
+    # ---- (2) the float32 train golden: flash on its CUDA-core route
+    gold = json.loads(TRAIN_GOLDEN.read_text())
+    if gold["run"] != TG.run_record():
+        fail(f"{TRAIN_GOLDEN.name} was written for another run")
+    t = time.perf_counter()
+    tree = convert.random_jax_tree(TG.golden_config(), TG.SEED)
+    if convert.tree_sha256(tree) != gold["weights_sha256"]:
+        fail("[11] the golden's seeded weights differ on this machine")
+    ops.reset_launches()
+    got = TG.port_run(dev, tree)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    del tree
+    rtol = gold["tolerance"]["rtol"]
+    want = gold["record"]
+    worst = 0.0
+    for key in ("loss0", "ce0", "grad_norm0", "loss", "ce", "grad_norm",
+                "leaf_grad_norms"):
+        a, w = got[key], want[key]
+        if key == "leaf_grad_norms":
+            if sorted(a) != sorted(w):
+                fail("[11] the golden's gradient leaves differ")
+            a, w = [a[x] for x in sorted(w)], [w[x] for x in sorted(w)]
+        a, w = (list(x) if isinstance(x, list) else [x] for x in (a, w))
+        for x, y in zip(a, w):
+            rel = abs(x - y) / max(abs(y), 1e-30)
+            worst = max(worst, rel)
+            if not rel <= rtol:
+                fail(f"[11] train golden {key}: {x} against {y} (rel "
+                     f"{rel:.3g} > {rtol})")
+    n_fwd = TG.LAYERS * (TG.STEPS + 1)
+    if counts["flash_attention"] != n_fwd or \
+            counts["flash_attention_bwd"] != n_fwd or \
+            counts["flash_attention_tc"]:
+        fail(f"[11] the float32 golden's flash launches {counts}, expected "
+             f"{n_fwd} CUDA-core forwards and {n_fwd} backwards")
+    log(f"[11] float32 train golden (qwen3-0.6b full width, {TG.LAYERS} "
+        f"layers, {TG.B} x {TG.S}, loss and grads then {TG.STEPS} AdamW "
+        f"steps) within {rtol} of {TRAIN_GOLDEN.name}: max rel err "
+        f"{worst:.3g} (CPU {gold['tolerance']['cpu_max_rel_err']:.3g}); "
+        f"losses {[round(x, 5) for x in got['loss']]}; flash "
+        f"{counts['flash_attention']} CUDA-core forwards and "
+        f"{counts['flash_attention_bwd']} backwards "
+        f"({time.perf_counter() - t:.1f} s)")
+
+    # ---- (3) qwen3-0.6b at full width and depth, bf16, the main path
+    cfg = configs.get("qwen3_0p6b")
+    t = time.perf_counter()
+    loop, _ = train.build(cfg, batch=TRAIN_B, seq=TRAIN_S, lr=1e-3,
+                          steps=TRAIN_STEPS, device=dev, ckpt_every=0)
+    batch = pipeline.to_device(pipeline.SyntheticLM(
+        cfg, ShapeSpec("cli", TRAIN_S, TRAIN_B, "train"), seed=0)
+        .host_batch(step=0), dev)
+    step_fn = loop.train_step
+    walls, per_step, seen = [], [], {}
+
+    def timed_step(model, opt, batch):
+        seen["lm"] = model
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(model, opt, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        after = ops.launch_counts()
+        per_step.append({k_: after[k_] - before[k_] for k_ in after
+                         if after[k_] != before[k_]})
+        return out
+
+    loop.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    summary = loop.run(lambda _d: batch, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x for _, x in loop.history]
+    n_par = sum(p_.numel() for p_ in seen["lm"].parameters())
+    L = cfg.n_layers
+    want_counts = {"flash_attention_tc": L * TRAIN_STEPS,
+                   "flash_attention_bwd": L * TRAIN_STEPS,
+                   "flash_attention": 0, "wkv_chunked": 0}
+    if {k_: counts[k_] for k_ in want_counts} != want_counts or any(
+            s_.get("flash_attention_tc") != L or
+            s_.get("flash_attention_bwd") != L for s_ in per_step):
+        fail(f"[11] launches in training {counts} (per step {per_step}), "
+             f"expected {want_counts}: {L} tensor-core forwards and {L} "
+             f"backwards a step, no wkv_chunked")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)) or \
+            not losses[-1] < losses[0] or summary["bad_steps"]:
+        fail(f"[11] qwen3-0.6b training: losses {losses}, summary {summary}: "
+             f"expected {TRAIN_STEPS} finite losses that fall")
+    med = statistics.median(walls[1:])
+    log(f"[11] qwen3-0.6b training at full width and depth ({L} layers, "
+        f"d={cfg.d_model}, {n_par / 1e9:.3f} G parameters in bf16, AdamW "
+        f"with float32 master weights), "
+        f"{TRAIN_STEPS} steps of launch.train's loop on one fixed batch of "
+        f"{TRAIN_B} x {TRAIN_S} ({time.perf_counter() - t:.1f} s with the "
+        f"init): losses {[round(x, 4) for x in losses]}, falling; launches "
+        f"{ {k_: counts[k_] for k_ in want_counts} } ({L} flash forwards on "
+        f"the tensor cores and {L} backwards a step, no wkv_chunked); step "
+        f"walls {[round(w * 1e3, 1) for w in walls]} ms, median of steps "
+        f"1-{TRAIN_STEPS - 1} {med * 1e3:.2f} ms, "
+        f"{TRAIN_B * TRAIN_S / med:.0f} tokens/s; peak device memory "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated) [{smi}]")
+    del loop, step_fn, seen
+    torch.cuda.empty_cache()
+
+    # ---- (4) the restart check at full width, 2 layers
+    t = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_restart_"))
+    try:
+        cfg2 = cfg.with_(n_layers=2)
+        runs = {}
+        for name, fail_at in (("clean", None), ("faulty", RESTART_FAIL_AT)):
+            loop, make_batch = train.build(
+                cfg2, batch=RESTART_B, seq=RESTART_S, lr=1e-3,
+                steps=RESTART_STEPS, device=dev, ckpt_dir=str(root / name),
+                ckpt_every=RESTART_EVERY, inject_failure_at=fail_at)
+            summ = loop.run(make_batch, RESTART_STEPS)
+            runs[name] = (summ, dict(loop.history), len(loop.history))
+            del loop, make_batch
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    (c_sum, c_hist, _), (f_sum, f_hist, f_len) = runs["clean"], \
+        runs["faulty"]
+    diff = max(abs(c_hist[s_] - f_hist[s_]) / abs(c_hist[s_])
+               for s_ in c_hist)
+    if f_sum["restarts"] != 1 or c_sum["restarts"] or \
+            sorted(f_hist) != sorted(c_hist) or diff > 1e-5:
+        fail(f"[11] restart check: clean {c_sum} {c_hist}, faulty {f_sum} "
+             f"{f_hist}")
+    log(f"[11] restart check (qwen3-0.6b full width, 2 layers, bf16, "
+        f"{RESTART_B} x {RESTART_S}, checkpoint every {RESTART_EVERY} steps, "
+        f"a failure injected at step {RESTART_FAIL_AT}, {RESTART_STEPS} "
+        f"steps): restarted once from step "
+        f"{RESTART_FAIL_AT // RESTART_EVERY * RESTART_EVERY}'s checkpoint, "
+        f"{f_len} steps run; every step's loss equals the clean run's "
+        + ("to the bit" if diff == 0 else f"within {diff:.3g} relative")
+        + f" (final {f_sum['final_loss']:.6f}); temporary directory removed "
+        f"({time.perf_counter() - t:.1f} s)")
+    log(f"[11] phase 11 in {time.perf_counter() - t11:.1f} s")
+
+    ms, plain, lib, bound, by, _ = times[torch.bfloat16]
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "no TPU kernel: XLA autodiff of "
+                       "src/repro/models/attention.py:237 (_sdpa) in the "
+                       "reference's training",
+           "launches": counts["flash_attention_bwd"],
+           "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+           "bound_ms": bound, "bound_by": by, "library_ms": lib,
+           "library": "scaled_dot_product_attention backward",
+           "shape": "B=8 Hq=16 Hkv=16 (qwen3-0.6b's 8 KV heads repeated) "
+                    "S=1024 D=128 bfloat16 causal",
+           "float32": dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by"), times[torch.float32][:5])),
+           "launches_per_step": L,
+           "max_abs_err_by_shape": {f"{lb} {dt}": e for (lb, dt), e in
+                                    errs.items()},
+           "forward_lse_max_abs_err": max(e[1] for e in f_errs.values())}
+
+    def busy():
+        """Device kernel time of one full-depth training step from
+        torch.profiler over the unprofiled median wall, the backward
+        kernel's share, the largest kernels."""
+        loop, _ = train.build(cfg, batch=TRAIN_B, seq=TRAIN_S, lr=1e-3,
+                              steps=TRAIN_STEPS, device=dev, ckpt_every=0)
+        lm, opt, _ = loop.init_state()
+        for _ in range(2):
+            lm, opt, _ = loop.train_step(lm, opt, batch)
+        torch.cuda.synchronize()
+        dev_ms, kernels, per = device_profile(
+            lambda: loop.train_step(lm, opt, batch), 1, torch)
+        if dev_ms <= 0:
+            log("[11] qwen3-0.6b training step: device time not measured "
+                "(profiler saw no device time)")
+            return
+        bwd = sum(v_ for key, (v_, _) in per.items()
+                  if "dkdv_kernel" in key or "dq_kernel" in key
+                  or "delta_kernel" in key)
+        fwd = sum(v_ for key, (v_, _) in per.items()
+                  if "flash_tc_kernel" in key)
+        # cuBLAS's products (sm90 xmma / nvjet / cutlass kernels) and the
+        # optimizer's foreach passes
+        gemm = sum(v_ for key, (v_, _) in per.items()
+                   if any(t_ in key for t_ in ("gemm", "nvjet", "xmma",
+                                               "cutlass")))
+        adam = sum(v_ for key, (v_, _) in per.items()
+                   if "multi_tensor_apply" in key)
+        log(f"[11] qwen3-0.6b training step ({TRAIN_B} x {TRAIN_S}, bf16, "
+            f"{L} layers): {dev_ms:.3f} ms device kernel time (profiled, "
+            f"{kernels:.0f} kernels) "
+            f"over {med * 1e3:.3f} ms wall (unprofiled median): device busy "
+            f"{100 * dev_ms / (med * 1e3):.1f}%; flash's backward "
+            f"{bwd:.3f} ms ({100 * bwd / dev_ms:.1f}% of the device time), "
+            f"its forward {fwd:.3f} ms, the matrix products {gemm:.3f} ms, "
+            f"AdamW's foreach passes {adam:.3f} ms, the rest "
+            f"{dev_ms - bwd - fwd - gemm - adam:.3f} ms; largest: "
+            + ", ".join(
+                f"{k_[:48]} {v_:.3f} ms" for v_, k_ in largest(per, 6))
+            + f" [{smi}]")
+        del loop, lm, opt
+        torch.cuda.empty_cache()
+
+    return row, counts["flash_attention_tc"], busy
 
 
 def hybrid_int8_phase(torch, dev, smi, cuda_ms):
@@ -2606,7 +3034,7 @@ def phase8_runs(torch, dev, sweep, E, P, ops, golden3) -> dict:
     total = sum(v["wall_s"] for v in info["event"].values())
     log(f"[8] event engine: the three protocols took {total:.1f} s at the "
         f"golden's horizon {p.horizon:g} (cut from 3,000, where they took "
-        f"298.7 s, and from 1,000, 152-188 s)"
+        f"298.7 s, from 1,000, 152-188 s, and from 600, 45.7-58.2 s)"
         + (", over the 100 s the phase plans for them" if total > 100
            else ""))
     info["event_params"] = p
@@ -3258,6 +3686,12 @@ def main() -> None:
         torch, dev, smi, lambda fn, reps, sleep=True:
         cuda_times(fn, reps, torch, sleep))
 
+    # ---------------- phase 11: training (walls before any profiler) ------
+    # (after phase 10 has freed its models: the full-depth run holds ~30 GB)
+    bwd_row, p11_launches, p11_busy = train_phase(
+        torch, dev, smi, lambda fn, reps, sleep=True:
+        cuda_times(fn, reps, torch, sleep))
+
     # ---------------- phase 7: LM serving (walls before any profiler) ----
     lm_rows, lm_busy = lm_phase(torch, dev, smi, lambda fn, reps, sleep=True:
                                cuda_times(fn, reps, torch, sleep))
@@ -3514,6 +3948,8 @@ def main() -> None:
     del lm_busy, p9_busy               # their models: room for phase 10's
     torch.cuda.empty_cache()
     p10_busy()
+    torch.cuda.empty_cache()
+    p11_busy()
     for row in lm_rows:
         if row["name"] == "flash_attention":
             row["launches_by_path"] = {
@@ -3521,11 +3957,14 @@ def main() -> None:
                 **{f"{a} prefill (phase 9)": n for a, n in
                    p9_launches.items()},
                 **{f"{a} prefill (phase 10)": n for a, n in
-                   p10_launches.items()}}
+                   p10_launches.items()},
+                "qwen3_0p6b training, 8 steps, with lse (phase 11)":
+                    p11_launches}
             row["at_shapes"] = p9_shapes + p10_shapes
     rows += lm_rows
+    rows.append(bwd_row)
     rows.append(admit_row)
-    log(f"[done] all ten phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] all eleven phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,11 @@
 // top-left when Sq != Sk) and i - j < window (window > 0), float32 running
 // max, sum and accumulator, and 0 for a row whose every key is masked.  Any
 // Sq, Sk, D <= 256.  The wrapper picks the route by dtype, and neither
-// route stands in for the other.
+// route stands in for the other.  Training asks each route for the float32
+// row logsumexp lse[b, h, i] of the scaled scores as well (natural log; -inf
+// for a wholly masked row), which the backward (csrc/flash_attention_bwd.cu)
+// reads; it is written only where its pointer is non-null, so a call without
+// it (the prefill) computes and writes exactly what it did before.
 //
 // Bound.  At the dense prefill's shape (qwen3-0.6b: B = 8, Hq = Hkv = 16,
 // S = 1,024, D = 128, bf16, causal) one launch moves 134 MB (q, k, v read
@@ -107,7 +111,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              long long q_ss, long long k_sb, long long k_sh, long long k_ss,
              long long v_sb, long long v_sh, long long v_ss, long long o_sb,
              long long o_sh, long long o_ss, int causal, int window,
-             float scale) {
+             float scale, float* __restrict__ lse) {
   constexpr int kStride = kD + 1;
   constexpr int kCols = kD / 16;
   extern __shared__ float smem[];
@@ -224,6 +228,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int col = tx + 16 * c;
       if (col < d) ob[row * o_ss + col] = acc[a][c] / inv;
     }
+    if (lse && tx == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * sq + row] =
+          l[a] == 0.f ? -INFINITY : m[a] + logf(l[a]);
   }
 }
 
@@ -231,7 +238,7 @@ template <int kD>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int b, int hq, int hkv, int sq, int sk, int d,
                    const long long* st, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   float* lse, cudaStream_t stream) {
   const size_t bytes =
       (2 * kBQ * (kD + 1) + kBQ * kPStride) * sizeof(float);
   if (bytes > 48 * 1024) {
@@ -244,7 +251,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   flash_kernel<kD><<<grid, kThreads, bytes, stream>>>(
       q, k, v, o, hq / hkv, sq, sk, d, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal, window,
-      scale);
+      scale, lse);
   return cudaGetLastError();
 }
 
@@ -257,6 +264,7 @@ constexpr int kThreads = 384;   // warpgroup 0 loads, 1 and 2 compute
 constexpr int kStages = 2;      // K/V ring depth
 constexpr int kRow = 128;       // bytes of one 64-column block row (bf16)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int kDB>              // 64-column blocks of D
 struct Cfg {
@@ -273,6 +281,7 @@ struct Params {
   const uint16_t* k;
   const uint16_t* v;
   __nv_bfloat16* o;
+  float* lse;                   // [B, Hq, Sq] or null
   long long st[12];             // (batch, head, row) strides of q, k, v, o
   int group, sq, sk, d, causal, window, tma, hq, nb;
   float scale_log2;             // sm_scale * log2(e)
@@ -681,6 +690,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
     const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+    if (p.lse && t == 0) {        // m in log2 units: lse = (m + log2 l) ln 2
+      float* lrow = p.lse + (static_cast<long long>(b) * p.hq + h) * p.sq;
+      if (ra < p.sq)
+        lrow[ra] = l_a > 0.f ? (m_a + log2f(l_a)) * kLn2 : -INFINITY;
+      if (rb < p.sq)
+        lrow[rb] = l_b > 0.f ? (m_b + log2f(l_b)) * kLn2 : -INFINITY;
+    }
     __nv_bfloat16* ob = p.o + b * p.st[9] + h * p.st[10];
     const bool pairs = (p.d & 1) == 0;
 #pragma unroll
@@ -793,14 +809,16 @@ extern "C" {
 
 // Element strides (batch, head, row) of q, k, v, o, in that order; the last
 // axis of each is contiguous.  q [b, hq, sq, d], k and v [b, hkv, sk, d] and
-// o [b, hq, sq, d] are device pointers.  Each launches on `stream` and
-// returns the cudaError_t of the launch (0 on success).
+// o [b, hq, sq, d] are device pointers; lse, where not null, a contiguous
+// float32 [b, hq, sq] that receives each row's logsumexp.  Each launches on
+// `stream` and returns the cudaError_t of the launch (0 on success).
 
 // float32 on the CUDA cores.  Requires 1 <= d <= 256 and hq % hkv == 0.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int b, int hq, int hkv, int sq, int sk,
                            int d, const long long* strides, int causal,
-                           int window, float scale, void* stream) {
+                           int window, float scale, float* lse,
+                           void* stream) {
   if (d < 1 || d > 256 || hkv < 1 || hq % hkv) return cudaErrorInvalidValue;
   const float* fq = static_cast<const float*>(q);
   const float* fk = static_cast<const float*>(k);
@@ -810,15 +828,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const long long* st = strides;
   if (d <= 32)
     return cc::launch<32>(fq, fk, fv, fo, b, hq, hkv, sq, sk, d, st, causal,
-                          window, scale, s);
+                          window, scale, lse, s);
   if (d <= 64)
     return cc::launch<64>(fq, fk, fv, fo, b, hq, hkv, sq, sk, d, st, causal,
-                          window, scale, s);
+                          window, scale, lse, s);
   if (d <= 128)
     return cc::launch<128>(fq, fk, fv, fo, b, hq, hkv, sq, sk, d, st, causal,
-                           window, scale, s);
+                           window, scale, lse, s);
   return cc::launch<256>(fq, fk, fv, fo, b, hq, hkv, sq, sk, d, st, causal,
-                         window, scale, s);
+                         window, scale, lse, s);
 }
 
 // bf16 on the tensor cores.  tma = 1: every base is 16-byte aligned and
@@ -828,7 +846,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 int flash_attention_tc_launch(const void* q, const void* k, const void* v,
                               void* o, int b, int hq, int hkv, int sq, int sk,
                               int d, const long long* strides, int causal,
-                              int window, float scale, int tma,
+                              int window, float scale, int tma, float* lse,
                               void* stream) {
   if (d < 1 || d > 256 || hkv < 1 || hq % hkv) return cudaErrorInvalidValue;
   tc::Params p;
@@ -836,6 +854,7 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
   p.k = static_cast<const uint16_t*>(k);
   p.v = static_cast<const uint16_t*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
   for (int i = 0; i < 12; ++i) p.st[i] = strides[i];
   p.group = hq / hkv;
   p.sq = sq;

@@ -20,7 +20,22 @@ q ``[B, Hq, Sq, D]`` and k/v ``[B, Hkv, Sk, D]`` may be strided views
 (the model passes ``[B, S, H, D]`` tensors transposed); only the last
 axis must be contiguous.  The output is a ``[B, Hq, Sq, D]`` view of a
 ``[B, Sq, Hq, D]`` tensor, so the model reshapes it back without a copy.
-``launches`` counts the launches of each route, and nothing else.
+With ``return_lse`` either route also writes each row's float32
+logsumexp ``[B, Hq, Sq]`` (natural log of the scaled scores, -inf for a
+wholly masked row); without it the kernels write the output alone, as
+the prefill has always called them.
+
+``flash_attention_bwd`` is the backward (``csrc/flash_attention_bwd.cu``,
+on the CUDA cores in both dtypes, float32 accumulation): from q, k, v,
+the forward's output and lse and the output's gradient it computes dq,
+dk, dv, deterministically (no atomics), dk and dv summed over each KV
+head's query heads; it replaces XLA's autodiff of the reference's
+attention, not a TPU kernel.  It reads strided inputs (``dout`` may come
+with any strides; only its last axis is made contiguous) and writes dq,
+dk, dv in the layouts of q, k, v (``torch.empty_like``), so the model's
+transposes cost no copy.  ``launches`` counts the launches of each
+forward route and of the backward (one count for its three device
+kernels), and nothing else.
 """
 from __future__ import annotations
 
@@ -33,7 +48,8 @@ from . import build
 MAX_D = 256
 ROUTES = {torch.float32: "flash_attention",       # CUDA cores
           torch.bfloat16: "flash_attention_tc"}   # tensor cores
-launches = {name: 0 for name in ROUTES.values()}
+BWD = "flash_attention_bwd"
+launches = {name: 0 for name in (*ROUTES.values(), BWD)}
 
 _fns: dict = {}
 
@@ -48,7 +64,7 @@ def _launcher(route: str):
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float] + [ctypes.c_int] * tc
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[route] = fn
     return fn
@@ -69,10 +85,9 @@ def tma_strides(t: torch.Tensor):
     return strides, ok
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    sm_scale: float = None):
-    """One launch -> ``[B, Hq, Sq, D]`` attention output in q's dtype."""
-    name = "flash_attention"
+def _check(name, q, k, v):
+    """Raise unless q ``[B, Hq, Sq, D]`` and k/v ``[B, Hkv, Sk, D]`` are
+    CUDA tensors of one routed dtype with a contiguous last axis."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {dev}")
@@ -95,8 +110,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if t.device != dev or (t.numel() and t.stride(3) != 1):
             raise ValueError(f"{name}: {arg} must lie on {dev} with a "
                              f"contiguous last axis")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    sm_scale: float = None, return_lse: bool = False):
+    """One launch -> ``[B, Hq, Sq, D]`` attention output in q's dtype, and
+    with ``return_lse`` the float32 ``[B, Hq, Sq]`` row logsumexp."""
+    name = "flash_attention"
+    _check(name, q, k, v)
+    dev = q.device
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                       device=dev).transpose(1, 2)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32,
+                      device=dev) if return_lse else None
     if out.numel():
         route = ROUTES[q.dtype]
         scale = float(sm_scale) if sm_scale is not None else d ** -0.5
@@ -108,10 +136,67 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         rc = _launcher(route)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               out.data_ptr(), b, hq, hkv, sq, sk, d, strides,
                               int(causal), int(window), scale, *tma,
+                              None if lse is None else lse.data_ptr(),
                               torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             raise RuntimeError(f"{name} ({route}) launch failed: "
                                + ("TMA descriptor encoding failed"
                                   if rc == -1 else f"cudaError {rc}"))
         launches[route] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+_bwd_fn = None
+
+
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load(BWD).flash_attention_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, sm_scale: float = None):
+    """One launch (three device kernels) -> ``(dq, dk, dv)`` in the dtypes
+    and layouts of q, k, v: the gradients of ``flash_attention``'s output
+    ``out`` (``[B, Hq, Sq, D]``, any strides) with row logsumexp ``lse``
+    (float32 ``[B, Hq, Sq]``) against the output gradient ``dout``."""
+    name = BWD
+    _check(name, q, k, v)
+    dev = q.device
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    for arg, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != dev or \
+                t.stride(-1) != 1:
+            raise ValueError(f"{name}: {arg} must be a {q.dtype} "
+                             f"{tuple(q.shape)} tensor on {dev} with a "
+                             f"contiguous last axis")
+    build.check_arg(name, "lse", lse, torch.float32, (b, hq, sq), dev)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if not (q.numel() and k.numel()):
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    scale = float(sm_scale) if sm_scale is not None else d ** -0.5
+    strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, out, dout, dq,
+                                                      dk, dv)
+                                         for s in t.stride()[:3]))
+    rc = _bwd_launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                         dv.data_ptr(), b, hq, hkv, sq, sk, d, strides,
+                         int(causal), int(window), scale,
+                         int(q.dtype == torch.bfloat16),
+                         torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    launches[BWD] += 1
+    return dq, dk, dv

@@ -8,8 +8,18 @@ the megastep, row-slab drain and row-slab kernels, ``kernels.scan``,
 kernel's plain version (``kernels.ref``).  There is no fallback: a failed
 build or launch on the card raises.  ``launch_counts`` reads the
 wrappers' launch counters and ``reset_launches`` sets them to 0.
+
+Under autograd (grad enabled and an input that requires it)
+``flash_attention`` is a ``torch.autograd.Function``: its forward and its
+backward go to the two kernels on CUDA tensors and to the plain versions
+(``flash_attention_ref``, ``flash_attention_bwd_ref``) on CPU tensors.
+``wkv_chunked`` has no backward kernel yet: under autograd on a CUDA
+tensor it raises ``NotImplementedError`` (on the CPU its plain version is
+differentiated by autograd).
 """
 from __future__ import annotations
+
+import torch
 
 from . import admit as _admit
 from . import admit_ops as _admit_ops
@@ -137,10 +147,41 @@ def admit_ops(read_set, write_set, prec, preceding, preceded, active,
               haslocks, txn, item, is_write, valid)
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with its backward: the forward keeps q, k, v, the
+    output and the row logsumexp for the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale):
+        kw = dict(causal=causal, window=window, sm_scale=sm_scale)
+        fn = _flash.flash_attention if _route(q, "flash_attention") \
+            else ref.flash_attention_ref
+        out, lse = fn(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        fn = _flash.flash_attention_bwd if _route(q, "flash_attention") \
+            else ref.flash_attention_bwd_ref
+        dq, dk, dv = fn(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     sm_scale: float = None):
     """Flash attention: q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` ->
-    ``[B, Hq, Sq, D]`` in q's dtype."""
+    ``[B, Hq, Sq, D]`` in q's dtype; differentiable (``_Flash``) where an
+    input requires grad."""
+    if _needs_grad(q, k, v):
+        return _Flash.apply(q, k, v, causal, window, sm_scale)
     fn = _flash.flash_attention if _route(q, "flash_attention") \
         else ref.flash_attention_ref
     return fn(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
@@ -148,10 +189,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def wkv_chunked(r, k, v, log_w, u, *, chunk: int = 64, state0=None):
     """Chunked WKV: r/k/v/log_w ``[B, H, S, D]``, u ``[H, D]`` -> (out
-    float32 ``[B, H, S, D]``, final state float32 ``[B, H, D, D]``)."""
-    fn = _wkv.wkv_chunked if _route(r, "wkv_chunked") \
-        else ref.wkv_chunked_ref
-    return fn(r, k, v, log_w, u, chunk=chunk, state0=state0)
+    float32 ``[B, H, S, D]``, final state float32 ``[B, H, D, D]``).
+    Under autograd on a CUDA tensor it raises: the kernel has no
+    backward yet."""
+    if _route(r, "wkv_chunked"):
+        if _needs_grad(r, k, v, log_w, u, state0):
+            raise NotImplementedError(
+                "wkv_chunked has no backward kernel yet (ROADMAP.md, queue "
+                "1 item 4b): rwkv trains on the CPU only")
+        return _wkv.wkv_chunked(r, k, v, log_w, u, chunk=chunk,
+                                state0=state0)
+    return ref.wkv_chunked_ref(r, k, v, log_w, u, chunk=chunk, state0=state0)
 
 
 _COUNTERS = (_megastep.launches, _scan.launches, _conflict.launches,

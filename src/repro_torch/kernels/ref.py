@@ -4,10 +4,11 @@ Each function computes exactly what its CUDA kernel computes, with the
 same lane axis and dtypes.  The CPU path of ``kernels.ops`` runs them,
 the CPU tests hold them to the JAX reference, and ``chip_smoke.py``
 holds each kernel to them on the card: bit-equal for the integer and
-logic kernels, within a stated tolerance for the two float kernels of
-the language model (``flash_attention_ref``, ``wkv_chunked_ref``), whose
-sums the kernels take in another order.  ``wkv_ref`` is the sequential
-WKV recurrence, the oracle of both.
+logic kernels, within a stated tolerance for the float kernels of the
+language model (``flash_attention_ref`` and its backward
+``flash_attention_bwd_ref``, ``wkv_chunked_ref``), whose sums the kernels
+take in another order.  ``wkv_ref`` is the sequential WKV recurrence, the
+oracle of both.
 """
 from __future__ import annotations
 
@@ -404,15 +405,32 @@ def admit_ops_ref(read_set: torch.Tensor, write_set: torch.Tensor,
             classes[:, 1].contiguous(), active.clone(), haslocks.clone())
 
 
+def _flash_mask(s: int, t: int, causal: bool, window: int, device
+                ) -> torch.Tensor:
+    """``bool [s, t]``: key j kept for query i when ``i >= j`` (causal,
+    indices from 0) and ``i - j < window`` (window > 0)."""
+    qpos = torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= qpos - kpos < window
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        sm_scale: Optional[float] = None) -> torch.Tensor:
+                        sm_scale: Optional[float] = None,
+                        return_lse: bool = False):
     """Softmax attention: q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]``
     (any strides), query head h reading KV head h // (Hq / Hkv).  Scores
     and weights in float32; key j is masked for query i unless ``i >= j``
     (causal, indices from 0, aligned top-left when Sq != Sk) and
     ``i - j < window`` (window > 0); a row with every key masked is 0.
-    Returns a contiguous ``[B, Hq, Sq, D]`` tensor in q's dtype."""
+    Returns a contiguous ``[B, Hq, Sq, D]`` tensor in q's dtype, and with
+    ``return_lse`` the float32 ``[B, Hq, Sq]`` logsumexp of each row's
+    scaled scores (-inf for a wholly masked row)."""
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -421,16 +439,49 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v = v.repeat_interleave(g, dim=1)
     scale = sm_scale if sm_scale is not None else d ** -0.5
     s_ = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
-    qpos = torch.arange(s, device=q.device)[:, None]
-    kpos = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window > 0:
-        mask &= qpos - kpos < window
+    mask = _flash_mask(s, t, causal, window, q.device)
     s_ = s_.masked_fill(~mask, float("-inf"))
     w = torch.softmax(s_, dim=-1).nan_to_num(0.0)      # fully-masked rows
-    return torch.einsum("bhst,bhtd->bhsd", w, v.float()).to(q.dtype)
+    out = torch.einsum("bhst,bhtd->bhsd", w, v.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s_, dim=-1)
+    return out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            sm_scale: Optional[float] = None):
+    """The gradients ``(dq, dk, dv)`` of ``flash_attention_ref``'s output
+    ``out`` with row logsumexp ``lse`` against ``dout``, by the explicit
+    formulas (no autograd), float32 inside: ``P = exp(S * scale - lse)``
+    on the kept pairs (0 elsewhere, so a wholly masked row has zero
+    gradient), ``dV = P^T dO``, ``dS = P (dO V^T - rowsum(dO O))``,
+    ``dQ = scale dS K``, ``dK = scale dS^T Q``; dk and dv of a KV head sum
+    over its Hq / Hkv query heads.  Returns contiguous tensors in the
+    dtypes of q, k, v."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    qf, of, gf = q.float(), out.float(), dout.float()
+    kf, vf = k.float(), v.float()
+    if g > 1:
+        kf = kf.repeat_interleave(g, dim=1)
+        vf = vf.repeat_interleave(g, dim=1)
+    s_ = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+    mask = _flash_mask(s, t, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s_ - lse.float()[..., None]), 0.0)
+    delta = (gf * of).sum(-1, keepdim=True)
+    dv = torch.einsum("bhst,bhsd->bhtd", p, gf)
+    ds = p * (torch.einsum("bhsd,bhtd->bhst", gf, vf) - delta)
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
+    if g > 1:
+        dk = dk.view(b, hkv, g, t, d).sum(2)
+        dv = dv.view(b, hkv, g, t, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

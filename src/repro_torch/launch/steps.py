@@ -1,17 +1,87 @@
-"""Step functions of the serving path: the port of
-``repro/launch/steps.py:61,78`` (``make_prefill_step``,
-``make_serve_step``).
+"""Step functions: the port of ``repro/launch/steps.py``
+(``make_train_step``, ``make_prefill_step``, ``make_serve_step``).
 
 The reference builds an ``LM`` from a config and passes the parameters to
 each call; here ``LM`` holds its parameters, so each maker takes the
-model.  ``make_train_step`` waits for training (ROADMAP.md, queue 1).
+model, and the train step takes the model in the parameters' place.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..models import layers
 from ..models.lm import LM
+from ..optim import adamw
+
+
+def _split(batch, accum: int):
+    """``accum`` microbatches along the batch axis, in order."""
+    return [{k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
+             for k, v in batch.items()} for i in range(accum)]
+
+
+def loss_and_grads(model: LM, batch):
+    """(loss, metrics, grads): ``LM.loss`` on ``batch`` and its gradient
+    with respect to every parameter of ``model``, by parameter name, in
+    the parameter's dtype (zeros for a parameter the loss does not
+    reach), as ``jax.value_and_grad`` gives them."""
+    names, params = zip(*model.named_parameters())
+    total, metrics = model.loss(batch)
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    grads = {n: torch.zeros_like(p) if g is None else g
+             for n, p, g in zip(names, params, grads)}
+    return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(lm: LM, opt_cfg: Optional[adamw.AdamWConfig] = None,
+                    accum: int = 1):
+    """Returns ``train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics)`` for models of ``lm``'s config (``model`` is ``lm`` or one
+    built like it; ``layers.trainable`` makes its parameters require
+    grad).  The gradients of ``LM.loss`` go to ``adamw.update``, which
+    updates the model and the state in place.  ``accum`` > 1 splits the
+    batch into microbatches along its first axis, sums their gradients in
+    float32 and divides by ``accum``; the loss is the microbatches' mean
+    and the other metrics the last microbatch's, as the reference's scan
+    returns them.  A non-finite loss applies nothing: the model, the
+    moments, the master weights and the step counter stay as they were,
+    and the metrics say ``skipped``.  Metrics: ``ce``, ``aux``,
+    ``tokens``, ``loss``, ``grad_norm``, ``lr`` (0-d tensors)."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    if accum < 1:
+        raise ValueError(f"accum={accum}")
+
+    def train_step(model, opt_state, batch):
+        if model.cfg != lm.cfg:
+            raise ValueError(f"train step of {lm.cfg.name} given a model of "
+                             f"{model.cfg.name}")
+        if accum == 1:
+            loss, metrics, grads = loss_and_grads(model, batch)
+        else:
+            grads, loss = None, 0.0
+            for mb in _split(batch, accum):
+                l, metrics, g = loss_and_grads(model, mb)
+                if grads is None:
+                    grads = {k: torch.zeros(v.shape, dtype=torch.float32,
+                                            device=v.device)
+                             for k, v in g.items()}
+                for k, v in g.items():
+                    grads[k] += v.float()
+                loss = loss + l
+                del g
+            grads = {k: v / accum for k, v in grads.items()}
+            loss = loss / accum
+        metrics = dict(metrics, loss=loss)
+        if not bool(torch.isfinite(loss)):
+            return model, opt_state, dict(metrics, skipped=True)
+        params = dict(model.named_parameters())
+        _, opt_state, opt_metrics = adamw.update(opt_cfg, grads, opt_state,
+                                                 params)
+        return model, opt_state, dict(metrics, **opt_metrics)
+
+    return train_step
 
 
 def make_prefill_step(lm: LM):

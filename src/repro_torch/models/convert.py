@@ -17,6 +17,11 @@ same (``[d_in, d_out]``), so a tensor carries over as it is.
   derived from the port's modules (no JAX needed).
 * ``params_from_jax(cfg, tree)``: the reference's tree, as numpy arrays,
   to the port's ``state_dict`` (``LM.load_state_dict``).
+* ``tree_from_port(cfg, tensors)``: the reverse map: the port's
+  tensors by parameter name (parameters, gradients, optimizer moments or
+  master weights) as the reference's tree of numpy arrays, each
+  per-block tensor written into its slot of the stacked leaf, so that a
+  test compares gradients and optimizer state leaf by leaf.
 * ``random_jax_tree(cfg, seed)``: a tree of seeded float32 numpy
   weights in the reference's layout, the same on every machine (one
   PCG64 stream per tensor, uniform draws only), for checks that need
@@ -95,6 +100,26 @@ def params_from_jax(cfg: ModelConfig, tree) -> Dict[str, torch.Tensor]:
                              f"the port's {name} is {shape}")
         sd[name] = _tensor(a)
     return sd
+
+
+def tree_from_port(cfg: ModelConfig, tensors: Dict[str, torch.Tensor]
+                   ) -> dict:
+    """Tensors keyed by the port's parameter names (every one of them) as
+    the reference's nested dict of numpy arrays: float tensors as float32
+    (bf16 widened exactly), stacked along the reference's leading axes."""
+    shapes = jax_tree_shapes(cfg)
+    tree: dict = {}
+    for name in _port_shapes(cfg):
+        path, idx = _jax_path(name)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if path[-1] not in node:
+            node[path[-1]] = np.zeros(shapes[path], np.float32)
+        t = tensors[name].detach().cpu()
+        node[path[-1]][idx] = t.float().numpy() if t.is_floating_point() \
+            else t.numpy()
+    return tree
 
 
 def _scale_shift(path: Path, shape: tuple):

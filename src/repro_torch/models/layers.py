@@ -1,12 +1,18 @@
-"""Building blocks: norms, RoPE, linear/embedding initialisers, SwiGLU.
+"""Building blocks: norms, RoPE, linear/embedding initialisers, SwiGLU,
+the losses.
 
-The port of ``repro/models/layers.py:22-95``.  Weights keep the
+The port of ``repro/models/layers.py``.  Weights keep the
 reference's ``[d_in, d_out]`` layout and are applied as ``x @ w``, so a
 tensor carries over from the JAX package unchanged
 (``models.convert``).  Every initialiser takes an explicit
 ``torch.Generator`` and writes in place into a tensor the caller owns;
 compute happens in ``cfg.compute_dtype`` with float32 inside norms and
-activations, as in the reference.  The losses wait for training.
+activations, as in the reference.  Parameters are created
+inference-only (``param``); ``trainable`` makes a model's float
+parameters require grad for training, and serving runs under
+``torch.inference_mode()`` whatever they say.  The losses
+(``softmax_cross_entropy``, ``chunked_cross_entropy``) are float32, as
+the reference's.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -67,9 +74,18 @@ def normal_init(w: torch.Tensor, gen: torch.Generator,
 
 
 def param(shape, dtype, device) -> torch.nn.Parameter:
-    """An uninitialised inference-only parameter."""
+    """An uninitialised parameter, inference-only until ``trainable``."""
     return torch.nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                               requires_grad=False)
+
+
+def trainable(module: torch.nn.Module) -> torch.nn.Module:
+    """Make every float parameter of ``module`` require grad; returns the
+    module."""
+    for p in module.parameters():
+        if p.is_floating_point():
+            p.requires_grad_(True)
+    return module
 
 
 # --------------------------------------------------------------------------
@@ -138,3 +154,62 @@ def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     u = x @ p.wi_up
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ p.wo
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logsumexp(logits) - logits[label]`` in float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    return lse - ll
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None):
+    """Token-level CE in float32: logits ``[..., V]``, labels ``[...]``;
+    returns (the mean over the tokens the float ``mask`` keeps, the token
+    count)."""
+    nll = _nll(logits, labels)
+    if mask is not None:
+        nll = nll * mask
+        count = mask.float().sum()
+    else:
+        count = torch.tensor(float(nll.numel()), device=nll.device)
+    return nll.sum() / count.clamp_min(1.0), count
+
+
+def _chunk_ce(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
+              mc: torch.Tensor):
+    nll = _nll(xc @ head, lc) * mc
+    return nll.sum(), mc.sum()
+
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor, chunk: int,
+                          mask: Optional[torch.Tensor] = None):
+    """CE over sequence chunks without holding the ``[B, S, V]`` logits:
+    x ``[B, S, d]``, head ``[d, V]``.  Each chunk's logits, logsumexp and
+    label logit are recomputed in the backward (a checkpoint per chunk, as
+    the reference's ``@jax.checkpoint`` scan), so only ``[B, chunk, V]``
+    logits live at once.  Returns (mean loss, token count)."""
+    b, s, _ = x.shape
+    c = min(chunk, s)
+    if s % c:
+        raise ValueError(f"chunked_cross_entropy: S={s} is not a multiple "
+                         f"of chunk={c}")
+    mask = (torch.ones((b, s), dtype=torch.float32, device=x.device)
+            if mask is None else mask.float())
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled()
+    for i in range(0, s, c):
+        args = (x[:, i:i + c], head, labels[:, i:i + c], mask[:, i:i + c])
+        nll, n = checkpoint(_chunk_ce, *args, use_reentrant=False) \
+            if remat else _chunk_ce(*args)
+        total = total + nll
+        count = count + n
+    return total / count.clamp_min(1.0), count

@@ -11,9 +11,9 @@
   rwkv    [time-mix + channel-mix] x L           (rwkv6)
   hybrid  mamba2 stacks + shared attn block      (zamba2)
 
-``LM`` is an ``nn.Module`` that holds its parameters (inference only:
-none requires a gradient) under the reference's names, block ``i`` of
-the reference's stacked ``blocks`` tree being ``blocks.i``: the moe
+``LM`` is an ``nn.Module`` that holds its parameters (none requires a
+gradient until ``layers.trainable``) under the reference's names, block
+``i`` of the reference's stacked ``blocks`` tree being ``blocks.i``: the moe
 family's ``blocks.i`` (``moe_every`` 1) or ``dense_blocks.i`` and
 ``moe_blocks.i`` (``moe_every`` 2, layer 2i dense with ``d_ff_dense``
 and 2i+1 MoE); the vlm family's ``self_blocks`` (``[n_cross, per_group,
@@ -22,7 +22,10 @@ and 2i+1 MoE); the vlm family's ``self_blocks`` (``[n_cross, per_group,
 ``embed``; the hybrid family's ``mamba_groups`` are ``mamba_groups.g.j``,
 its ``mamba_tail`` is ``mamba_tail.i`` and its ``shared_attn`` one
 ``DenseBlock`` (``models.convert`` carries a JAX parameter tree across).
-Training waits for a later slice (ROADMAP.md, queue 1).
+``loss`` is the training objective (``layers.trainable`` makes the
+parameters require grad); ``_backbone`` wraps each block's body in
+``transformer.remat`` under ``cfg.remat_policy``, where the reference
+wraps its scan body.
 
 Caches are stacked along leading axes as in the reference
 (``KVCache`` with ``k [L, B, S, H, Dh]``, and the int8 cache's scales
@@ -120,6 +123,7 @@ class LM(torch.nn.Module):
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
+    @torch.no_grad()
     def init(self, generator: torch.Generator) -> "LM":
         """Random initialisation from ``generator`` (on the model's
         device), with the reference's distributions: truncated normals
@@ -176,36 +180,56 @@ class LM(torch.nn.Module):
         source."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def wrap(body):
+            return tf.remat(body, cfg.remat_policy)
+
+        @wrap
+        def dense(x, blk):
+            return tf.dense_block(blk, cfg, x, positions)[0]
+
         if cfg.family in ("dense", "audio"):
             for blk in self.blocks:
-                x, _ = tf.dense_block(blk, cfg, x, positions)
+                x = dense(x, blk)
         elif cfg.family == "moe":
             auxs = []
             if cfg.moe_every == 1:
+                @wrap
+                def body(x, blk):
+                    y, _, a = tf.moe_block(blk, cfg, x, positions)
+                    return y, a
                 for blk in self.blocks:
-                    x, _, a = tf.moe_block(blk, cfg, x, positions)
+                    x, a = body(x, blk)
                     auxs.append(a)
             else:
+                @wrap
+                def body(x, dblk, mblk):
+                    y, _ = tf.dense_block(dblk, cfg, x, positions)
+                    y, _, a = tf.moe_block(mblk, cfg, y, positions)
+                    return y, a
                 for dblk, mblk in zip(self.dense_blocks, self.moe_blocks):
-                    x, _ = tf.dense_block(dblk, cfg, x, positions)
-                    x, _, a = tf.moe_block(mblk, cfg, x, positions)
+                    x, a = body(x, dblk, mblk)
                     auxs.append(a)
             aux = torch.stack(auxs).mean()
         elif cfg.family == "vlm":
             img = batch["img"].to(x.dtype)
             for selfs, cross in zip(self.self_blocks, self.cross_blocks):
                 for blk in selfs:
-                    x, _ = tf.dense_block(blk, cfg, x, positions)
+                    x = dense(x, blk)
                 x = tf.cross_block(cross, cfg, x, img, positions)
         elif cfg.family == "rwkv":
-            for blk in self.blocks:
+            @wrap
+            def body(x, blk):
                 h, _, _ = rwkv_mod.time_mix_forward(
                     blk.time, cfg, layers.rmsnorm(x, blk.ln1, cfg.norm_eps))
                 y = x + h
                 h2, _ = rwkv_mod.channel_mix_forward(
                     blk.chan, cfg, layers.rmsnorm(y, blk.ln2, cfg.norm_eps))
-                x = y + h2
+                return y + h2
+            for blk in self.blocks:
+                x = body(x, blk)
         else:
+            @wrap
             def mamba(x, blk):
                 h, _ = ssm_mod.mamba2_forward(
                     blk.ssm, cfg, layers.rmsnorm(x, blk.ln, cfg.norm_eps))
@@ -217,6 +241,32 @@ class LM(torch.nn.Module):
             for blk in getattr(self, "mamba_tail", ()):
                 x = mamba(x, blk)
         return x, aux
+
+    # ------------------------------------------------------------------
+    # loss (training step objective)
+    # ------------------------------------------------------------------
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training objective (``repro/models/lm.py:211-229``): the
+        cross-entropy of ``batch["labels"]`` (over ``batch["loss_mask"]``
+        where given; chunked over the sequence with ``cfg.ce_chunk``) plus
+        0.01 times the MoE load-balance loss.  Returns (total, {"ce",
+        "aux", "tokens"}), all float32."""
+        cfg = self.cfg
+        x = self._embed(batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = self._backbone(x, positions, batch)
+        x = layers.rmsnorm(x, self.ln_f, cfg.norm_eps)
+        mask = batch.get("loss_mask")
+        if cfg.ce_chunk:
+            head = self.embed.T if cfg.tie_embeddings else self.lm_head
+            ce, count = layers.chunked_cross_entropy(
+                x, head, batch["labels"], cfg.ce_chunk, mask)
+        else:
+            ce, count = layers.softmax_cross_entropy(
+                self._unembed(x), batch["labels"], mask)
+        total = ce + 0.01 * aux
+        return total, {"ce": ce, "aux": aux, "tokens": count}
 
     # ------------------------------------------------------------------
     # caches

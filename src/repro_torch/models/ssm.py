@@ -170,10 +170,16 @@ def ssd_chunked(xh: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     # intra-chunk: y[t] = sum_{u<=t} (C_t . B_u) exp(cum_t - cum_u) dt_u x_u
     tri = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
     ch = cum.permute(0, 1, 3, 2)                             # [b,c,h,q]
-    w = (ch[..., :, None] - ch[..., None, :]).masked_fill_(
-        ~tri, float("-inf")).exp_()                          # [b,c,h,t,u]
+    # in place where nothing is differentiated (the largest tensor of the
+    # scan); the same values out of place under autograd
+    w = ch[..., :, None] - ch[..., None, :]                  # [b,c,h,t,u]
     cb = torch.einsum("bctn,bcun->bctu", Cc, Bc)             # [b,c,t,u]
-    w.mul_(cb[:, :, None]).mul_(dtc.permute(0, 1, 3, 2)[..., None, :])
+    dtu = dtc.permute(0, 1, 3, 2)[..., None, :]
+    if torch.is_grad_enabled():
+        w = w.masked_fill(~tri, float("-inf")).exp() * cb[:, :, None] * dtu
+    else:
+        w.masked_fill_(~tri, float("-inf")).exp_()
+        w.mul_(cb[:, :, None]).mul_(dtu)
     y = torch.matmul(w, x.permute(0, 1, 3, 2, 4))           # [b,c,h,t,p]
     del w
     # each chunk's own state increment: sum_u exp(cum_last - cum_u) dt_u

@@ -3,13 +3,18 @@
 
 The reference stacks each block's parameters along a leading layer axis
 and scans over it; here a stack is an ``nn.ModuleList`` of blocks
-(``stack_init``), walked by a Python loop in ``models.lm``.
+(``stack_init``), walked by a Python loop in ``models.lm``.  ``remat``
+wraps a block's body for training as the reference's ``_remat`` wraps
+its scan body (``cfg.remat_policy``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as attn_mod
 from . import layers, moe as moe_mod, rwkv as rwkv_mod, ssm as ssm_mod
@@ -19,6 +24,38 @@ from .config import ModelConfig
 def stack_init(n: int, make: Callable[[], torch.nn.Module]
                ) -> torch.nn.ModuleList:
     return torch.nn.ModuleList(make() for _ in range(n))
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of matrix products without batch axes (``x @ w``
+    reaches autograd as ``mm``), recompute everything else: the
+    counterpart of ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``."""
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under ``policy``, as ``repro/models/transformer.py:22-28``:
+    ``"nothing"`` saves every activation; ``"dots"`` saves the matrix
+    products' outputs and recomputes the rest in the backward; any other
+    policy (``"full"``) saves only the block's inputs and recomputes the
+    block.  The numbers are the same under every policy; without grad
+    ``fn`` runs as it is."""
+    if policy == "nothing":
+        return fn
+    kw = {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)} \
+        if policy == "dots" else {}
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
 
 
 class DenseBlock(torch.nn.Module):

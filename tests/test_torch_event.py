@@ -10,8 +10,8 @@
 * the committed goldens of ``chip_smoke.py``'s phase 8 describe its runs.
 
 Run ``python tests/test_torch_event.py --write-golden`` to regenerate
-``src/repro_torch/golden/event_h600.json`` (the JAX event engine, vmapped
-over 8 seeds, Fig. 6's setting at MPL 25 to horizon 600, each protocol)
+``src/repro_torch/golden/event_h550.json`` (the JAX event engine, vmapped
+over 8 seeds, Fig. 6's setting at MPL 25 to horizon 550, each protocol)
 and ``simulate_h1000.json`` (``jaxsim.simulate`` in cohort mode, the same
 setting to horizon 1,000), about a minute of CPU.
 """
@@ -40,12 +40,12 @@ GOLDEN_DIR = Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
 # chip_smoke.py's phase 8: Fig. 6's setting (100 items, 8 +- 4 ops, write
 # probability 0.2, 4 CPUs, 8 disks) at MPL 25
 PHASE8_FIG, PHASE8_MPL = 6, 25
-# the event engine's horizon is cut to 600: at 3,000 its three runs took
-# 298.7 s of the chip script's wall on the card, at 1,000 152-188 s (the
-# host's dispatch of some 3,400 small kernels an event); 600 is the
-# shortest of 400, 500 and 600 at which every lane of every protocol
-# commits (at 400 and 500 some commit nothing)
-EVENT_HORIZON, EVENT_SEEDS = 600.0, tuple(range(8))
+# the event engine's horizon is cut to 550: at 3,000 its three runs took
+# 298.7 s of the chip script's wall on the card, at 1,000 152-188 s, at
+# 600 45.7-58.2 s (the host's dispatch of some 3,400 small kernels an
+# event); 550 is the shortest of 400, 450, 500, 550 and 600 at which every
+# lane of every protocol commits (at 400, 450 and 500 some commit nothing)
+EVENT_HORIZON, EVENT_SEEDS = 550.0, tuple(range(8))
 SIMULATE_HORIZON = 1000.0
 EVENT_METRICS = ("commits", "aborts", "blocks", "ops_done", "iters", "now")
 SIMULATE_METRICS = ("commits", "aborts", "blocks", "ops_executed",

@@ -951,6 +951,173 @@ def test_flash_rejects_what_it_does_not_take(cuda):
         kflash.flash_attention(q.transpose(2, 3), q, q)
 
 
+# flash attention's backward: the CUDA-core kernel against its plain
+# version (explicit formulas, float32 inside) on the same forward output and
+# logsumexp; float32 within 1e-4, bf16 within 2e-2 of the largest
+# magnitude (at least 1): the outputs round to bf16 after float32 sums
+# taken in another order
+FLASH_BWD_SHAPES = [
+    (2, 4, 4, 128, 128, 64), (1, 8, 4, 100, 100, 16), (1, 8, 2, 130, 130, 128),
+    (2, 6, 3, 70, 130, 32), (1, 2, 2, 1, 1, 256), (1, 4, 2, 300, 200, 128),
+    (2, 16, 16, 300, 300, 80), (1, 4, 1, 200, 200, 256)]
+
+
+def _close_bf16_aware(got, want, dtype):
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        return
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= 2e-2 * scale, f"max abs err {err} > 2e-2 x {scale}"
+
+
+def _flash_bwd_case(gen, b, hq, hkv, s, t, d, dtype, causal, window, dev):
+    from repro_torch.kernels import flash_attention as kflash
+    q, k, v = _flash_inputs(gen, b, hq, hkv, s, t, d, dtype, dev,
+                            strided=True)
+    kw = dict(causal=causal, window=window)
+    out, lse = kflash.flash_attention(q, k, v, return_lse=True, **kw)
+    # dO as autograd hands it back: a [B, H, S, D] view of [B, S, H, D]
+    dout = torch.randn((b, s, hq, d), generator=gen).to(dtype).to(dev) \
+        .transpose(1, 2)
+    return q, k, v, out, lse, dout, kw
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,d", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 32),
+                                           (False, 32)])
+def test_flash_bwd_kernel_matches_plain(cuda, b, hq, hkv, s, t, d, dtype,
+                                        causal, window):
+    from repro_torch.kernels import flash_attention as kflash
+    gen = torch.Generator().manual_seed(s * t + d + 7)
+    q, k, v, out, lse, dout, kw = _flash_bwd_case(
+        gen, b, hq, hkv, s, t, d, dtype, causal, window, cuda)
+    _, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    got = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    torch.testing.assert_close(lse[finite], want_lse[finite],
+                               atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        assert g.stride() == x.stride()          # the layout of q, k, v
+        _close_bf16_aware(g, w, dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window", [
+    (8, 16, 8, 1024, 1024, 128, True, 0),         # qwen3-0.6b's training call
+    (1, 32, 32, 8192, 8192, 64, True, 4096),      # zamba2-1.2b's window
+    (8, 16, 16, 1024, 1024, 80, False, 0),        # hubert-xlarge
+    (8, 32, 16, 1024, 1601, 128, False, 0)])      # llama-3.2-vision's cross
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_at_the_models_shapes(cuda, b, hq, hkv, sq, sk, d, causal,
+                                        window, dtype):
+    """The backward at the models' training calls, the plain version run
+    one batch row and one KV head (with its query heads) at a time so that
+    its score tensors fit the card."""
+    from repro_torch.kernels import flash_attention as kflash
+    gen = torch.Generator().manual_seed(sq + sk + d)
+    q, k, v, out, lse, dout, kw = _flash_bwd_case(
+        gen, b, hq, hkv, sq, sk, d, dtype, causal, window, cuda)
+    got = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    g = hq // hkv
+    want = [torch.empty_like(t) for t in (q, k, v)]
+    for i in range(b):
+        for h in range(hkv):
+            qs = slice(h * g, (h + 1) * g)
+            part = ref.flash_attention_bwd_ref(
+                q[i:i + 1, qs], k[i:i + 1, h:h + 1], v[i:i + 1, h:h + 1],
+                out[i:i + 1, qs], lse[i:i + 1, qs], dout[i:i + 1, qs], **kw)
+            want[0][i:i + 1, qs] = part[0]
+            want[1][i:i + 1, h:h + 1] = part[1]
+            want[2][i:i + 1, h:h + 1] = part[2]
+    torch.cuda.synchronize()
+    for x, w in zip(got, want):
+        _close_bf16_aware(x, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_is_deterministic(cuda, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    from repro_torch.kernels import flash_attention as kflash
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, out, lse, dout, kw = _flash_bwd_case(
+        gen, 2, 8, 2, 300, 300, 128, dtype, True, 0, cuda)
+    a = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    b = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_bit_equal_with_and_without_lse(cuda, dtype):
+    """Asking for the logsumexp leaves the output's bits as they were (the
+    prefill calls the forward without it)."""
+    from repro_torch.kernels import flash_attention as kflash
+    gen = torch.Generator().manual_seed(5)
+    for (b, hq, hkv, s, t, d), (causal, window) in zip(
+            FLASH_BWD_SHAPES, [(True, 0), (False, 0), (True, 32)] * 3):
+        q, k, v = _flash_inputs(gen, b, hq, hkv, s, t, d, dtype, cuda,
+                                strided=True)
+        plain = kflash.flash_attention(q, k, v, causal=causal, window=window)
+        out, lse = kflash.flash_attention(q, k, v, causal=causal,
+                                          window=window, return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(plain, out) and lse.shape == (b, hq, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_the_card(cuda, dtype):
+    """``ops.flash_attention`` under autograd on CUDA tensors: one forward
+    launch on the dtype's route and one backward launch, with the plain
+    versions' gradients."""
+    from repro_torch.kernels import flash_attention as kflash
+    gen = torch.Generator().manual_seed(11)
+    q, k, v = (t.detach().requires_grad_() for t in _flash_inputs(
+        gen, 2, 8, 4, 150, 150, 64, dtype, cuda, strided=False))
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=True, window=0)
+    dout = torch.randn(out.shape, generator=gen).to(dtype).to(cuda)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    counts = ops.launch_counts()
+    assert counts[kflash.ROUTES[dtype]] == 1 and counts[kflash.BWD] == 1
+    o2, lse = ref.flash_attention_ref(q.detach(), k.detach(), v.detach(),
+                                      return_lse=True)
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       o2, lse, dout)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _close_bf16_aware(g, w, dtype)
+
+
+def test_flash_bwd_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as kflash
+    q = torch.zeros((1, 4, 8, 16), device=cuda)
+    lse = torch.zeros((1, 4, 8), device=cuda)
+    with pytest.raises(ValueError):                  # lse of another shape
+        kflash.flash_attention_bwd(q, q, q, q, q, lse[:, :, :4])
+    with pytest.raises(ValueError):                  # out in another dtype
+        kflash.flash_attention_bwd(q, q, q, q.bfloat16(), q, lse)
+    with pytest.raises(ValueError):                  # D above 256
+        big = torch.zeros((1, 1, 4, 264), device=cuda)
+        kflash.flash_attention_bwd(big, big, big, big, big, lse[:, :1, :4])
+
+
+def test_wkv_chunked_raises_under_grad_on_the_card(cuda):
+    """No backward kernel for the WKV yet: under autograd on a CUDA tensor
+    ``ops.wkv_chunked`` raises rather than run its plain version."""
+    gen = torch.Generator().manual_seed(0)
+    r, k, v, lw, u = _wkv_inputs(gen, 1, 2, 64, 16, torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.wkv_chunked(r.requires_grad_(), k, v, lw, u, chunk=16)
+    with torch.no_grad():
+        ops.wkv_chunked(r, k, v, lw, u, chunk=16)
+
+
 def _wkv_inputs(gen, b, h, s, d, dtype, dev):
     r, k, v = ((torch.randn((b, s, h, d), generator=gen) * 0.5).to(dtype)
                .to(dev).transpose(1, 2) for _ in range(3))
@@ -1264,3 +1431,71 @@ def test_moe_on_the_card_is_deterministic(cuda):
     y2, a2 = tmoe.moe_apply(m, cfg, x)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2) and torch.equal(a1, a2)
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the train step through flash's forward and backward
+# kernels against the plain versions on the CPU
+
+@pytest.mark.parametrize("arch", ["qwen3_0p6b", "zamba2_1p2b", "dbrx_132b",
+                                  "llama3p2_vision_11b", "hubert_xlarge"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke model in float32: ``LM.loss``, its gradients and two AdamW
+    steps on the card (flash's CUDA-core forward and its backward kernel,
+    one of each per attention layer and pass) against the CPU, the
+    losses and gradient norms within 1e-4, each gradient within 1e-4 of
+    its largest magnitude."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import LM, layers
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw
+    cfg = configs.get_smoke(arch).with_(param_dtype="float32",
+                                        compute_dtype="float32")
+    cpu = layers.trainable(LM(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)))
+    gpu = layers.trainable(LM(cfg, device=cuda))
+    gpu.load_state_dict(cpu.state_dict())
+    data = pipeline.SyntheticLM(cfg, ShapeSpec("t", 64, 2, "train"), seed=2)
+    host = data.host_batch()
+    ops.reset_launches()
+    lg, mg, gg = steps.loss_and_grads(gpu, pipeline.to_device(host, cuda))
+    counts = ops.launch_counts()
+    n_attn = cfg.n_layers // cfg.hybrid_attn_every \
+        if cfg.family == "hybrid" else cfg.n_layers
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] \
+        == n_attn, counts
+    lc, mc, gc = steps.loss_and_grads(cpu, pipeline.to_device(host, "cpu"))
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    for k, v in gc.items():
+        scale = max(1e-6, float(v.abs().max()))
+        assert float((gg[k].cpu() - v).abs().max()) <= 1e-4 * scale, k
+    out = {}
+    for name, lm, dev in (("gpu", gpu, cuda), ("cpu", cpu, "cpu")):
+        step = steps.make_train_step(lm, adamw.AdamWConfig(peak_lr=1e-3,
+                                                           warmup_steps=1))
+        opt = adamw.init(dict(lm.named_parameters()))
+        ms = []
+        for i in range(2):
+            lm, opt, m = step(lm, opt, pipeline.to_device(
+                data.host_batch(step=i), dev))
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        out[name] = ms
+    np.testing.assert_allclose(out["gpu"], out["cpu"], rtol=1e-4)
+
+
+def test_rwkv_training_raises_on_the_card(cuda):
+    """The WKV kernel has no backward yet: rwkv's loss under autograd on the
+    card raises (ROADMAP.md), and runs without grad."""
+    from repro_torch import configs
+    from repro_torch.models import LM, layers
+    cfg = configs.get_smoke("rwkv6_3b")
+    lm = LM(cfg, device=cuda).init(torch.Generator(cuda).manual_seed(0))
+    tok = torch.randint(0, cfg.vocab, (2, 64), device=cuda)
+    batch = {"tokens": tok, "labels": tok}
+    with torch.no_grad():
+        assert torch.isfinite(lm.loss(batch)[0])
+    layers.trainable(lm)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm.loss(batch)
