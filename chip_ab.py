@@ -50,16 +50,24 @@ of its main-path shape (B = 8, H = 16, S = 1,024, D = 128, causal) by
 alone on random inputs of the rwkv6-3b prefill's shape and layout (B =
 8, H = 48, S = 1,024, D = 64, chunk 128, bf16 r/k/v as [B, H, S, D]
 views of [B, S, H*D] tensors, log w = -exp(.), float32) the same way;
-and the bf16 prefill of rwkv6-3b at full depth on 8 x 1,024 tokens.
-Each run prints one JSON line; the last lines are the card's name and
-power limit and a summary of medians per checkout.  The script imports
-nothing of JAX and nothing of the JAX package.
+the bf16 prefill of rwkv6-3b at full depth on 8 x 1,024 tokens; flash's
+bf16 backward alone at qwen3-0.6b's training call (B = 8, Hq = Hkv = 16
+after the model repeats its KV heads, S = 1,024, D = 128, causal), its
+inputs made as phase 11 makes them, by ``cuda_times`` after a device
+sleep and back to back; and the wall of one full-depth qwen3-0.6b
+training step on 8 x 1,024 tokens (``launch.train.build``'s step on one
+fixed batch, bf16 with float32 AdamW state, the median of 5 steps after
+2 warm-up steps) with its tokens/s.  Each run prints one JSON line;
+the last lines are the card's name and power limit and a summary of
+medians per checkout.  The script imports nothing of JAX and nothing of
+the JAX package.
 """
 import inspect
 import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import chip_smoke as smoke
@@ -81,8 +89,10 @@ def measure(root: Path) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import scan as kscan
     from repro_torch.kernels import wkv as kwkv
-    from repro_torch.launch import steps
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps, train
     from repro_torch.models import LM
+    from repro_torch.models.config import ShapeSpec
     from repro_torch.sched import workload as W
 
     dev = torch.device("cuda")
@@ -250,6 +260,52 @@ def measure(root: Path) -> dict:
     prefill = steps.make_prefill_step(lm)
     out["rwkv6_prefill_ms"] = smoke.median_wall_ms(
         lambda: prefill({"tokens": tok}), 5, torch)
+    del lm, prefill, tok
+    torch.cuda.empty_cache()
+
+    # flash's bf16 backward alone at qwen3-0.6b's training call, its inputs
+    # made as phase 11 makes them
+    b, hq, hkv, sq, sk, d, causal, window = dict(smoke.BWD_SHAPES)[
+        "qwen3-0.6b training"]
+    bgen = torch.Generator(dev).manual_seed(24)
+
+    def rnd(h, n):
+        return torch.randn((b, n, h, d), generator=bgen, device=dev,
+                           dtype=torch.float32).bfloat16().transpose(1, 2)
+    q, k, v, dout = rnd(hq, sq), rnd(hkv, sk), rnd(hkv, sk), rnd(hq, sq)
+    kw = dict(causal=causal, window=window)
+    o, lse = kflash.flash_attention(q, k, v, return_lse=True, **kw)
+
+    def bwd():
+        kflash.flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+    out["flash_bwd_bf16_ms"] = smoke.cuda_times(bwd, 20, torch)
+    out["flash_bwd_bf16_ms_no_sleep"] = smoke.cuda_times(bwd, 20, torch,
+                                                         sleep=False)
+    del q, k, v, dout, o, lse
+    torch.cuda.empty_cache()
+
+    # one full-depth qwen3-0.6b training step on 8 x 1,024 tokens
+    cfg = configs.get("qwen3_0p6b")
+    loop, _ = train.build(cfg, batch=smoke.TRAIN_B, seq=smoke.TRAIN_S,
+                          lr=1e-3, steps=smoke.TRAIN_STEPS, device=dev,
+                          ckpt_every=0)
+    batch = pipeline.to_device(pipeline.SyntheticLM(
+        cfg, ShapeSpec("cli", smoke.TRAIN_S, smoke.TRAIN_B, "train"),
+        seed=0).host_batch(step=0), dev)
+    state = list(loop.init_state()[:2])
+    for _ in range(2):
+        state[:] = loop.train_step(*state, batch)[:2]
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state[:] = loop.train_step(*state, batch)[:2]
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["train_step_ms"] = statistics.median(walls)
+    out["train_tokens_per_s"] = \
+        smoke.TRAIN_B * smoke.TRAIN_S / out["train_step_ms"] * 1e3
+    out["train_step_walls_ms"] = walls
     return out
 
 

@@ -332,7 +332,12 @@ TRAIN_GOLDEN = SRC / "repro_torch" / "golden" / "train_full_width.json"
 # phase 11: flash's forward with lse and its backward against their plain
 # versions at these calls (B, Hq, Hkv, Sq, Sk, D, causal, window), both
 # dtypes; qwen3-0.6b's training call is the main path's: its 8 KV heads
-# are repeated to 16 before flash (models/attention.py, kv_repeat = 2)
+# are repeated to 16 before flash (models/attention.py, kv_repeat = 2).
+# bf16 runs the backward on the tensor cores up to D = 128 and on its
+# CUDA-core route at D = 256; the BWD_STAGED calls hand q, k, v and dO over
+# one element off a 16-byte boundary, which TMA refuses (the producer
+# stages them); the cross call with a window and Sq > Sk has rows whose
+# every key is masked, whose gradients must be 0, not NaN
 BWD_SHAPES = [
     ("qwen3-0.6b training", (8, 16, 16, 1024, 1024, 128, True, 0)),
     ("GQA g=2", (2, 16, 8, 1024, 1024, 128, True, 0)),
@@ -343,7 +348,16 @@ BWD_SHAPES = [
     ("S off the tiles", (2, 8, 2, 1000, 1000, 64, True, 0)),
     ("g=1 D=256", (2, 4, 4, 300, 300, 256, True, 0)),
     ("D=256 window", (1, 8, 2, 333, 333, 256, True, 100)),
+    ("odd-offset base, producer-staged", (2, 16, 8, 1000, 1000, 128, True,
+                                          0)),
+    ("cross window Sq > Sk, masked rows", (2, 8, 4, 300, 200, 128, True,
+                                           32)),
 ]
+BWD_STAGED = {"odd-offset base, producer-staged"}
+# the backward's device kernels by name, on every route (the profile's
+# share of a training step)
+BWD_KERNELS = ("tc::prep_kernel", "dkdv_tc_kernel", "dq_tc_kernel",
+               "delta_kernel", "dkdv_kernel", "dq_kernel")
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 8      # the full-depth run
 RESTART_B, RESTART_S, RESTART_STEPS = 4, 512, 8  # the restart check
 RESTART_EVERY, RESTART_FAIL_AT = 3, 4
@@ -1942,6 +1956,16 @@ def fwd_lse_err(got, want, dtype, torch) -> tuple:
             float(d_l.max()) if d_l.numel() else 0.0)
 
 
+def misaligned(x, torch):
+    """The values of ``x`` (a ``[B, H, S, D]`` view of ``[B, S, H, D]``)
+    in the same view one element into a buffer: a base off 16 bytes."""
+    b, h, s, d = x.shape
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(b, s, h, d).transpose(1, 2)
+    y.copy_(x)
+    return y
+
+
 def bwd_err(got, want, dtype, torch) -> float:
     """The largest error of ``got`` against ``want`` over dq, dk, dv; fails
     past the tolerance: float32 1e-4 absolute and relative element by
@@ -1986,7 +2010,7 @@ def train_phase(torch, dev, smi, cuda_ms):
     # ---- (1) the forward's lse and the backward against their plain
     # versions, both dtypes
     gen = torch.Generator(dev).manual_seed(24)
-    errs, f_errs, timed = {}, {}, {}
+    errs, f_errs, timed, routes, n_masked = {}, {}, {}, {}, {}
     for label, (b, hq, hkv, sq, sk, d, causal, window) in BWD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             def rnd(h, n):
@@ -1995,6 +2019,11 @@ def train_phase(torch, dev, smi, cuda_ms):
                     .transpose(1, 2)
             q, k, v, dout = rnd(hq, sq), rnd(hkv, sk), rnd(hkv, sk), \
                 rnd(hq, sq)
+            if label in BWD_STAGED:
+                q, k, v, dout = (misaligned(x, torch) for x in (q, k, v,
+                                                                dout))
+                if kflash.tma_strides(dout)[1]:
+                    fail(f"[11] {label}: TMA would take dO")
             kw = dict(causal=causal, window=window)
             out, lse = kflash.flash_attention(q, k, v, return_lse=True, **kw)
             e = fwd_lse_err((out, lse), flash_ref_pieces(
@@ -2007,14 +2036,29 @@ def train_phase(torch, dev, smi, cuda_ms):
                     out, kflash.flash_attention(q, k, v, **kw)):
                 fail(f"[11] flash_attention's output with lse differs from "
                      f"its output without at {label}, {dtype}")
+            route = kflash.bwd_route(dtype, d)
+            before = ops.launch_counts()
             got = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             want = flash_bwd_ref_pieces(q, k, v, out, lse, dout, torch, **kw)
             again = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
             torch.cuda.synchronize()
+            ran = {k_: n - before[k_] for k_, n in ops.launch_counts().items()
+                   if n != before[k_] and k_.startswith(kflash.BWD)}
+            if ran != {route: 2}:
+                fail(f"[11] flash_attention_bwd at {label}, {dtype} launched "
+                     f"{ran}, expected two on {route}")
+            routes[label, str(dtype)[6:]] = route
             e = bwd_err(got, want, dtype, torch)
             if e == float("inf"):
                 fail(f"[11] flash_attention_bwd differs from its plain "
                      f"version at {label}, {dtype}")
+            masked = ~torch.isfinite(lse)
+            if not all(bool(torch.isfinite(x).all()) for x in got) or \
+                    bool((got[0][masked] != 0).any()):
+                fail(f"[11] flash_attention_bwd at {label}, {dtype}: a "
+                     f"gradient is not finite or a wholly masked row's dq "
+                     f"is not 0")
+            n_masked[label] = int(masked.sum())
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 fail(f"[11] flash_attention_bwd is not deterministic at "
                      f"{label}, {dtype}")
@@ -2034,8 +2078,10 @@ def train_phase(torch, dev, smi, cuda_ms):
     log(f"[11] flash_attention_bwd within tolerance of its plain version "
         f"(float32 1e-4 per element, bf16 2e-2 of the largest magnitude) "
         f"and bit-equal between two runs, dq/dk/dv in the layouts of q/k/v, "
-        f"at " + "; ".join(f"{lb} {dt} (max abs err {e:.3g})"
-                           for (lb, dt), e in errs.items()))
+        f"every gradient finite and dq 0 on the wholly masked rows "
+        f"({ {lb: n for lb, n in n_masked.items() if n} }), at "
+        + "; ".join(f"{lb} {dt} on {routes[lb, dt]} (max abs err {e:.3g})"
+                    for (lb, dt), e in errs.items()))
     # its time at qwen3's training shape beside its bound and SDPA's
     b, hq, hkv, sq, sk, d, causal, window = dict(BWD_SHAPES)[
         "qwen3-0.6b training"]
@@ -2047,8 +2093,8 @@ def train_phase(torch, dev, smi, cuda_ms):
         # q, O, dO read and dq written; k, v read and dk, dv written; lse
         nbytes = (4 * b * hq * sq * d + 4 * b * hkv * sk * d) * esz \
             + 4 * b * hq * sq
-        # the card's peak for the dtype: bf16 on the tensor cores, float32
-        # outside them (the kernel runs both on the CUDA cores)
+        # the card's peak for the dtype: bf16 on the tensor cores (its
+        # route at D = 128), float32 outside them
         peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
         t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
         ms = cuda_ms(lambda: kflash.flash_attention_bwd(
@@ -2062,7 +2108,8 @@ def train_phase(torch, dev, smi, cuda_ms):
             sdpa, (qx, kx, vx), dout, retain_graph=True), 10)
         times[dtype] = (ms, plain, lib, max(t_b, t_o) * 1e3,
                         "bytes" if t_b >= t_o else "operations", nbytes)
-        log(f"[11] flash_attention_bwd at B={b} Hq={hq} Hkv={hkv} S={sq} "
+        log(f"[11] flash_attention_bwd ({kflash.bwd_route(dtype, d)}) at "
+            f"B={b} Hq={hq} Hkv={hkv} S={sq} "
             f"D={d} {str(dtype)[6:]} causal: {ms:.4f} ms (plain "
             f"{plain:.4f} ms over pieces; SDPA's backward {lib:.4f} ms, "
             f"is_causal; bound {times[dtype][3]:.5f} ms by "
@@ -2107,10 +2154,10 @@ def train_phase(torch, dev, smi, cuda_ms):
                      f"{rel:.3g} > {rtol})")
     n_fwd = TG.LAYERS * (TG.STEPS + 1)
     if counts["flash_attention"] != n_fwd or \
-            counts["flash_attention_bwd"] != n_fwd or \
-            counts["flash_attention_tc"]:
+            counts[kflash.BWD] != n_fwd or counts["flash_attention_tc"] or \
+            counts[kflash.BWD_TC] or counts[kflash.BWD_WIDE]:
         fail(f"[11] the float32 golden's flash launches {counts}, expected "
-             f"{n_fwd} CUDA-core forwards and {n_fwd} backwards")
+             f"{n_fwd} CUDA-core forwards and {n_fwd} CUDA-core backwards")
     log(f"[11] float32 train golden (qwen3-0.6b full width, {TG.LAYERS} "
         f"layers, {TG.B} x {TG.S}, loss and grads then {TG.STEPS} AdamW "
         f"steps) within {rtol} of {TRAIN_GOLDEN.name}: max rel err "
@@ -2156,14 +2203,15 @@ def train_phase(torch, dev, smi, cuda_ms):
     n_par = sum(p_.numel() for p_ in seen["lm"].parameters())
     L = cfg.n_layers
     want_counts = {"flash_attention_tc": L * TRAIN_STEPS,
-                   "flash_attention_bwd": L * TRAIN_STEPS,
-                   "flash_attention": 0, "wkv_chunked": 0}
+                   kflash.BWD_TC: L * TRAIN_STEPS, kflash.BWD: 0,
+                   kflash.BWD_WIDE: 0, "flash_attention": 0,
+                   "wkv_chunked": 0}
     if {k_: counts[k_] for k_ in want_counts} != want_counts or any(
             s_.get("flash_attention_tc") != L or
-            s_.get("flash_attention_bwd") != L for s_ in per_step):
+            s_.get(kflash.BWD_TC) != L for s_ in per_step):
         fail(f"[11] launches in training {counts} (per step {per_step}), "
              f"expected {want_counts}: {L} tensor-core forwards and {L} "
-             f"backwards a step, no wkv_chunked")
+             f"tensor-core backwards every step, no wkv_chunked")
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)) or \
             not losses[-1] < losses[0] or summary["bad_steps"]:
         fail(f"[11] qwen3-0.6b training: losses {losses}, summary {summary}: "
@@ -2175,8 +2223,8 @@ def train_phase(torch, dev, smi, cuda_ms):
         f"{TRAIN_STEPS} steps of launch.train's loop on one fixed batch of "
         f"{TRAIN_B} x {TRAIN_S} ({time.perf_counter() - t:.1f} s with the "
         f"init): losses {[round(x, 4) for x in losses]}, falling; launches "
-        f"{ {k_: counts[k_] for k_ in want_counts} } ({L} flash forwards on "
-        f"the tensor cores and {L} backwards a step, no wkv_chunked); step "
+        f"{ {k_: counts[k_] for k_ in want_counts} } ({L} flash forwards and "
+        f"{L} backwards on the tensor cores every step, no wkv_chunked); step "
         f"walls {[round(w * 1e3, 1) for w in walls]} ms, median of steps "
         f"1-{TRAIN_STEPS - 1} {med * 1e3:.2f} ms, "
         f"{TRAIN_B * TRAIN_S / med:.0f} tokens/s; peak device memory "
@@ -2222,11 +2270,17 @@ def train_phase(torch, dev, smi, cuda_ms):
 
     ms, plain, lib, bound, by, _ = times[torch.bfloat16]
     row = {"name": "flash_attention_bwd", "route": "cuda",
+           "kernel_route": f"{kflash.BWD_TC}: bf16 at D <= 128 on the tensor "
+                           f"cores (wgmma, TMA); {kflash.BWD_WIDE} (bf16, D > "
+                           f"128) and {kflash.BWD} (float32) on the CUDA "
+                           f"cores",
            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "no TPU kernel: XLA autodiff of "
                        "src/repro/models/attention.py:237 (_sdpa) in the "
                        "reference's training",
-           "launches": counts["flash_attention_bwd"],
+           "launches": counts[kflash.BWD_TC],
+           "launches_by_route": {r: counts[r] for r in (
+               kflash.BWD_TC, kflash.BWD_WIDE, kflash.BWD)},
            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
            "bound_ms": bound, "bound_by": by, "library_ms": lib,
            "library": "scaled_dot_product_attention backward",
@@ -2256,8 +2310,13 @@ def train_phase(torch, dev, smi, cuda_ms):
                 "(profiler saw no device time)")
             return
         bwd = sum(v_ for key, (v_, _) in per.items()
-                  if "dkdv_kernel" in key or "dq_kernel" in key
-                  or "delta_kernel" in key)
+                  if any(n_ in key for n_ in BWD_KERNELS))
+        if not bwd:
+            fail(f"[11] the training step's profile shows none of flash's "
+                 f"backward kernels {BWD_KERNELS}")
+        # the backward by kernel: ms a step and a launch
+        bwd_by = {n_: [sum(x[i] for key, x in per.items() if n_ in key)
+                       for i in (0, 1)] for n_ in BWD_KERNELS}
         fwd = sum(v_ for key, (v_, _) in per.items()
                   if "flash_tc_kernel" in key)
         # cuBLAS's products (sm90 xmma / nvjet / cutlass kernels) and the
@@ -2272,7 +2331,10 @@ def train_phase(torch, dev, smi, cuda_ms):
             f"{kernels:.0f} kernels) "
             f"over {med * 1e3:.3f} ms wall (unprofiled median): device busy "
             f"{100 * dev_ms / (med * 1e3):.1f}%; flash's backward "
-            f"{bwd:.3f} ms ({100 * bwd / dev_ms:.1f}% of the device time), "
+            f"{bwd:.3f} ms ({100 * bwd / dev_ms:.1f}% of the device time; "
+            + ", ".join(f"{n_} {ms_:.3f} ms, {ms_ / c_:.4f} a launch"
+                        for n_, (ms_, c_) in bwd_by.items() if c_)
+            + "), "
             f"its forward {fwd:.3f} ms, the matrix products {gemm:.3f} ms, "
             f"AdamW's foreach passes {adam:.3f} ms, the rest "
             f"{dev_ms - bwd - fwd - gemm - adam:.3f} ms; largest: "

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library under ``build/kernels/`` at the
 root of the checkout (listed in ``.gitignore``), then loaded with
-``ctypes``.  A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a current one is reused.
+``ctypes``.  A library's file name carries a hash of its source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or
+header is rebuilt and a current one is reused.
 ``build_all`` starts one ``nvcc`` per missing library, all at once, and
 waits for every one of them.  Nothing here runs at import time.
 """
@@ -44,12 +45,17 @@ def nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def target(name: str):
-    """(source, library path) of one kernel library."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD / f"{name}-{digest}.so"
+def target(name: str, csrc: Path = CSRC):
+    """(source, library path) of one kernel library.  The path's hash
+    covers the source, every header of ``csrc`` (``*.cuh``, which a
+    source may include) and the flags, so an edited header rebuilds the
+    libraries too."""
+    src = csrc / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return src, BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES) -> dict:

@@ -26,16 +26,24 @@ wholly masked row); without it the kernels write the output alone, as
 the prefill has always called them.
 
 ``flash_attention_bwd`` is the backward (``csrc/flash_attention_bwd.cu``,
-on the CUDA cores in both dtypes, float32 accumulation): from q, k, v,
-the forward's output and lse and the output's gradient it computes dq,
-dk, dv, deterministically (no atomics), dk and dv summed over each KV
-head's query heads; it replaces XLA's autodiff of the reference's
-attention, not a TPU kernel.  It reads strided inputs (``dout`` may come
-with any strides; only its last axis is made contiguous) and writes dq,
-dk, dv in the layouts of q, k, v (``torch.empty_like``), so the model's
-transposes cost no copy.  ``launches`` counts the launches of each
-forward route and of the backward (one count for its three device
-kernels), and nothing else.
+float32 accumulation): from q, k, v, the forward's output and lse and
+the output's gradient it computes dq, dk, dv, deterministically (no
+atomics), dk and dv summed over each KV head's query heads; it replaces
+XLA's autodiff of the reference's attention, not a TPU kernel.  Its
+route is picked by dtype and D in plain code (``bwd_route``), and no
+route stands in for another: bf16 at D <= 128 runs on the tensor cores
+(``flash_attention_bwd_tc``: wgmma, with q, k, v and dout brought in by
+TMA where all four pass ``tma_strides``, else staged by the kernels'
+producer warps); bf16 at 128 < D <= 256 on the CUDA cores
+(``flash_attention_bwd_wide``: a warpgroup's two 64 x D float32
+accumulators would not fit its registers, and no model has such a D);
+float32 on the CUDA cores (``flash_attention_bwd``), where the float32
+train golden holds it to 1e-4.  It reads strided inputs (``dout`` may
+come with any strides; only its last axis is made contiguous) and
+writes dq, dk, dv in the layouts of q, k, v (``torch.empty_like``), so
+the model's transposes cost no copy.  ``launches`` counts the launches
+of each forward route and of each backward route (one count for its
+three device kernels), and nothing else.
 """
 from __future__ import annotations
 
@@ -48,8 +56,11 @@ from . import build
 MAX_D = 256
 ROUTES = {torch.float32: "flash_attention",       # CUDA cores
           torch.bfloat16: "flash_attention_tc"}   # tensor cores
-BWD = "flash_attention_bwd"
-launches = {name: 0 for name in (*ROUTES.values(), BWD)}
+BWD = "flash_attention_bwd"              # float32: CUDA cores
+BWD_TC = "flash_attention_bwd_tc"        # bf16, D <= 128: tensor cores
+BWD_WIDE = "flash_attention_bwd_wide"    # bf16, D > 128: CUDA cores
+TC_BWD_MAX_D = 128
+launches = {name: 0 for name in (*ROUTES.values(), BWD, BWD_TC, BWD_WIDE)}
 
 _fns: dict = {}
 
@@ -155,10 +166,29 @@ def _bwd_launcher():
         fn = build.load(BWD).flash_attention_bwd_launch
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
+
+
+def bwd_route(dtype, d: int) -> str:
+    """The backward's route for q's dtype and head size D: bf16 on the
+    tensor cores up to ``TC_BWD_MAX_D``, on the CUDA cores above it;
+    float32 on the CUDA cores."""
+    if dtype == torch.bfloat16:
+        return BWD_TC if d <= TC_BWD_MAX_D else BWD_WIDE
+    return BWD
+
+
+def bwd_scratch_len(route: str, b: int, hq: int, sq: int) -> int:
+    """float32 elements of the backward's scratch: delta on the CUDA-core
+    routes; delta and lse * log2(e), rows padded to 64, on the tensor
+    cores."""
+    if route == BWD_TC:
+        return 2 * b * hq * (-(-sq // 64) * 64)
+    return b * hq * sq
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -166,7 +196,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     """One launch (three device kernels) -> ``(dq, dk, dv)`` in the dtypes
     and layouts of q, k, v: the gradients of ``flash_attention``'s output
     ``out`` (``[B, Hq, Sq, D]``, any strides) with row logsumexp ``lse``
-    (float32 ``[B, Hq, Sq]``) against the output gradient ``dout``."""
+    (float32 ``[B, Hq, Sq]``) against the output gradient ``dout``, on
+    ``bwd_route(q.dtype, D)``."""
     name = BWD
     _check(name, q, k, v)
     dev = q.device
@@ -184,19 +215,24 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if not (q.numel() and k.numel()):
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    route = bwd_route(q.dtype, d)
+    delta = torch.empty(bwd_scratch_len(route, b, hq, sq),
+                        dtype=torch.float32, device=dev)
     scale = float(sm_scale) if sm_scale is not None else d ** -0.5
-    strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, out, dout, dq,
-                                                      dk, dv)
-                                         for s in t.stride()[:3]))
+    views = [tma_strides(t) for t in (q, k, v, out, dout, dq, dk, dv)]
+    strides = (ctypes.c_longlong * 24)(*(s for st, _ in views for s in st))
+    tma = all(views[i][1] for i in (0, 1, 2, 4))     # q, k, v, dout
     rc = _bwd_launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                          delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                          dv.data_ptr(), b, hq, hkv, sq, sk, d, strides,
                          int(causal), int(window), scale,
                          int(q.dtype == torch.bfloat16),
+                         int(route == BWD_TC), int(tma),
                          torch.cuda.current_stream(dev).cuda_stream)
     if rc:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    launches[BWD] += 1
+        raise RuntimeError(f"{name} ({route}) launch failed: "
+                           + ("TMA descriptor encoding failed"
+                              if rc == -1 else f"cudaError {rc}"))
+    launches[route] += 1
     return dq, dk, dv

@@ -951,11 +951,13 @@ def test_flash_rejects_what_it_does_not_take(cuda):
         kflash.flash_attention(q.transpose(2, 3), q, q)
 
 
-# flash attention's backward: the CUDA-core kernel against its plain
-# version (explicit formulas, float32 inside) on the same forward output and
-# logsumexp; float32 within 1e-4, bf16 within 2e-2 of the largest
-# magnitude (at least 1): the outputs round to bf16 after float32 sums
-# taken in another order
+# flash attention's backward: each route (bf16 at D <= 128 on the tensor
+# cores, bf16 above on the CUDA cores, float32 on the CUDA cores) against
+# its plain version (explicit formulas, float32 inside) on the same forward
+# output and logsumexp; float32 within 1e-4, bf16 within 2e-2 of the
+# largest magnitude (at least 1): the outputs round to bf16 after float32
+# sums taken in another order, and the tensor-core route rounds P and dS
+# to bf16 for its products
 FLASH_BWD_SHAPES = [
     (2, 4, 4, 128, 128, 64), (1, 8, 4, 100, 100, 16), (1, 8, 2, 130, 130, 128),
     (2, 6, 3, 70, 130, 32), (1, 2, 2, 1, 1, 256), (1, 4, 2, 300, 200, 128),
@@ -1010,6 +1012,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, b, hq, hkv, s, t, d, dtype,
 
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window", [
     (8, 16, 8, 1024, 1024, 128, True, 0),         # qwen3-0.6b's training call
+    (8, 16, 16, 1024, 1024, 128, True, 0),        # ... as the model makes it
     (1, 32, 32, 8192, 8192, 64, True, 4096),      # zamba2-1.2b's window
     (8, 16, 16, 1024, 1024, 80, False, 0),        # hubert-xlarge
     (8, 32, 16, 1024, 1601, 128, False, 0)])      # llama-3.2-vision's cross
@@ -1018,12 +1021,14 @@ def test_flash_bwd_at_the_models_shapes(cuda, b, hq, hkv, sq, sk, d, causal,
                                         window, dtype):
     """The backward at the models' training calls, the plain version run
     one batch row and one KV head (with its query heads) at a time so that
-    its score tensors fit the card."""
+    its score tensors fit the card; one launch on the dtype's route."""
     from repro_torch.kernels import flash_attention as kflash
     gen = torch.Generator().manual_seed(sq + sk + d)
     q, k, v, out, lse, dout, kw = _flash_bwd_case(
         gen, b, hq, hkv, sq, sk, d, dtype, causal, window, cuda)
+    ops.reset_launches()
     got = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert _bwd_launches() == {kflash.bwd_route(dtype, d): 1}
     g = hq // hkv
     want = [torch.empty_like(t) for t in (q, k, v)]
     for i in range(b):
@@ -1038,6 +1043,103 @@ def test_flash_bwd_at_the_models_shapes(cuda, b, hq, hkv, sq, sk, d, causal,
     torch.cuda.synchronize()
     for x, w in zip(got, want):
         _close_bf16_aware(x, w, dtype)
+
+
+def _bwd_launches() -> dict:
+    """The backward's launches by route since the last reset."""
+    from repro_torch.kernels import flash_attention as kflash
+    counts = ops.launch_counts()
+    return {r: counts[r] for r in (kflash.BWD, kflash.BWD_TC, kflash.BWD_WIDE)
+            if counts[r]}
+
+
+def _misaligned(x):
+    """The same values as ``x`` (a ``[B, H, S, D]`` view of ``[B, S, H,
+    D]``) in a view one element into its buffer: a base off 16 bytes, which
+    TMA refuses."""
+    b, h, s, d = x.shape
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(b, s, h, d).transpose(1, 2)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("which", ["dout", "q, k, v and dout"])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal,window", [
+    (2, 4, 2, 300, 300, 128, True, 0), (1, 8, 8, 200, 200, 64, False, 0),
+    (1, 4, 2, 300, 200, 80, True, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_with_views_tma_refuses(cuda, which, b, hq, hkv, s, t, d,
+                                          causal, window, dtype):
+    """A base off 16 bytes (as autograd may hand ``dout`` over, and the
+    inputs too) goes to the producer's plain loads on the tensor-core
+    route: the same gradients as the aligned views, within the plain
+    version's tolerance."""
+    from repro_torch.kernels import flash_attention as kflash
+    gen = torch.Generator().manual_seed(s + t + d + 1)
+    q, k, v, out, lse, dout, kw = _flash_bwd_case(
+        gen, b, hq, hkv, s, t, d, dtype, causal, window, cuda)
+    if which == "dout":
+        mq, mk, mv = q, k, v
+    else:
+        mq, mk, mv = (_misaligned(x) for x in (q, k, v))
+    mdo = _misaligned(dout)
+    assert not kflash.tma_strides(mdo)[1]
+    ops.reset_launches()
+    got = kflash.flash_attention_bwd(mq, mk, mv, out, lse, mdo, **kw)
+    assert _bwd_launches() == {kflash.bwd_route(dtype, d): 1}
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    aligned = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for g, w, a, x in zip(got, want, aligned, (mq, mk, mv)):
+        assert g.stride() == x.stride()
+        _close_bf16_aware(g, w, dtype)
+        _close_bf16_aware(g, a, dtype)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_wholly_masked_rows(cuda, d, dtype):
+    """A window in a cross call with Sq > Sk: rows past Sk + window - 1
+    see no key (lse = -inf).  Their dq is exactly 0, every gradient is
+    finite, and the rest matches the plain version."""
+    from repro_torch.kernels import flash_attention as kflash
+    gen = torch.Generator().manual_seed(d + 3)
+    q, k, v, out, lse, dout, kw = _flash_bwd_case(
+        gen, 1, 4, 2, 300, 200, d, dtype, True, 32, cuda)
+    masked = ~torch.isfinite(lse)
+    assert int(masked[0, 0].sum()) == 300 - (200 + 32 - 1)
+    ops.reset_launches()
+    got = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert _bwd_launches() == {kflash.bwd_route(dtype, d): 1}
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert bool((got[0][masked] == 0).all())
+    for g, w in zip(got, want):
+        _close_bf16_aware(g, w, dtype)
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_route_by_dtype_and_d(cuda, d, dtype):
+    """bf16 runs on the tensor cores up to D = 128 and on its named
+    CUDA-core route above; float32 on the CUDA cores; each launch counted
+    under its route's name alone, and within its tolerance."""
+    from repro_torch.kernels import flash_attention as kflash
+    gen = torch.Generator().manual_seed(d + 17)
+    q, k, v, out, lse, dout, kw = _flash_bwd_case(
+        gen, 2, 4, 2, 200, 200, d, dtype, True, 0, cuda)
+    ops.reset_launches()
+    got = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    route = kflash.bwd_route(dtype, d)
+    assert route == (kflash.BWD if dtype == torch.float32 else
+                     kflash.BWD_TC if d <= 128 else kflash.BWD_WIDE)
+    assert _bwd_launches() == {route: 1}
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _close_bf16_aware(g, w, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1084,7 +1186,8 @@ def test_flash_autograd_on_the_card(cuda, dtype):
     dout = torch.randn(out.shape, generator=gen).to(dtype).to(cuda)
     got = torch.autograd.grad(out, (q, k, v), dout)
     counts = ops.launch_counts()
-    assert counts[kflash.ROUTES[dtype]] == 1 and counts[kflash.BWD] == 1
+    assert counts[kflash.ROUTES[dtype]] == 1
+    assert _bwd_launches() == {kflash.bwd_route(dtype, 64): 1}
     o2, lse = ref.flash_attention_ref(q.detach(), k.detach(), v.detach(),
                                       return_lse=True)
     want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
@@ -1465,7 +1568,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     n_attn = cfg.n_layers // cfg.hybrid_attn_every \
         if cfg.family == "hybrid" else cfg.n_layers
     assert counts["flash_attention"] == counts["flash_attention_bwd"] \
-        == n_attn, counts
+        == n_attn, counts          # float32: the CUDA-core routes alone
+    assert _bwd_launches() == {"flash_attention_bwd": n_attn}, counts
     lc, mc, gc = steps.loss_and_grads(cpu, pipeline.to_device(host, "cpu"))
     torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
     for k, v in gc.items():
