@@ -42,7 +42,11 @@ device kernel time (``tick_times``); ``twopl_admit`` alone by
 ``cuda_times`` at the inputs of tick 4 of the ``2pl`` drain (after a
 device sleep and back to back) and one ``2pl`` tick with ``tick_stats``,
 its wall and device kernel time; ``occ_admit`` and one ``occ`` tick the
-same way, at the inputs of tick 4 of the ``occ`` drain; the bf16 prefill
+same way, at the inputs of tick 4 of the ``occ`` drain; ``admit_ops``
+alone at both of ``chip_smoke.ADMIT_OPS_SHAPES`` (``sched_admit``: n = 256,
+d = 1,024, m = 512; the scheduler's scale: n = 4,096, W = 1,024, m =
+16,384), each state and list made by ``admit_ops_case`` from one seed, by
+``cuda_times`` after a device sleep and back to back; the bf16 prefill
 of qwen3-0.6b at full depth on 8 x 1,024 tokens (``median_wall_ms`` of
 5, seeded random weights); flash_attention alone on random bf16 inputs
 of its main-path shape (B = 8, H = 16, S = 1,024, D = 128, causal) by
@@ -82,7 +86,9 @@ def measure(root: Path) -> dict:
     from repro_torch import configs
     from repro_torch.core import engine as E
     from repro_torch.core import sweep
+    from repro_torch.core import ppcc as P
     from repro_torch.kernels import admit as kadm
+    from repro_torch.kernels import admit_ops as kao
     from repro_torch.kernels import conflict as kconf
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import megastep as kmega
@@ -220,6 +226,18 @@ def measure(root: Path) -> dict:
         (out[f"{key}_tick_wall_ms"], out[f"{key}_tick_device_ms"],
          _) = smoke.tick_times(read, write, torch, mode)
     del read, write
+    # admit_ops alone at both of chip_smoke's shapes (sched_admit and the
+    # scheduler's scale), the states and lists from the same seed
+    gen = torch.Generator().manual_seed(21)
+    for label, n, d, m in smoke.ADMIT_OPS_SHAPES:
+        s, o = smoke.admit_ops_case(label, n, d, m, gen, torch, P, dev)
+        args = [t.contiguous() for t in (*s, *o)]
+        key = "admit_ops_" + label.replace(" ", "_").replace("-", "")
+        out[f"{key}_ms"] = smoke.cuda_times(lambda: kao.admit_ops(*args), 10,
+                                            torch)
+        out[f"{key}_ms_no_sleep"] = smoke.cuda_times(
+            lambda: kao.admit_ops(*args), 10, torch, sleep=False)
+        del s, o, args
     torch.cuda.empty_cache()
 
     cfg = configs.get("qwen3_0p6b")

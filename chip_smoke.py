@@ -103,7 +103,9 @@ Phases (any failure exits non-zero):
      admit_ops kernel bit-equal to its plain
      version at the sched_admit shape (n = 256, d = 1,024, m = 512), at
      the scheduler's scale (n = 4,096, W = 1,024, m = 16,384) and at the
-     edges, admit_ops_blocked in index and degree order against
+     edges (dense arcs, every slot locked, runs on one txn or item, items
+     31-33, n = 1, 31, 32, 33, both sides of the shared route's switch,
+     n = 32,769, W = 1), admit_ops_blocked in index and degree order against
      admit_ops, its times beside its chain and byte bounds;
      wc_acquire_many(exact=True) through one twopl_admit launch per lane
      at the grid's shape; the device time of one multipass iteration and
@@ -193,7 +195,17 @@ PHASE8_FIG, PHASE8_MPL = 6, 25
 ADMIT_OPS_SHAPES = [("sched_admit", 256, 1024, 512),
                     ("phase-5 scale", 4096, 32_768, 16_384)]
 ADMIT_OPS_EDGES = ("m = 0", "all invalid", "one txn", "one item",
-                   "writes only", "reads only")
+                   "writes only", "reads only", "dense", "all locked",
+                   "runs", "edge items")
+# and at the packed design's word and route edges: (label, n, d, m); n =
+# 544 and 545 are the two sides of the shared route's switch at W = 32,
+# n = 32,769 lies past the earlier design's cap
+ADMIT_OPS_EDGE_SHAPES = [("n = 1", 1, 40, 50), ("n = 31", 31, 31, 200),
+                         ("n = 32", 32, 32, 200), ("n = 33", 33, 33, 200),
+                         ("n = 544", 544, 1024, 400),
+                         ("n = 545", 545, 1024, 400),
+                         ("n = 32,769", 32_769, 100, 64),
+                         ("W = 1", 100, 20, 300)]
 # one admit_ops step: the slot tests, the warp OR, the store of the warp's
 # word, the barrier, the OR of the warps' words, the verdict, the apply and
 # the load of the next op
@@ -3000,6 +3012,24 @@ def admit_ops_case(label, n, d, m, gen, torch, P, dev):
         ops_[2][:] = True
     elif label == "reads only":
         ops_[2][:] = False
+    elif label == "dense":
+        # arcs and class bits at density 1/2 (no slot precedes itself)
+        eye = torch.eye(n, dtype=torch.bool, device=dev)
+        s = s._replace(
+            prec=(torch.rand((1, n, n), generator=gen) < 0.5).to(dev) & ~eye,
+            preceding=(torch.rand((1, n), generator=gen) < 0.5).to(dev),
+            preceded=(torch.rand((1, n), generator=gen) < 0.5).to(dev))
+    elif label == "all locked":
+        s = s._replace(haslocks=torch.ones_like(s.haslocks))
+    elif label == "runs":
+        # runs of 4 ops on one txn, then (the second half) on one item
+        ops_[0] = ops_[0][:, ::4].repeat_interleave(4, 1)[:, :m]
+        half = m // 2
+        ops_[1][:, half:] = ops_[1][:, half::4].repeat_interleave(
+            4, 1)[:, :m - half]
+    elif label == "edge items":
+        ops_[1] = (torch.tensor([31, 32, 33], dtype=torch.int32, device=dev)
+                   .repeat(1, -(-m // 3))[:, :m] % (32 * s.words))
     return s, ops_
 
 
@@ -3147,12 +3177,21 @@ def phase8_kernels(torch, dev, sweep, E, P, ops, ref, bound, info) -> dict:
     cases = {label: admit_ops_case(label, n, d, m, gen, torch, P, dev)
              for label, n, d, m in ADMIT_OPS_SHAPES}
     a_label = ADMIT_OPS_SHAPES[0][0]
-    edges = {label: admit_ops_case(label, *ADMIT_OPS_SHAPES[0][1:], gen,
-                                   torch, P, dev) for label in ADMIT_OPS_EDGES}
+    # each edge's state is made for its check and dropped after it
+    checks = [(label, lambda c=c: c) for label, c in cases.items()]
+    checks += [(label, lambda label=label: admit_ops_case(
+        label, *ADMIT_OPS_SHAPES[0][1:], gen, torch, P, dev))
+        for label in ADMIT_OPS_EDGES]
+    checks += [(label, lambda n=n, d=d, m=m: admit_ops_case(
+        "random", n, d, m, gen, torch, P, dev))
+        for label, n, d, m in ADMIT_OPS_EDGE_SHAPES]
     err = 0.0
     plain_wall = {}
-    for label, (s, o) in {**cases, **edges}.items():
+    routes = {}
+    for label, make in checks:
+        s, o = make()
         args = [t.contiguous() for t in (*s, *o)]
+        routes[label] = kao.route(s.n, s.words)
         got = kao.admit_ops(*args)
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -3161,13 +3200,17 @@ def phase8_kernels(torch, dev, sweep, E, P, ops, ref, bound, info) -> dict:
         plain_wall[label] = time.perf_counter() - t
         e = max_abs_err(got, want, torch)
         if e or not bits_equal(got, want, torch):
-            fail(f"[8] admit_ops differs from admit_ops_ref at {label}")
+            fail(f"[8] admit_ops differs from admit_ops_ref at {label} "
+                 f"({routes[label]} route)")
         err = max(err, e)
+        del s, o, args, got, want
     log(f"[8] admit_ops bit-equal to admit_ops_ref (verdicts and every "
         f"state leaf) at {[(lb, n, d, m) for lb, n, d, m in ADMIT_OPS_SHAPES]}"
         f" (label, n, d, m; every slot begun, a first batch admitted, a "
-        f"quarter of the slots holding locks) and at the edges "
-        f"{list(ADMIT_OPS_EDGES)}")
+        f"quarter of the slots holding locks), at the edges "
+        f"{list(ADMIT_OPS_EDGES)} of the first and at "
+        f"{[(lb, n, d, m) for lb, n, d, m in ADMIT_OPS_EDGE_SHAPES]}; "
+        f"routes {routes}")
     # the entry points, counts from 0: admit_ops and admit_ops_blocked
     ops.reset_launches()
     res = {}
@@ -3222,24 +3265,30 @@ def phase8_kernels(torch, dev, sweep, E, P, ops, ref, bound, info) -> dict:
         nbytes = 2 * state_b + lanes * m * 10 + 3 * lanes * m
         b_ms, b_by = bound(nbytes, steps * n * ADMIT_OPS_SLOT_OPS)
         chain_ms = steps * ADMIT_OPS_STEP_DEPS * DEP_CYCLES / sm_hz * 1e3
+        walk = kao.route(n, w)
+        ns_step = ms * 1e6 / max(steps, 1)
         if label == a_label:
             pms = cuda_times(lambda: ref.admit_ops_ref(*args), 1, torch)
             row.update(ms=ms, ms_no_sleep=ms0, plain_ms=pms, bound_ms=b_ms,
                        bound_by=b_by, chain_bound_ms=chain_ms,
-                       shape={"n": n, "W": w, "m": m, "valid": steps})
+                       shape={"n": n, "W": w, "m": m, "valid": steps,
+                              "walk_route": walk, "ns_per_step": ns_step})
         else:
             pms = plain_wall[label] * 1e3
             row["at_scale"] = {"n": n, "W": w, "m": m, "valid": steps,
+                               "walk_route": walk, "ns_per_step": ns_step,
                                "ms": ms, "ms_no_sleep": ms0,
                                "plain_wall_ms": pms, "bound_ms": b_ms,
                                "bound_by": b_by, "chain_bound_ms": chain_ms}
-        log(f"[8] admit_ops at {label} (n={n}, W={w}, m={m}, {steps} valid): "
-            f"{ms:.4f} ms ({ms0:.4f} ms back to back); plain "
+        log(f"[8] admit_ops at {label} (n={n}, W={w}, m={m}, {steps} valid, "
+            f"{walk} route): {ms:.4f} ms ({ms0:.4f} ms back to back), "
+            f"{ns_step:.1f} ns per valid step; plain "
             f"{pms:.1f} ms{'' if label == a_label else ' (one call, wall)'}; "
             f"bound {b_ms:.5f} ms by {b_by} ({nbytes} B); chain bound "
             f"{chain_ms:.5f} ms ({steps} valid steps x {ADMIT_OPS_STEP_DEPS} "
             f"dependent instructions x {DEP_CYCLES} cycles at "
-            f"{sm_hz / 1e6:.0f} MHz); library: none")
+            f"{sm_hz / 1e6:.0f} MHz, "
+            f"{chain_ms * 1e6 / max(steps, 1):.1f} ns a step); library: none")
 
     # wc_acquire_many(exact=True) through twopl_admit at the grid's shape
     init, cond, step = info["multipass_parts"]

@@ -1297,10 +1297,10 @@ def test_wkv_kernel_at_the_main_path_layout(cuda):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3)
 
 
-def _admit_case(gen, kind, lanes, n, d, m):
-    """A reachable PPCC state on the CPU (every slot begun, a first batch
-    admitted, a quarter of the slots holding locks) and an op list
-    ``[L, m]``: random, or an edge list."""
+def _admit_case(gen, kind, lanes, n, d, m, device="cpu"):
+    """A reachable PPCC state on ``device`` (every slot begun, a first
+    batch admitted by the plain loop, a quarter of the slots holding
+    locks) and an op list ``[L, m]``: random, or an edge list or state."""
     from repro_torch.core import ppcc as TP
 
     def op_list():
@@ -1310,12 +1310,14 @@ def _admit_case(gen, kind, lanes, n, d, m):
                              dtype=torch.int32)
         wr = torch.rand((lanes, m), generator=gen) < 0.3
         valid = torch.rand((lanes, m), generator=gen) < 0.9
-        return [txn, item, wr, valid]
+        return [t.to(device) for t in (txn, item, wr, valid)]
 
-    s = TP.begin_many(TP.init_state(lanes, n, d, device="cpu"),
-                      torch.ones((lanes, n), dtype=torch.bool))
-    s = TP.admit_ops(s, *op_list()).state
-    s = s._replace(haslocks=torch.rand((lanes, n), generator=gen) < 0.25)
+    s = TP.begin_many(TP.init_state(lanes, n, d, device=device),
+                      torch.ones((lanes, n), dtype=torch.bool,
+                                 device=device))
+    s = TP.PPCCState(*ref.admit_ops_ref(*s, *op_list())[3:])
+    s = s._replace(haslocks=(torch.rand((lanes, n), generator=gen)
+                             < 0.25).to(device))
     ops_ = op_list()
     if kind == "one txn":
         ops_[0][:] = 3 % n
@@ -1327,22 +1329,58 @@ def _admit_case(gen, kind, lanes, n, d, m):
         ops_[2][:] = False
     elif kind == "all invalid":
         ops_[3][:] = False
+    elif kind == "dense":
+        # arcs and class bits at density 1/2 (no slot precedes itself)
+        dg = torch.Generator(device).manual_seed(n * 7 + m)
+        eye = torch.eye(n, dtype=torch.bool, device=device)
+        s = s._replace(
+            prec=(torch.rand((lanes, n, n), generator=dg, device=device)
+                  < 0.5) & ~eye,
+            preceding=torch.rand((lanes, n), generator=dg, device=device)
+            < 0.5,
+            preceded=torch.rand((lanes, n), generator=dg, device=device)
+            < 0.5)
+    elif kind == "all locked":
+        s = s._replace(haslocks=torch.ones_like(s.haslocks))
+    elif kind == "runs":
+        # runs of 4 ops on one txn, then (the second half) on one item
+        ops_[0] = ops_[0][:, ::4].repeat_interleave(4, 1)[:, :m]
+        half = m // 2
+        ops_[1][:, half:] = ops_[1][:, half::4].repeat_interleave(
+            4, 1)[:, :m - half]
+    elif kind == "edge items":
+        top = 32 * s.words
+        ops_[1] = (torch.tensor([31, 32, 33], dtype=torch.int32,
+                                device=device).repeat(lanes, -(-m // 3))
+                   [:, :m] % top).contiguous()
     return s, ops_
 
 
-@pytest.mark.parametrize("kind", ["random", "one txn", "one item",
-                                  "writes only", "reads only", "all invalid"])
-@pytest.mark.parametrize("lanes,n,d,m", [(3, 16, 40, 100), (2, 33, 100, 300),
-                                         (1, 256, 1024, 512),
-                                         (2, 1025, 64, 200),
-                                         (1, 160, 500, 0)])
+ADMIT_KINDS = ["random", "one txn", "one item", "writes only", "reads only",
+               "all invalid", "dense", "all locked", "runs", "edge items"]
+# (lanes, n, d, m): the earlier shapes; n = 1, 31, 32, 33; n = 544 and
+# 545 at W = 32, the two sides of the shared route's switch; the
+# scheduler's n = 4,096 at W = 1,024; n = 32,769, past the earlier design's
+# cap, with a short list; W = 1; d = 31, 32, 33
+ADMIT_SHAPES = [(3, 16, 40, 100), (2, 33, 100, 300), (1, 256, 1024, 512),
+                (2, 1025, 64, 200), (1, 160, 500, 0), (2, 1, 40, 50),
+                (1, 31, 31, 200), (1, 32, 32, 200), (2, 33, 33, 200),
+                (1, 544, 1024, 400), (1, 545, 1024, 400),
+                (1, 4096, 32_768, 2048), (1, 32_769, 100, 64),
+                (2, 100, 20, 300)]
+
+
+@pytest.mark.parametrize("kind", ADMIT_KINDS)
+@pytest.mark.parametrize("lanes,n,d,m", ADMIT_SHAPES)
 def test_admit_ops_kernel_matches_plain(cuda, kind, lanes, n, d, m):
     """``admit_ops`` on the card: every verdict and state leaf bit-equal
     to ``ref.admit_ops_ref``, one launch per call with ops (none for an
-    empty list), the input state left as it was."""
+    empty list), the input state left as it was.  States of n > 1,025 are
+    made on the card."""
     from repro_torch.kernels import admit_ops as kadm
     gen = torch.Generator().manual_seed(lanes * n + m)
-    s, op_list = _admit_case(gen, kind, lanes, n, d, m)
+    where = "cpu" if n <= 1025 else cuda
+    s, op_list = _admit_case(gen, kind, lanes, n, d, m, where)
     args = [t.to(cuda).contiguous() for t in (*s, *op_list)]
     before = [t.clone() for t in args]
     ops.reset_launches()
@@ -1354,6 +1392,52 @@ def test_admit_ops_kernel_matches_plain(cuda, kind, lanes, n, d, m):
         assert g.dtype == w.dtype and torch.equal(g, w)
     for a, b in zip(args, before):
         assert torch.equal(a, b)
+    if n in (544, 545):
+        assert kadm.route(n, s.words) == (kadm.SHARED if n == 544
+                                          else kadm.GLOBAL)
+
+
+@pytest.mark.parametrize("n,w", [(1, 1), (256, 32), (544, 32), (545, 32),
+                                 (4096, 1024), (32_769, 4), (100_000, 1)])
+def test_admit_ops_sizing_agrees_with_the_source(cuda, n, w):
+    """The wrapper's shared memory and scratch sizes are the source's."""
+    from repro_torch.kernels import admit_ops as kadm
+    fns = kadm._launcher()
+    for r_ in kadm.ROUTES:
+        code = kadm.ROUTES.index(r_)
+        assert fns["smem_bytes"](code, n, w) == kadm.smem_bytes(r_, n, w)
+        assert fns["scratch_words"](code, 3, n, w) == \
+            kadm.scratch_words(r_, 3, n, w)
+
+
+@pytest.mark.parametrize("name", ["same item", "same txn",
+                                  "txn among the arcs",
+                                  "an arc on the arcs", "an arc on the txn"])
+@pytest.mark.parametrize("n_pad", [0, 29, 4093])
+def test_admit_ops_dependent_pairs_on_the_card(cuda, name, n_pad):
+    """Two ops where the second reads what the first writes
+    (``test_torch_admit_ops.DEPENDENT_PAIRS``) on the card, bit-equal to
+    the plain loop: the three slots alone, and beside idle slots (no sets,
+    inactive) up to n = 32 and 4,096, on both routes."""
+    from test_torch_admit_ops import dependent_pair
+    from repro_torch.kernels import admit_ops as kadm
+    state, op_list = dependent_pair(name)
+    if n_pad:
+        n = 3 + n_pad
+        grow = [torch.zeros((1, n, 1), dtype=torch.int32) for _ in range(2)]
+        for g_, s_ in zip(grow, state[:2]):
+            g_[:, :3] = s_
+        prec = torch.zeros((1, n, n), dtype=torch.bool)
+        flags = [torch.zeros((1, n), dtype=torch.bool) for _ in range(4)]
+        flags[2][:, :3] = True                          # active
+        state = (*grow, prec, *flags)
+    args = [t.to(cuda).contiguous() for t in (*state, *op_list)]
+    got = kadm.admit_ops(*args)
+    want = ref.admit_ops_ref(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(want[0][0, 0])
 
 
 def test_admit_ops_rejects_what_it_does_not_take(cuda):
@@ -1371,6 +1455,10 @@ def test_admit_ops_rejects_what_it_does_not_take(cuda):
         kadm.admit_ops(*(t.cpu() for t in s), zi, zi, zb, zb)
     with pytest.raises(ValueError):                  # valid txn out of range
         TP.admit_ops(s, zi + 8, zi, zb, ~zb)
+    big = torch.zeros((2, kadm.MAX_N + 1, 1), dtype=torch.int32,
+                      device=cuda)
+    with pytest.raises(ValueError, match="shared"):  # n past the flag words
+        kadm.admit_ops(big, *s[1:], zi, zi, zb, zb)
 
 
 def test_wc_acquire_many_exact_rides_twopl_admit(cuda):

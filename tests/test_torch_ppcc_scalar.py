@@ -242,6 +242,33 @@ def test_admission_at_the_sched_admit_shape():
                                        order="degree"), "degree")
 
 
+@pytest.mark.parametrize("n,d,kind", [(1, 32, "random"), (31, 33, "random"),
+                                      (33, 31, "random"), (65, 32, "random"),
+                                      (33, 32, "dense"),
+                                      (33, 32, "all locked")])
+def test_admission_at_the_word_edges(n, d, kind):
+    """``admit_ops`` (the plain loop, the card's oracle) at the word edges
+    of the kernel's packed state: n = 1, 31, 33, 65 slots, d = 31, 32, 33
+    items, a state dense in arcs and class bits, every slot locked."""
+    rng = np.random.default_rng(n * 100 + d)
+    m = 40
+    s = JP.begin_many(JP.init_state(n, d), jnp.ones(n, bool))
+    first = _op_lists(rng, "random", 1, n, d, m)
+    s = J_ADMIT(s, *(jnp.asarray(a[0]) for a in first)).state
+    s = s._replace(haslocks=jnp.asarray(rng.random(n) < 0.25))
+    if kind == "dense":
+        dense = (rng.random((n, n)) < 0.5) & ~np.eye(n, dtype=bool)
+        s = s._replace(
+            prec=jnp.asarray(dense),
+            preceding=jnp.asarray(rng.random(n) < 0.5),
+            preceded=jnp.asarray(rng.random(n) < 0.5))
+    elif kind == "all locked":
+        s = s._replace(haslocks=jnp.ones(n, bool))
+    ops = _op_lists(rng, "random", 1, n, d, m)
+    got = TP.admit_ops(_lanes([s]), *(torch.from_numpy(a) for a in ops))
+    _assert_verdict(got, 0, _ref_admit(J_ADMIT, s, ops, 0), "admit_ops")
+
+
 def test_empty_op_list():
     rng = np.random.default_rng(1)
     port = _lanes([_warmed(rng), _warmed(rng)])
