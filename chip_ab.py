@@ -53,7 +53,9 @@ of its main-path shape (B = 8, H = 16, S = 1,024, D = 128, causal) by
 ``cuda_times``, after a device sleep and back to back; ``wkv_chunked``
 alone on random inputs of the rwkv6-3b prefill's shape and layout (B =
 8, H = 48, S = 1,024, D = 64, chunk 128, bf16 r/k/v as [B, H, S, D]
-views of [B, S, H*D] tensors, log w = -exp(.), float32) the same way;
+views of [B, S, H*D] tensors, log w = -exp(.), float32) the same way,
+and the sha256 of its output and final state (the line before the card's
+says whether every run of both checkouts gave the same bits);
 the bf16 prefill of rwkv6-3b at full depth on 8 x 1,024 tokens; flash's
 bf16 backward alone at qwen3-0.6b's training call (B = 8, Hq = Hkv = 16
 after the model repeats its KV heads, S = 1,024, D = 128, causal), its
@@ -66,6 +68,7 @@ the last lines are the card's name and power limit and a summary of
 medians per checkout.  The script imports nothing of JAX and nothing of
 the JAX package.
 """
+import hashlib
 import inspect
 import json
 import statistics
@@ -268,7 +271,10 @@ def measure(root: Path) -> dict:
     u = torch.randn((48, 64), generator=gen, device=dev) * 0.1
 
     def wkv():
-        kwkv.wkv_chunked(r, k, v, lw, u, chunk=128)
+        return kwkv.wkv_chunked(r, k, v, lw, u, chunk=128)
+    # the prefill call's output and final state, to the bit
+    out["wkv_out_sha256"] = hashlib.sha256(b"".join(
+        x.cpu().numpy().tobytes() for x in wkv())).hexdigest()
     out["wkv_ms"] = smoke.cuda_times(wkv, 20, torch)
     out["wkv_ms_no_sleep"] = smoke.cuda_times(wkv, 20, torch, sleep=False)
     del r, k, v, lw, u
@@ -363,6 +369,10 @@ def main() -> None:
             sys.exit(1)
         print(lines[-1], flush=True)
         results[which].append(json.loads(lines[-1]))
+    digests = {str(roots[w]): sorted({r["wkv_out_sha256"] for r in
+                                      results[w]}) for w in (0, 1)}
+    print(json.dumps({"wkv_out_sha256": digests, "bit_equal": len(
+        {d for ds in digests.values() for d in ds}) == 1}), flush=True)
     print(smoke.smi_line(), flush=True)
     keys = [k for k, v in results[0][0].items()
             if isinstance(v, float) and k in results[1][0]]

@@ -26,7 +26,8 @@ Phases (any failure exits non-zero):
   3. the main path: repro_torch.core.sweep.run_grid() with its defaults but
      the horizon — Figs. 5-16 x 7 MPLs x 2 seeds = 168 lanes per protocol,
      n = 160 slots, 500 items, PPCC / 2PL / OCC, to horizon 5,000 (phase 6
-     runs the same grid to 10,000) — with every lane's metrics
+     runs the same grid with delta and telemetry) — with every lane's
+     metrics
      equal to the JAX reference's committed golden
      src/repro_torch/golden/run_grid_h5000.json, the megastep launch count
      equal to the PPCC body iterations, and the Theorem-1 invariants on the
@@ -76,10 +77,11 @@ Phases (any failure exits non-zero):
      (a bf16 matmul of the unpacked bits);
   6. the delta-maintained, instrumented fleet: run_grid(delta=True,
      telemetry=True, trace_every=8, trace_len=256) at run_grid's defaults
-     but the horizon (10,000), with every lane's metrics equal to the JAX
-     reference's golden src/repro_torch/golden/run_grid_h10000.json, every
-     lane's telemetry (histograms, cause counts, ring buffer) equal to the
-     JAX reference's src/repro_torch/golden/telemetry_h10000.json, the
+     but the horizon (5,000, phase 3's; 10,000 until phase 12 needed the
+     time), with every lane's metrics equal to the JAX reference's golden
+     src/repro_torch/golden/run_grid_h5000.json, every lane's telemetry
+     (histograms, cause counts, ring buffer) equal to the JAX reference's
+     src/repro_torch/golden/telemetry_h5000.json, the
      megastep launched once (the init's seeding of the relations) and the
      row-slab drain once per PPCC body iteration, the Theorem-1
      invariants on the final PPCC states, and every lane's carried
@@ -154,11 +156,26 @@ Phases (any failure exits non-zero):
      its step wall, tokens/s and peak memory; the restart check (full
      width, 2 layers, a failure injected at step 4, checkpoints every 3
      steps in a temporary directory it removes) against a clean run; the
-     step's busy share and the backward's share at the end.
+     step's busy share and the backward's share at the end;
+ 12. rwkv training: the WKV backward kernel (csrc/wkv_bwd.cu) against its
+     plain version in both dtypes at rwkv6-3b's training call (B 8, H 48,
+     S 1,024, D 64, chunk 128, r/k/v views of [B, S, 3,072]) and edges (D
+     = 16, 32, 64; chunks of 1, 16, 64, 128; S = chunk; an initial state
+     and a final-state gradient; views off 16 bytes; strong decay), within
+     1e-4 (float32) or 1e-2 (bf16) of each gradient's largest magnitude,
+     bit-equal between two runs, the forward bit-equal with and without
+     its saved states; its time beside its byte and operation bounds; the
+     float32 train golden src/repro_torch/golden/train_rwkv_full_width.json
+     (rwkv6-3b full width, 2 layers, 3 AdamW steps) within 1e-4;
+     rwkv6-3b at full width and depth, bf16, 8 steps of launch.train's
+     loop on one fixed batch of 8 x 1,024 with a falling loss, 64 WKV
+     forwards (remat 'full') and 32 backwards a step and no flash, its
+     step wall, tokens/s and peak memory; the step's busy share and the
+     WKV forward's and backward's shares at the end.
 
-Phase 6 and phase 8's runs follow phase 3, then phases 10, 11, 7 and 9,
-all before phase 4's profiler sessions; phase 8's kernel checks and times
-come last, then the profiles of phases 7, 9, 10 and 11.
+Phase 6 and phase 8's runs follow phase 3, then phases 10, 11, 12, 7 and
+9, all before phase 4's profiler sessions; phase 8's kernel checks and
+times come last, then the profiles of phases 7, 9, 10, 11 and 12.
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  The script imports
 nothing of JAX and nothing of the JAX package.
@@ -176,11 +193,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = SRC / "repro_torch" / "golden" / "run_grid_h20000.json"
-# phases 3 and 6 run run_grid's default grid cut in depth, to horizon
-# 5,000 and 10,000, so that the script stays well inside its time limit
+# phases 3 and 6 run run_grid's default grid cut in depth, both to horizon
+# 5,000 (phase 6 ran to 10,000 until phase 12 needed the time), so that the
+# script stays well inside its time limit
 PHASE3_GOLDEN = SRC / "repro_torch" / "golden" / "run_grid_h5000.json"
-PHASE6_GOLDEN = SRC / "repro_torch" / "golden" / "run_grid_h10000.json"
-TM_GOLDEN = SRC / "repro_torch" / "golden" / "telemetry_h10000.json"
+PHASE6_GOLDEN = PHASE3_GOLDEN
+TM_GOLDEN = SRC / "repro_torch" / "golden" / "telemetry_h5000.json"
 SCHED_GOLDEN = SRC / "repro_torch" / "golden" / "sched_n4096_w1024.json"
 # phase 8: the one-event engine (8 seeds as lanes, Fig. 6's setting at MPL
 # 25, horizon 550: cut from 3,000, whose three runs took 298.7 s, then from
@@ -373,6 +391,29 @@ BWD_KERNELS = ("tc::prep_kernel", "dkdv_tc_kernel", "dq_tc_kernel",
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 8      # the full-depth run
 RESTART_B, RESTART_S, RESTART_STEPS = 4, 512, 8  # the restart check
 RESTART_EVERY, RESTART_FAIL_AT = 3, 4
+RWKV_GOLDEN = SRC / "repro_torch" / "golden" / "train_rwkv_full_width.json"
+# phase 12: the WKV backward against its plain version, both dtypes, at
+# rwkv6-3b's training call and edges: (B, H, S, D, chunk, initial state
+# and final-state gradient, strong decay, r/k/v/log w/dO one element off a
+# 16-byte boundary); the model's tensors are [B, H, S, D] views of [B, S,
+# H*D] ones.  Strong decay is |log w| near 2.5 a step at a chunk of 64,
+# where the reference's centring still keeps every exponential finite
+WKV_BWD_SHAPES = [
+    ("rwkv6-3b training", (8, 48, 1024, 64, 128, False, False, False)),
+    ("D=64 C=128 state, dstate", (2, 48, 512, 64, 128, True, False, False)),
+    ("D=32 C=16 state, dstate", (2, 48, 256, 32, 16, True, False, False)),
+    ("D=16 C=64", (2, 48, 512, 16, 64, False, False, False)),
+    ("C=1", (1, 8, 8, 64, 1, True, False, False)),
+    ("S=C=128", (2, 48, 128, 64, 128, True, False, False)),
+    ("S=C=16 D=16", (2, 8, 16, 16, 16, True, False, False)),
+    ("views off 16 bytes", (2, 48, 256, 64, 128, True, False, True)),
+    ("strong decay", (2, 48, 512, 64, 64, True, True, False)),
+]
+WKV_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}  # of the largest magnitude
+# the WKV kernels' device names (the profile's shares of an rwkv step)
+WKV_FWD_KERNELS = ("wkv_kernel",)
+WKV_BWD_KERNELS = ("wkv_bwd_kernel", "wkv_du_sum")
+RWKV_TRAIN_LAYERS = 32           # rwkv6-3b's full depth
 SLEEP_CYCLES = 2_000_000         # ~1 ms of device sleep ahead of a timing
 
 
@@ -2148,22 +2189,7 @@ def train_phase(torch, dev, smi, cuda_ms):
     counts = ops.launch_counts()
     del tree
     rtol = gold["tolerance"]["rtol"]
-    want = gold["record"]
-    worst = 0.0
-    for key in ("loss0", "ce0", "grad_norm0", "loss", "ce", "grad_norm",
-                "leaf_grad_norms"):
-        a, w = got[key], want[key]
-        if key == "leaf_grad_norms":
-            if sorted(a) != sorted(w):
-                fail("[11] the golden's gradient leaves differ")
-            a, w = [a[x] for x in sorted(w)], [w[x] for x in sorted(w)]
-        a, w = (list(x) if isinstance(x, list) else [x] for x in (a, w))
-        for x, y in zip(a, w):
-            rel = abs(x - y) / max(abs(y), 1e-30)
-            worst = max(worst, rel)
-            if not rel <= rtol:
-                fail(f"[11] train golden {key}: {x} against {y} (rel "
-                     f"{rel:.3g} > {rtol})")
+    worst = hold_train_golden(got, gold, "[11]")
     n_fwd = TG.LAYERS * (TG.STEPS + 1)
     if counts["flash_attention"] != n_fwd or \
             counts[kflash.BWD] != n_fwd or counts["flash_attention_tc"] or \
@@ -2357,6 +2383,348 @@ def train_phase(torch, dev, smi, cuda_ms):
         torch.cuda.empty_cache()
 
     return row, counts["flash_attention_tc"], busy
+
+
+def hold_train_golden(got, gold, tag) -> float:
+    """The worst relative error of a ``train_golden.port_run`` record
+    against the golden's; fails past its rtol."""
+    rtol = gold["tolerance"]["rtol"]
+    want = gold["record"]
+    worst = 0.0
+    for key in ("loss0", "ce0", "grad_norm0", "loss", "ce", "grad_norm",
+                "leaf_grad_norms"):
+        a, w = got[key], want[key]
+        if key == "leaf_grad_norms":
+            if sorted(a) != sorted(w):
+                fail(f"{tag} the golden's gradient leaves differ")
+            a, w = [a[x] for x in sorted(w)], [w[x] for x in sorted(w)]
+        a, w = (list(x) if isinstance(x, list) else [x] for x in (a, w))
+        for x, y in zip(a, w):
+            rel = abs(x - y) / max(abs(y), 1e-30)
+            worst = max(worst, rel)
+            if not rel <= rtol:
+                fail(f"{tag} train golden {key}: {x} against {y} (rel "
+                     f"{rel:.3g} > {rtol})")
+    return worst
+
+
+def wkv_bwd_case(shape, dtype, gen, torch, dev):
+    """The backward's inputs at one of ``WKV_BWD_SHAPES``: r, k, v (in
+    ``dtype``), log w and the output's gradient as [B, H, S, D] views of
+    [B, S, H*D] tensors (one element off 16 bytes where the shape asks),
+    u, and the initial state and the final state's gradient (or None)."""
+    b, h, s, d, chunk, extras, strong, off16 = shape
+
+    def rnd(scale):
+        return torch.randn((b, s, h * d), generator=gen, device=dev) * scale
+
+    def view(x):
+        return x.view(b, s, h, d).transpose(1, 2)
+    r, k, v = (view(rnd(0.5).to(dtype)) for _ in range(3))
+    lw = view(-2.5 * torch.exp(rnd(0.05)) if strong
+              else -torch.exp(rnd(0.5) - 2))
+    go = view(rnd(1.0))
+    u = torch.randn((h, d), generator=gen, device=dev) * 0.1
+    if off16:
+        r, k, v, lw, go = (misaligned(x, torch) for x in (r, k, v, lw, go))
+    s0 = ds = None
+    if extras:
+        s0 = torch.randn((b, h, d, d), generator=gen, device=dev) * 0.1
+        ds = torch.randn((b, h, d, d), generator=gen, device=dev)
+    return r, k, v, lw, u, s0, go, ds
+
+
+def wkv_bwd_errs(got, want) -> list:
+    """Each of the backward's outputs' largest error over the plain
+    version's largest magnitude (inf where one is not finite)."""
+    out = []
+    for g, w in zip(got, want):
+        e = float((g.double() - w.double()).abs().max())
+        scale = float(w.double().abs().max())
+        out.append(e / scale if scale > 0 else e)
+    return [x if math.isfinite(x) else float("inf") for x in out]
+
+
+def rwkv_train_phase(torch, dev, smi, cuda_ms):
+    """Phase 12: rwkv training.  The WKV backward kernel against its plain
+    version at ``WKV_BWD_SHAPES`` in both dtypes (the forward with and
+    without its saved states), its time beside its bounds at rwkv6-3b's
+    training call; the float32 golden of rwkv6-3b at full width, 2
+    layers; rwkv6-3b at full width and depth, bf16, 8 steps of
+    ``launch.train``'s loop on one fixed batch of 8 x 1,024 (the main
+    path, counted).  Returns (the backward's kernel row, the WKV
+    forward's launches in the training run, a function that profiles one
+    full-depth step, to run after every wall)."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv as kwkv
+    from repro_torch.launch import train, train_golden as TG
+    from repro_torch.models import convert
+    from repro_torch.models.config import ShapeSpec
+
+    t12 = time.perf_counter()
+    # ---- (a) the backward against its plain version, both dtypes
+    gen = torch.Generator(dev).manual_seed(27)
+    errs, rels, timed = {}, {}, None
+    for label, shape in WKV_BWD_SHAPES:
+        chunk = shape[4]
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype)[6:]
+            r, k, v, lw, u, s0, go, ds = wkv_bwd_case(shape, dtype, gen,
+                                                      torch, dev)
+            kw = dict(chunk=chunk, state0=s0)
+            out, st = kwkv.wkv_chunked(r, k, v, lw, u, **kw)
+            out2, st2, states = kwkv.wkv_chunked(r, k, v, lw, u, **kw,
+                                                 return_states=True)
+            if not (torch.equal(out, out2) and torch.equal(st, st2)):
+                fail(f"[12] wkv_chunked's output or final state differs "
+                     f"with and without its saved states at {label}, {dt}")
+            want_states = ref.wkv_chunked_ref(r, k, v, lw, u, **kw,
+                                              return_states=True)[2]
+            if bool(((states - want_states).abs() >
+                     1e-4 + 1e-3 * want_states.abs()).any()):
+                fail(f"[12] wkv_chunked's saved states differ from the "
+                     f"plain version's at {label}, {dt}")
+            before = ops.launch_counts()[kwkv.BWD]
+            got = kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go, ds,
+                                       chunk=chunk)
+            again = kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go, ds,
+                                         chunk=chunk)
+            want = ref.wkv_chunked_bwd_ref(r, k, v, lw, u, states, go, ds,
+                                           chunk=chunk)
+            torch.cuda.synchronize()
+            if ops.launch_counts()[kwkv.BWD] != before + 2:
+                fail(f"[12] wkv_chunked_bwd at {label}, {dt} counted "
+                     f"{ops.launch_counts()[kwkv.BWD] - before} launches "
+                     f"for two calls")
+            rel = wkv_bwd_errs(got, want)
+            tols = [WKV_BWD_TOL[str(g.dtype)[6:]] for g in got]
+            if not all(e <= t for e, t in zip(rel, tols)):
+                fail(f"[12] wkv_chunked_bwd differs from its plain version "
+                     f"at {label}, {dt}: relative errors (dr, dk, dv, "
+                     f"dlog_w, du, dstate0) {rel} against {tols}")
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"[12] wkv_chunked_bwd is not deterministic at "
+                     f"{label}, {dt}")
+            if any(x.stride() != y.stride() or x.dtype != y.dtype
+                   for x, y in zip(got[:4], (r, k, v, lw))):
+                fail(f"[12] wkv_chunked_bwd's dr, dk, dv, dlog_w are not in "
+                     f"the layouts and dtypes of r, k, v, log_w at {label}")
+            errs[label, dt] = max_abs_err(got, want, torch)
+            rels[label, dt] = rel
+            if label == WKV_BWD_SHAPES[0][0] and dtype == torch.bfloat16:
+                timed = (r, k, v, lw, u, states, go, chunk)
+            del r, k, v, lw, u, s0, go, ds, out, st, out2, st2, states, \
+                want_states, got, again, want
+    log(f"[12] wkv_chunked's output and final state bit-equal with and "
+        f"without its saved states (within atol 1e-4, rtol 1e-3 of the "
+        f"plain forward's), and wkv_chunked_bwd within {WKV_BWD_TOL} of "
+        f"each gradient's largest magnitude (bf16 for dr, dk, dv of bf16 "
+        f"inputs) and bit-equal between two runs, in the layouts of r, k, "
+        f"v, log w, at "
+        + "; ".join(f"{lb} {dt} (relative dr, dk, dv, dlog_w, du, dstate0 "
+                    f"{', '.join(f'{x:.2g}' for x in rels[lb, dt])})"
+                    for lb, dt in rels))
+
+    # ---- (b) its time at the training call beside its bounds
+    r, k, v, lw, u, states, go, chunk = timed
+    b, h, s, d = r.shape
+
+    def bwd():
+        return kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go, chunk=chunk)
+    ms = cuda_ms(bwd, 10)
+    ms0 = cuda_ms(bwd, 10, sleep=False)
+    plain = cuda_ms(lambda: ref.wkv_chunked_bwd_ref(
+        r, k, v, lw, u, states, go, chunk=chunk), 2)
+    fwd_states = cuda_ms(lambda: kwkv.wkv_chunked(
+        r, k, v, lw, u, chunk=chunk, return_states=True), 10)
+    fwd = cuda_ms(lambda: kwkv.wkv_chunked(r, k, v, lw, u, chunk=chunk), 10)
+    n, esz = r.numel(), r.element_size()
+    # read: r, k, v, log w, dO, the states, u; written: dr, dk, dv,
+    # dlog w, du, dstate0
+    nbytes = (3 * n * esz + 2 * n * 4 + states.numel() * 4 + h * d * 4
+              + 3 * n * esz + n * 4 + h * d * 4 + b * h * d * d * 4)
+    # the chunk products: five of C x C x D below the diagonal (A, dA,
+    # A^T dO, dA k', dA^T r') and four of C x D x D
+    flops = b * h * (s // chunk) * (5 * chunk * (chunk - 1) * d
+                                    + 8 * chunk * d * d)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    log(f"[12] wkv_chunked_bwd at B={b} H={h} S={s} D={d} chunk={chunk} "
+        f"bfloat16 r/k/v ([B, S, {h * d}] views), float32 log w and dO: "
+        f"{ms:.4f} ms ({ms0:.4f} ms back to back; plain {plain:.4f} ms; "
+        f"library call: none); bound {bound:.5f} ms by {by}: "
+        f"{nbytes / 1e6:.1f} MB at 3.35 TB/s ({t_b * 1e3:.5f} ms) against "
+        f"{flops / 1e9:.2f} GFLOP of float32 chunk products at 67 TFLOP/s "
+        f"({t_o * 1e3:.5f} ms), {ms / bound:.2f}x its bound; the forward "
+        f"at this call {fwd:.4f} ms, with its saved states "
+        f"({states.numel() * 4 / 1e6:.1f} MB) {fwd_states:.4f} ms [{smi}]")
+    del timed, r, k, v, lw, u, states, go
+    torch.cuda.empty_cache()
+
+    # ---- (c) the float32 golden of rwkv6-3b at full width, 2 layers
+    arch = "rwkv6_3b"
+    gold = json.loads(RWKV_GOLDEN.read_text())
+    if gold["run"] != TG.run_record(arch):
+        fail(f"{RWKV_GOLDEN.name} was written for another run")
+    t = time.perf_counter()
+    tree = convert.random_jax_tree(TG.golden_config(arch), TG.SEED)
+    if convert.tree_sha256(tree) != gold["weights_sha256"]:
+        fail("[12] the golden's seeded weights differ on this machine")
+    ops.reset_launches()
+    got = TG.port_run(dev, tree, arch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    del tree
+    worst = hold_train_golden(got, gold, "[12]")
+    passes = TG.STEPS + 1
+    flash = {k_: n_ for k_, n_ in counts.items()
+             if k_.startswith("flash") and n_}
+    if counts["wkv_chunked"] != 2 * TG.LAYERS * passes or \
+            counts[kwkv.BWD] != TG.LAYERS * passes or flash:
+        fail(f"[12] the float32 golden's launches {counts}, expected "
+             f"{2 * TG.LAYERS * passes} WKV forwards (two a layer under "
+             f"remat 'full') and {TG.LAYERS * passes} backwards, no flash")
+    log(f"[12] float32 train golden (rwkv6-3b full width, {TG.LAYERS} "
+        f"layers, {TG.B} x {TG.S}, loss and grads then {TG.STEPS} AdamW "
+        f"steps) within {gold['tolerance']['rtol']} of {RWKV_GOLDEN.name}: "
+        f"max rel err {worst:.3g} (CPU "
+        f"{gold['tolerance']['cpu_max_rel_err']:.3g}); losses "
+        f"{[round(x, 5) for x in got['loss']]}; wkv_chunked "
+        f"{counts['wkv_chunked']} forwards and {counts[kwkv.BWD]} backwards "
+        f"({time.perf_counter() - t:.1f} s)")
+
+    # ---- (d) rwkv6-3b at full width, bf16, the main path
+    cfg = configs.get(arch).with_(n_layers=RWKV_TRAIN_LAYERS)
+    t = time.perf_counter()
+    loop, _ = train.build(cfg, batch=TRAIN_B, seq=TRAIN_S, lr=1e-3,
+                          steps=TRAIN_STEPS, device=dev, ckpt_every=0)
+    batch = pipeline.to_device(pipeline.SyntheticLM(
+        cfg, ShapeSpec("cli", TRAIN_S, TRAIN_B, "train"), seed=0)
+        .host_batch(step=0), dev)
+    step_fn = loop.train_step
+    walls, per_step, seen = [], [], {}
+
+    def timed_step(model, opt, batch):
+        seen["lm"] = model
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(model, opt, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        after = ops.launch_counts()
+        per_step.append({k_: after[k_] - before[k_] for k_ in after
+                         if after[k_] != before[k_]})
+        return out
+
+    loop.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    summary = loop.run(lambda _d: batch, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x for _, x in loop.history]
+    n_par = sum(p_.numel() for p_ in seen["lm"].parameters())
+    L = cfg.n_layers
+    want_counts = {"wkv_chunked": 2 * L * TRAIN_STEPS,
+                   kwkv.BWD: L * TRAIN_STEPS, "flash_attention": 0,
+                   "flash_attention_tc": 0, kflash.BWD: 0,
+                   kflash.BWD_TC: 0, kflash.BWD_WIDE: 0}
+    if {k_: counts[k_] for k_ in want_counts} != want_counts or any(
+            s_.get("wkv_chunked") != 2 * L or s_.get(kwkv.BWD) != L
+            for s_ in per_step):
+        fail(f"[12] launches in rwkv training {counts} (per step "
+             f"{per_step}), expected {want_counts}: {2 * L} WKV forwards "
+             f"(remat 'full' runs each block twice) and {L} backwards every "
+             f"step, no flash")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)) or \
+            not losses[-1] < losses[0] or summary["bad_steps"]:
+        fail(f"[12] rwkv6-3b training: losses {losses}, summary {summary}: "
+             f"expected {TRAIN_STEPS} finite losses that fall")
+    med = statistics.median(walls[1:])
+    log(f"[12] rwkv6-3b training at full width ({L} of "
+        f"{configs.get(arch).n_layers} layers, d={cfg.d_model}, "
+        f"{n_par / 1e9:.3f} G parameters in bf16, AdamW with float32 master "
+        f"weights, remat 'full'), {TRAIN_STEPS} steps of launch.train's "
+        f"loop on one fixed batch of {TRAIN_B} x {TRAIN_S} "
+        f"({time.perf_counter() - t:.1f} s with the init): losses "
+        f"{[round(x, 4) for x in losses]}, falling; launches "
+        f"{ {k_: counts[k_] for k_ in want_counts} } ({2 * L} WKV forwards "
+        f"and {L} backwards every step, no flash); step walls "
+        f"{[round(w * 1e3, 1) for w in walls]} ms, median of steps "
+        f"1-{TRAIN_STEPS - 1} {med * 1e3:.2f} ms, "
+        f"{TRAIN_B * TRAIN_S / med:.0f} tokens/s; peak device memory "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated) [{smi}]")
+    del loop, step_fn, seen
+    torch.cuda.empty_cache()
+    log(f"[12] phase 12 in {time.perf_counter() - t12:.1f} s")
+
+    row = {"name": "wkv_chunked_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/wkv_bwd.cu",
+           "replaces": "no TPU kernel: XLA autodiff of "
+                       "src/repro/models/rwkv.py:131 (wkv_chunked, the "
+                       "chunk scan) in the reference's training",
+           "launches": counts[kwkv.BWD],
+           "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "library": "none: no single PyTorch call computes it",
+           "shape": f"B={b} H={h} S={s} D={d} chunk={chunk} bfloat16 "
+                    f"r/k/v ([B, S, {h * d}] views), float32 log w and dO",
+           "ms_no_sleep": ms0, "bytes": nbytes, "flops": flops,
+           "launches_per_step": L,
+           "forward_ms": fwd, "forward_with_states_ms": fwd_states,
+           "max_rel_err_by_shape": {f"{lb} {dt}": max(e) for (lb, dt), e in
+                                    rels.items()}}
+
+    def busy():
+        """Device kernel time of one rwkv6-3b training step from
+        torch.profiler over the unprofiled median wall, the WKV forward's
+        and backward's shares, the largest kernels."""
+        loop, _ = train.build(cfg, batch=TRAIN_B, seq=TRAIN_S, lr=1e-3,
+                              steps=TRAIN_STEPS, device=dev, ckpt_every=0)
+        lm, opt, _ = loop.init_state()
+        for _ in range(2):
+            lm, opt, _ = loop.train_step(lm, opt, batch)
+        torch.cuda.synchronize()
+        dev_ms, kernels, per = device_profile(
+            lambda: loop.train_step(lm, opt, batch), 1, torch)
+        if dev_ms <= 0:
+            log("[12] rwkv6-3b training step: device time not measured "
+                "(profiler saw no device time)")
+            return
+
+        def share(names):
+            return [sum(x[i] for key, x in per.items()
+                        if any(n_ in key for n_ in names)) for i in (0, 1)]
+        (f_ms, f_n), (b_ms, b_n) = share(WKV_FWD_KERNELS), \
+            share(WKV_BWD_KERNELS)
+        if not f_ms or not b_ms:
+            fail(f"[12] the rwkv training step's profile lacks the WKV "
+                 f"kernels {WKV_FWD_KERNELS + WKV_BWD_KERNELS}")
+        gemm = share(("gemm", "nvjet", "xmma", "cutlass"))[0]
+        adam = share(("multi_tensor_apply",))[0]
+        log(f"[12] rwkv6-3b training step ({TRAIN_B} x {TRAIN_S}, bf16, {L} "
+            f"layers): {dev_ms:.3f} ms device kernel time (profiled, "
+            f"{kernels:.0f} kernels) over {med * 1e3:.3f} ms wall "
+            f"(unprofiled median): device busy "
+            f"{100 * dev_ms / (med * 1e3):.1f}%; the WKV forward {f_ms:.3f} "
+            f"ms ({100 * f_ms / dev_ms:.1f}%, {f_n:.0f} launches, "
+            f"{f_ms / f_n:.4f} a launch), its backward {b_ms:.3f} ms "
+            f"({100 * b_ms / dev_ms:.1f}%, {b_n:.0f} device kernels); the "
+            f"matrix products {gemm:.3f} ms, AdamW's foreach passes "
+            f"{adam:.3f} ms, the rest {dev_ms - f_ms - b_ms - gemm - adam:.3f}"
+            f" ms; largest: " + ", ".join(
+                f"{k_[:48]} {v_:.3f} ms" for v_, k_ in largest(per, 6))
+            + f" [{smi}]")
+        del loop, lm, opt
+        torch.cuda.empty_cache()
+
+    return row, counts["wkv_chunked"], busy
 
 
 def hybrid_int8_phase(torch, dev, smi, cuda_ms):
@@ -3396,6 +3764,13 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
     t_start = time.perf_counter()
+    laps, t_lap = [], [t_start]
+
+    def lap(label):
+        """Seconds since the last lap, under ``label``, for the summary."""
+        now = time.perf_counter()
+        laps.append((label, round(now - t_lap[0], 1)))
+        t_lap[0] = now
     log(f"[1] card: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | devices {torch.cuda.device_count()}")
 
@@ -3408,6 +3783,8 @@ def main() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[1]   {name}: {line.strip()}")
+
+    lap("1 build")
 
     # ---------------- phase 2: kernels against their plain versions ------
     golden = json.loads(GOLDEN.read_text())
@@ -3641,6 +4018,8 @@ def main() -> None:
         f"plain version at the captured and random inputs and at the edges "
         f"{[e[0] for e in OCC_EDGES]}")
 
+    lap("2 kernels")
+
     # ---------------- phase 3: the main path ----------------
     ops.reset_launches()
     torch.cuda.synchronize()
@@ -3693,6 +4072,8 @@ def main() -> None:
             f"{pr} {pk} (paper {pp})" for pr, pk, pp in
             zip(protocols, peaks, PAPER_PEAKS[f])))
     del out, grid_fleet
+
+    lap("3 grid")
 
     # ---------------- phase 6: the delta-maintained, instrumented fleet --
     # (run right after phase 3, before phase 4's profiler sessions, so that
@@ -3785,10 +4166,14 @@ def main() -> None:
         f"relations equal a full recompute of its final state and cursor")
     del out6, fleet6, fin6, full
 
+    lap("6 delta grid")
+
     # ---------------- phase 8, its runs (walls before any profiler) -------
     t8 = time.perf_counter()
     p8 = phase8_runs(torch, dev, sweep, E, P, ops, golden3)
     t8 = time.perf_counter() - t8
+
+    lap("8 runs")
 
     # ---------------- phase 10: the moe, vlm and audio families ----------
     # (first of the LM phases, while the card holds no model: each of its
@@ -3797,20 +4182,36 @@ def main() -> None:
         torch, dev, smi, lambda fn, reps, sleep=True:
         cuda_times(fn, reps, torch, sleep))
 
+    lap("10 moe, vlm, audio")
+
     # ---------------- phase 11: training (walls before any profiler) ------
     # (after phase 10 has freed its models: the full-depth run holds ~30 GB)
     bwd_row, p11_launches, p11_busy = train_phase(
         torch, dev, smi, lambda fn, reps, sleep=True:
         cuda_times(fn, reps, torch, sleep))
 
+    lap("11 training")
+
+    # ---------------- phase 12: rwkv training (walls before any profiler) -
+    # (after phase 11 has freed its model: the full-depth run holds ~60 GB)
+    wkv_bwd_row, p12_launches, p12_busy = rwkv_train_phase(
+        torch, dev, smi, lambda fn, reps, sleep=True:
+        cuda_times(fn, reps, torch, sleep))
+
+    lap("12 rwkv training")
+
     # ---------------- phase 7: LM serving (walls before any profiler) ----
     lm_rows, lm_busy = lm_phase(torch, dev, smi, lambda fn, reps, sleep=True:
                                cuda_times(fn, reps, torch, sleep))
+
+    lap("7 serving")
 
     # ---------------- phase 9: int8 and ring caches, the hybrid family ----
     p9_shapes, p9_launches, p9_busy = hybrid_int8_phase(
         torch, dev, smi, lambda fn, reps, sleep=True:
         cuda_times(fn, reps, torch, sleep))
+
+    lap("9 caches, hybrid")
 
     # ---------------- phase 4: times ----------------
     torch.cuda.synchronize()
@@ -4034,10 +4435,14 @@ def main() -> None:
             f"device time not measured (profiler saw no device time)")
     del captured, s_d, sargs, margs, dargs
 
+    lap("4 times, profiles")
+
     # ---------------- phase 5: the batch scheduler ----------------
     sched_rows = sched_phase(torch, dev, bound,
                              lambda fn, reps, sleep=True:
                              cuda_times(fn, reps, torch, sleep))
+
+    lap("5 scheduler")
 
     # ---------------- phase 8, its kernels ----------------
     t = time.perf_counter()
@@ -4045,6 +4450,7 @@ def main() -> None:
     log(f"[8] phase 8 in {t8 + time.perf_counter() - t:.1f} s ({t8:.1f} s "
         f"of runs, {time.perf_counter() - t:.1f} s of kernels and times)")
 
+    lap("8 kernels")
     rows = []
     for row in grid_rows:
         if row["name"] == "rowslab":      # the drain, phase 6's path
@@ -4061,6 +4467,8 @@ def main() -> None:
     p10_busy()
     torch.cuda.empty_cache()
     p11_busy()
+    torch.cuda.empty_cache()
+    p12_busy()
     for row in lm_rows:
         if row["name"] == "flash_attention":
             row["launches_by_path"] = {
@@ -4072,10 +4480,18 @@ def main() -> None:
                 "qwen3_0p6b training, 8 steps, with lse (phase 11)":
                     p11_launches}
             row["at_shapes"] = p9_shapes + p10_shapes
+        if row["name"] == "wkv_chunked":
+            row["launches_by_path"] = {
+                "rwkv6_3b prefill (phase 7)": row["launches"],
+                "rwkv6_3b training, 8 steps, with the saved states "
+                "(phase 12)": p12_launches}
     rows += lm_rows
     rows.append(bwd_row)
+    rows.append(wkv_bwd_row)
     rows.append(admit_row)
-    log(f"[done] all eleven phases in {time.perf_counter() - t_start:.1f} s")
+    lap("profiles of 7, 9, 10, 11, 12")
+    log(f"[done] seconds by phase, in the order run: {dict(laps)}")
+    log(f"[done] all twelve phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

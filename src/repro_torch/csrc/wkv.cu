@@ -11,9 +11,10 @@
 //         + sum_{s<t} (r_t e^{ce_t - c} . k_s e^{c - cum_s}) v_s  (intra)
 //         + (r_t . u k_t) v_t                                  (bonus)
 //   S'    = diag(e^{cum_last}) S + sum_s (k_s e^{cum_last - cum_s})^T v_s.
-// It also starts from a given state and writes the final one.  D in
-// {16, 32, 64}, C from 1 to 128; r, k, v float32 or bf16, log w and u
-// float32, out and state float32.
+// It also starts from a given state and writes the final one, and, when
+// asked (training: csrc/wkv_bwd.cu reads them), the state entering each
+// chunk.  D in {16, 32, 64}, C from 1 to 128; r, k, v float32 or bf16, log
+// w and u float32, out and the states float32.
 //
 // Bound.  At the RWKV prefill's shape (rwkv6-3b: B = 8, H = 48, S = 1,024,
 // D = 64, chunk 128, bf16 r/k/v) one launch moves 358.6 MB (r, k, v, log w
@@ -207,7 +208,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ w,
            const float* __restrict__ u, const float* __restrict__ state0,
-           float* __restrict__ out, float* __restrict__ state_out, int h_n,
+           float* __restrict__ out, float* __restrict__ state_out,
+           float* __restrict__ states, int h_n,
            int s_n, int c_n, bool vec, long long r_sb, long long r_sh,
            long long r_st, long long k_sb, long long k_sh, long long k_st,
            long long v_sb, long long v_sh, long long v_st, long long w_sb,
@@ -294,6 +296,18 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
 
   for (long long c0 = 0; c0 < s_n; c0 += c_n) {
     __syncthreads();             // this CTA is done with the last chunk
+    if (states && s_owner) {     // the state entering the chunk
+      float* sc = states + ((size_t(b) * h_n + h) * (s_n / c_n) + c0 / c_n)
+                  * kD * kD + j0;
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int i = i0 + g + 8 * (e >> 1), j = nj * 8 + 2 * q4;
+          *reinterpret_cast<float2*>(sc + size_t(i) * kD + j) =
+              make_float2(sreg[nj][e], sreg[nj][e + 1]);
+        }
+    }
     // 1. log w into r', then thread t's row from there and its inclusive
     // scan over the warp's rows; k' holds the warp's partial cum until the
     // next step
@@ -529,8 +543,9 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
 template <typename T, int kD>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const void* w, const void* u, const void* state0,
-                   void* out, void* state, int b, int h, int s, int c,
-                   bool vec, const long long* st, cudaStream_t stream) {
+                   void* out, void* state, void* states, int b, int h,
+                   int s, int c, bool vec, const long long* st,
+                   cudaStream_t stream) {
   const size_t bytes = Tile<kD>::FLOATS * sizeof(float);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -557,7 +572,8 @@ cudaError_t launch(const void* r, const void* k, const void* v,
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(w), static_cast<const float*>(u),
       static_cast<const float*>(state0), static_cast<float*>(out),
-      static_cast<float*>(state), h, s, c, vec, st[0], st[1], st[2], st[3],
+      static_cast<float*>(state), static_cast<float*>(states), h, s, c, vec,
+      st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12],
       st[13], st[14]);
   if (e != cudaSuccess) return e;
@@ -567,17 +583,17 @@ cudaError_t launch(const void* r, const void* k, const void* v,
 template <typename T>
 cudaError_t dispatch(const void* r, const void* k, const void* v,
                      const void* w, const void* u, const void* state0,
-                     void* out, void* state, int b, int h, int s, int d,
-                     int c, bool vec, const long long* st,
+                     void* out, void* state, void* states, int b, int h,
+                     int s, int d, int c, bool vec, const long long* st,
                      cudaStream_t stream) {
   if (d == 16)
-    return launch<T, 16>(r, k, v, w, u, state0, out, state, b, h, s, c, vec,
-                         st, stream);
+    return launch<T, 16>(r, k, v, w, u, state0, out, state, states, b, h, s,
+                         c, vec, st, stream);
   if (d == 32)
-    return launch<T, 32>(r, k, v, w, u, state0, out, state, b, h, s, c, vec,
-                         st, stream);
-  return launch<T, 64>(r, k, v, w, u, state0, out, state, b, h, s, c, vec,
-                       st, stream);
+    return launch<T, 32>(r, k, v, w, u, state0, out, state, states, b, h, s,
+                         c, vec, st, stream);
+  return launch<T, 64>(r, k, v, w, u, state0, out, state, states, b, h, s, c,
+                       vec, st, stream);
 }
 
 }  // namespace
@@ -588,13 +604,16 @@ extern "C" {
 // success).  dtype 0 = float32, 1 = bf16 (r, k, v).  r, k, v, log w and out
 // are [b, h, s, d] with element strides (batch, head, step) given in that
 // order for r, k, v, w, out and a contiguous last axis; u is [h, d];
-// state0 (null for zeros) and state are contiguous [b, h, d, d].  vec: every
+// state0 (null for zeros) and state are contiguous [b, h, d, d]; states
+// (null: not written) a contiguous [b, h, s / c, d, d], the state entering
+// each chunk.  vec: every
 // pointer of r, k, v and log w 16-byte aligned and each of their strides a
 // multiple of 8 elements (vector loads).  Requires d in {16, 32, 64},
 // 1 <= c <= 128 and s % c == 0.
 int wkv_launch(int dtype, const void* r, const void* k, const void* v,
                const void* w, const void* u, const void* state0, void* out,
-               void* state, int b, int h, int s, int d, int c, int vec,
+               void* state, void* states, int b, int h, int s, int d, int c,
+               int vec,
                long long r_sb, long long r_sh, long long r_st,
                long long k_sb, long long k_sh, long long k_st,
                long long v_sb, long long v_sh, long long v_st,
@@ -607,10 +626,11 @@ int wkv_launch(int dtype, const void* r, const void* k, const void* v,
                             v_st, w_sb, w_sh, w_st, o_sb, o_sh, o_st};
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      dtype == 0 ? dispatch<float>(r, k, v, w, u, state0, out, state, b, h,
-                                   s, d, c, vec != 0, st, cs)
+      dtype == 0 ? dispatch<float>(r, k, v, w, u, state0, out, state, states,
+                                   b, h, s, d, c, vec != 0, st, cs)
                  : dispatch<__nv_bfloat16>(r, k, v, w, u, state0, out, state,
-                                           b, h, s, d, c, vec != 0, st, cs);
+                                           states, b, h, s, d, c, vec != 0,
+                                           st, cs);
   return static_cast<int>(e);
 }
 

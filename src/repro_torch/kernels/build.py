@@ -22,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("megastep", "rowslab", "scan", "conflict", "admit",
-           "admit_ops", "flash_attention", "flash_attention_bwd", "wkv")
+           "admit_ops", "flash_attention", "flash_attention_bwd", "wkv",
+           "wkv_bwd")
 # sm_90a: Hopper.  --fmad=false: no multiply-add contraction anywhere, so
 # float results are the plain versions' to the bit.
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

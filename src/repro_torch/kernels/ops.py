@@ -10,12 +10,11 @@ build or launch on the card raises.  ``launch_counts`` reads the
 wrappers' launch counters and ``reset_launches`` sets them to 0.
 
 Under autograd (grad enabled and an input that requires it)
-``flash_attention`` is a ``torch.autograd.Function``: its forward and its
-backward go to the two kernels on CUDA tensors and to the plain versions
-(``flash_attention_ref``, ``flash_attention_bwd_ref``) on CPU tensors.
-``wkv_chunked`` has no backward kernel yet: under autograd on a CUDA
-tensor it raises ``NotImplementedError`` (on the CPU its plain version is
-differentiated by autograd).
+``flash_attention`` and ``wkv_chunked`` are ``torch.autograd.Function``s
+(``_Flash``, ``_WKV``): the forward and the backward of each go to its
+two kernels on CUDA tensors and to the plain versions
+(``flash_attention_ref`` and ``flash_attention_bwd_ref``,
+``wkv_chunked_ref`` and ``wkv_chunked_bwd_ref``) on CPU tensors.
 """
 from __future__ import annotations
 
@@ -187,19 +186,45 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return fn(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
 
 
+class _WKV(torch.autograd.Function):
+    """The chunked WKV with its backward: the forward keeps its inputs and
+    the state entering each chunk for the backward kernel; a gradient of
+    the output or of the final state that autograd does not give counts
+    as zero."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, state0, chunk):
+        fn = _wkv.wkv_chunked if _route(r, "wkv_chunked") \
+            else ref.wkv_chunked_ref
+        out, state, states = fn(r, k, v, log_w, u, chunk=chunk,
+                                state0=state0, return_states=True)
+        ctx.save_for_backward(r, k, v, log_w, u, states)
+        ctx.chunk = chunk
+        ctx.has_state0 = state0 is not None
+        ctx.set_materialize_grads(False)
+        return out, state
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, log_w, u, states = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        fn = _wkv.wkv_chunked_bwd if _route(r, "wkv_chunked") \
+            else ref.wkv_chunked_bwd_ref
+        dr, dk, dv, dw, du, ds0 = fn(r, k, v, log_w, u, states, dout,
+                                     dstate, chunk=ctx.chunk)
+        return dr, dk, dv, dw, du, ds0 if ctx.has_state0 else None, None
+
+
 def wkv_chunked(r, k, v, log_w, u, *, chunk: int = 64, state0=None):
     """Chunked WKV: r/k/v/log_w ``[B, H, S, D]``, u ``[H, D]`` -> (out
-    float32 ``[B, H, S, D]``, final state float32 ``[B, H, D, D]``).
-    Under autograd on a CUDA tensor it raises: the kernel has no
-    backward yet."""
-    if _route(r, "wkv_chunked"):
-        if _needs_grad(r, k, v, log_w, u, state0):
-            raise NotImplementedError(
-                "wkv_chunked has no backward kernel yet (ROADMAP.md, queue "
-                "1 item 4b): rwkv trains on the CPU only")
-        return _wkv.wkv_chunked(r, k, v, log_w, u, chunk=chunk,
-                                state0=state0)
-    return ref.wkv_chunked_ref(r, k, v, log_w, u, chunk=chunk, state0=state0)
+    float32 ``[B, H, S, D]``, final state float32 ``[B, H, D, D]``);
+    differentiable (``_WKV``) where an input requires grad."""
+    if _needs_grad(r, k, v, log_w, u, state0):
+        return _WKV.apply(r, k, v, log_w, u, state0, chunk)
+    fn = _wkv.wkv_chunked if _route(r, "wkv_chunked") \
+        else ref.wkv_chunked_ref
+    return fn(r, k, v, log_w, u, chunk=chunk, state0=state0)
 
 
 _COUNTERS = (_megastep.launches, _scan.launches, _conflict.launches,

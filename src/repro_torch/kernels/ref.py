@@ -6,8 +6,9 @@ the CPU tests hold them to the JAX reference, and ``chip_smoke.py``
 holds each kernel to them on the card: bit-equal for the integer and
 logic kernels, within a stated tolerance for the float kernels of the
 language model (``flash_attention_ref`` and its backward
-``flash_attention_bwd_ref``, ``wkv_chunked_ref``), whose sums the kernels
-take in another order.  ``wkv_ref`` is the sequential WKV recurrence, the
+``flash_attention_bwd_ref``, ``wkv_chunked_ref`` and its backward
+``wkv_chunked_bwd_ref``), whose sums the kernels take in another
+order.  ``wkv_ref`` is the sequential WKV recurrence, the
 oracle of both.
 """
 from __future__ import annotations
@@ -486,14 +487,17 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
 def wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     log_w: torch.Tensor, u: torch.Tensor, *,
-                    chunk: int = 64, state0: Optional[torch.Tensor] = None):
+                    chunk: int = 64, state0: Optional[torch.Tensor] = None,
+                    return_states: bool = False):
     """Chunked RWKV6 WKV, the math of ``repro/kernels/wkv.py`` and of the
     model's ``rwkv.wkv_chunked``: r/k/v/log_w ``[B, H, S, D]`` (any
     strides; log_w float32), u ``[H, D]`` float32, ``S`` a multiple of
     ``chunk``.  Per chunk: r against the carried state, the decayed
     r k^T in the strict lower triangle centred by ``cum_last / 2``, the
     ``u`` bonus on the diagonal, then the state update.  Returns (out
-    ``[B, H, S, D]`` float32, final state ``[B, H, D, D]`` float32)."""
+    ``[B, H, S, D]`` float32, final state ``[B, H, D, D]`` float32), and
+    with ``return_states`` also the state entering each chunk, float32
+    ``[B, H, S / chunk, D, D]`` (what ``wkv_chunked_bwd_ref`` takes)."""
     b, h, s, d = r.shape
     if s % chunk:
         raise ValueError(f"wkv_chunked_ref: S={s} is not a multiple of "
@@ -503,8 +507,9 @@ def wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     uu = u.float()[None, :, None, :]                          # [1,H,1,D]
     tril = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=r.device).tril(-1)
-    outs = []
+    outs, states = [], []
     for c0 in range(0, s, chunk):
+        states.append(state)
         rq, kq, vq, wq = (x[:, :, c0:c0 + chunk].float()
                           for x in (r, k, v, log_w))
         cum = wq.cumsum(2)                    # inclusive cumulative decay
@@ -520,7 +525,90 @@ def wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k_dec = kq * torch.exp(last - cum)
         state = torch.exp(last).transpose(-1, -2) * state + \
             k_dec.transpose(-1, -2) @ vq
-    return torch.cat(outs, dim=2), state
+    out = torch.cat(outs, dim=2)
+    if return_states:
+        return out, state, torch.stack(states, 2)
+    return out, state
+
+
+def wkv_chunked_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        log_w: torch.Tensor, u: torch.Tensor,
+                        states: torch.Tensor, dout: torch.Tensor,
+                        dstate: Optional[torch.Tensor] = None, *,
+                        chunk: int = 64):
+    """The gradients ``(dr, dk, dv, dlog_w, du, dstate0)`` of
+    ``wkv_chunked_ref``'s (out, final state) against ``(dout, dstate)``
+    (``dstate`` None for a zero gradient of the final state), by the
+    explicit formulas (no autograd), float32 inside.  ``states`` is the
+    forward's state entering each chunk (``return_states``).
+
+    Per chunk, walked in reverse with the state's gradient ``G`` (that of
+    the state the chunk writes) carried, with cum, ce = cum - log w, L =
+    cum_last and the forward's centring c = L / 2, r' = r e^{ce - c},
+    k' = k e^{c - cum}, A = (r' k'^T) strictly below the diagonal and
+    the bonus ru = r . (u k):
+      dA = (dO v^T) strictly below, dru = rowsum(dO * v),
+      dv = A^T dO + ru dO + k' (e^c G),
+      dr = e^{ce - c} (dA k' + dO (e^c S)^T) + dru u k,
+      dk = e^{c - cum} (dA^T r' + v (e^c G)^T) + dru u r,
+      du = sum over batch and steps of dru r k,
+      G <- e^L G + e^c (r'^T dO)   (the gradient of the entering state),
+    and log w's, through ce = cum - log w and L: with gce = r' (dA k' +
+    dO (e^c S)^T) and gcum = -k' (dA^T r' + v (e^c G)^T), dlog_w[t] =
+    sum_{t' > t} gce[t'] + sum_{t' >= t} gcum[t'] + gL, where gL = sum_j
+    S G e^L + sum_s k' (v (e^c G)^T) is the same for every step of the
+    chunk (the centring cancels from A, so c takes no gradient).
+    Returns dr, dk, dv contiguous in the dtypes of r, k, v; dlog_w
+    ``[B, H, S, D]``, du ``[H, D]`` and dstate0 ``[B, H, D, D]``
+    float32."""
+    b, h, s, d = r.shape
+    if s % chunk:
+        raise ValueError(f"wkv_chunked_bwd_ref: S={s} is not a multiple of "
+                         f"chunk={chunk}")
+    uu = u.float()[None, :, None, :]
+    tril = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=r.device).tril(-1)
+    g = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if dstate is None else dstate.float())
+    grads = {name: [] for name in ("dr", "dk", "dv", "dw")}
+    du = torch.zeros((b, h, d), dtype=torch.float32, device=r.device)
+    for ci in reversed(range(s // chunk)):
+        c0 = ci * chunk
+        rq, kq, vq, wq, go = (x[:, :, c0:c0 + chunk].float()
+                              for x in (r, k, v, log_w, dout))
+        st = states[:, :, ci].float()
+        cum = wq.cumsum(2)
+        ce = cum - wq
+        last = cum[:, :, -1:]                             # [B,H,1,D]
+        c = last * 0.5
+        er, ek = torch.exp(ce - c), torch.exp(c - cum)
+        rp, kp = rq * er, kq * ek
+        ec = torch.exp(c).transpose(-1, -2)               # [B,H,D,1]
+        a = torch.where(tril, rp @ kp.transpose(-1, -2), 0.0)
+        da = torch.where(tril, go @ vq.transpose(-1, -2), 0.0)
+        dru = (go * vq).sum(-1, keepdim=True)             # [B,H,C,1]
+        ru = (rq * uu * kq).sum(-1, keepdim=True)
+        g_c = ec * g                                      # e^c G
+        dv = a.transpose(-1, -2) @ go + ru * go + kp @ g_c
+        dr_dec = da @ kp + go @ (ec * st).transpose(-1, -2)
+        dk_state = vq @ g_c.transpose(-1, -2)
+        dk_dec = da.transpose(-1, -2) @ rp + dk_state
+        gce, gcum = rp * dr_dec, -kp * dk_dec
+        gl = (torch.exp(last).transpose(-1, -2) * st * g).sum(-1)[:, :, None]
+        gl = gl + (kp * dk_state).sum(2, keepdim=True)    # [B,H,1,D]
+        suffix = gcum.flip(2).cumsum(2).flip(2) + \
+            gce.flip(2).cumsum(2).flip(2) - gce
+        grads["dw"].append(suffix + gl)
+        grads["dr"].append(er * dr_dec + dru * uu * kq)
+        grads["dk"].append(ek * dk_dec + dru * uu * rq)
+        grads["dv"].append(dv)
+        du += (dru * rq * kq).sum(2)
+        g = torch.exp(last).transpose(-1, -2) * g + \
+            ec * (rp.transpose(-1, -2) @ go)
+    dr, dk, dv, dw = (torch.cat(grads[n][::-1], dim=2)
+                      for n in ("dr", "dk", "dv", "dw"))
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du.sum(0),
+            g)
 
 
 def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Launch wrapper of the chunked WKV kernel (``csrc/wkv.cu``).
+"""Launch wrappers of the chunked WKV kernel (``csrc/wkv.cu``) and its
+backward (``csrc/wkv_bwd.cu``).
 
 ``wkv_chunked`` replaces ``repro/kernels/wkv.py::wkv_chunked``
 (``_wkv_kernel``): the chunked RWKV6 WKV with the float32 ``[D, D]``
@@ -15,9 +16,17 @@ H*D]`` tensors as ``[B, H, S, D]`` views, and the kernel reads them
 through their strides; only the last axis must be contiguous.  u is
 ``[H, D]`` float32.  The output is a float32 ``[B, H, S, D]`` view of a
 ``[B, S, H, D]`` tensor, so the model reshapes it back without a copy;
-the state is a contiguous float32 ``[B, H, D, D]``.  The plain version
-is ``ref.wkv_chunked_ref``.  ``launches`` counts launches, and nothing
-else.
+the state is a contiguous float32 ``[B, H, D, D]``.  With
+``return_states`` the forward also writes the state entering each chunk,
+float32 ``[B, H, S / chunk, D, D]``, which the backward reads.
+
+``wkv_chunked_bwd`` replaces no TPU kernel (the reference trains by XLA's
+autodiff of the model's chunk scan): from the forward's inputs, its
+states and the output's gradient (and, if any, the final state's), one
+host call (two device kernels) gives dr, dk, dv in the dtypes of r, k, v,
+and dlog_w, du and dstate0 in float32.  The plain versions are
+``ref.wkv_chunked_ref`` and ``ref.wkv_chunked_bwd_ref``.  ``launches``
+counts launches (host calls), and nothing else.
 """
 from __future__ import annotations
 
@@ -30,27 +39,34 @@ from . import build
 HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-launches = {"wkv_chunked": 0}
+BWD = "wkv_chunked_bwd"
+launches = {"wkv_chunked": 0, BWD: 0}
 
-_fn = None
+_fns: dict = {}
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
-        fn = build.load("wkv").wkv_launch
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 15
-                       + [ctypes.c_void_p])
+def _launcher(name: str = "wkv"):
+    """The C entry of library ``wkv`` (the forward) or ``wkv_bwd``."""
+    fn = _fns.get(name)
+    if fn is None:
+        lib = build.load(name)
+        if name == "wkv":
+            fn = lib.wkv_launch
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                           + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 15
+                           + [ctypes.c_void_p])
+        else:
+            fn = lib.wkv_bwd_launch
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
+                           + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
-def wkv_chunked(r, k, v, log_w, u, *, chunk: int = 64, state0=None):
-    """One launch -> (out float32 ``[B, H, S, D]``, final state float32
-    ``[B, H, D, D]``)."""
-    name = "wkv_chunked"
+def _check(name, r, k, v, log_w, u, chunk):
+    """(b, h, s, d) of the forward's arguments, which both kernels take;
+    raises on what they do not take."""
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {dev}")
@@ -74,12 +90,25 @@ def wkv_chunked(r, k, v, log_w, u, *, chunk: int = 64, state0=None):
             raise ValueError(f"{name}: {arg} must lie on {dev} with a "
                              f"contiguous last axis")
     build.check_arg(name, "u", u, torch.float32, (h, d), dev)
+    return b, h, s, d
+
+
+def wkv_chunked(r, k, v, log_w, u, *, chunk: int = 64, state0=None,
+                return_states: bool = False):
+    """One launch -> (out float32 ``[B, H, S, D]``, final state float32
+    ``[B, H, D, D]``), and with ``return_states`` the state entering each
+    chunk, float32 ``[B, H, S / chunk, D, D]``."""
+    name = "wkv_chunked"
+    b, h, s, d = _check(name, r, k, v, log_w, u, chunk)
+    dev = r.device
     if state0 is not None:
         build.check_arg(name, "state0", state0, torch.float32, (b, h, d, d),
                         dev)
     out = torch.empty((b, s, h, d), dtype=torch.float32,
                       device=dev).transpose(1, 2)
     state = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
+    states = torch.empty((b, h, s // chunk, d, d), dtype=torch.float32,
+                         device=dev) if return_states else None
     if state.numel():
         strides = [x for t in (r, k, v, log_w, out) for x in t.stride()[:3]]
         # vector loads: 16-byte aligned rows at strides of 8 elements
@@ -89,10 +118,61 @@ def wkv_chunked(r, k, v, log_w, u, *, chunk: int = 64, state0=None):
         rc = _launcher()(DTYPES[r.dtype], r.data_ptr(), k.data_ptr(),
                          v.data_ptr(), log_w.data_ptr(), u.data_ptr(),
                          0 if state0 is None else state0.data_ptr(),
-                         out.data_ptr(), state.data_ptr(), b, h, s, d, chunk,
-                         int(vec), *strides,
+                         out.data_ptr(), state.data_ptr(),
+                         0 if states is None else states.data_ptr(), b, h, s,
+                         d, chunk, int(vec), *strides,
                          torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             raise RuntimeError(f"{name} launch failed: cudaError {rc}")
         launches[name] += 1
+    if return_states:
+        return out, state, states
     return out, state
+
+
+def wkv_chunked_bwd(r, k, v, log_w, u, states, dout, dstate=None, *,
+                    chunk: int = 64):
+    """One launch (two device kernels) -> ``(dr, dk, dv, dlog_w, du,
+    dstate0)``: the gradients of ``wkv_chunked``'s (out, final state)
+    against ``dout`` (float32 ``[B, H, S, D]``, any strides with a
+    contiguous last axis) and ``dstate`` (float32 ``[B, H, D, D]``, None
+    for zeros), from the forward's arguments and its ``states``.  dr, dk,
+    dv come in the dtypes and, where those are dense, the layouts of r, k,
+    v; dlog_w in log_w's; du ``[H, D]`` and dstate0 ``[B, H, D, D]``
+    float32."""
+    name = BWD
+    b, h, s, d = _check(name, r, k, v, log_w, u, chunk)
+    dev = r.device
+    build.check_arg(name, "states", states, torch.float32,
+                    (b, h, s // chunk, d, d), dev)
+    if dout.shape != r.shape or dout.dtype != torch.float32 or \
+            dout.device != dev:
+        raise ValueError(f"{name}: dout must be a float32 {tuple(r.shape)} "
+                         f"tensor on {dev}, got {dout.dtype} "
+                         f"{tuple(dout.shape)} on {dout.device}")
+    if dout.numel() and dout.stride(3) != 1:
+        dout = dout.contiguous()
+    if dstate is not None:
+        build.check_arg(name, "dstate", dstate, torch.float32, (b, h, d, d),
+                        dev)
+    dr, dk, dv, dlog_w = (torch.empty_like(t) for t in (r, k, v, log_w))
+    du = torch.zeros((h, d), dtype=torch.float32, device=dev)
+    dstate0 = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
+    if not r.numel():
+        return dr, dk, dv, dlog_w, du, dstate0.zero_() if dstate is None \
+            else dstate.clone()
+    du_part = torch.empty((b, h, d), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 27)(*(
+        x for t in (r, k, v, log_w, dout, dr, dk, dv, dlog_w)
+        for x in t.stride()[:3]))
+    rc = _launcher("wkv_bwd")(
+        DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
+        log_w.data_ptr(), u.data_ptr(), states.data_ptr(), dout.data_ptr(),
+        0 if dstate is None else dstate.data_ptr(), dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(), du_part.data_ptr(),
+        du.data_ptr(), dstate0.data_ptr(), b, h, s, d, chunk, strides,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    launches[name] += 1
+    return dr, dk, dv, dlog_w, du, dstate0

@@ -17,6 +17,11 @@ each parameter is overwritten by its master weight cast to its dtype
 (the reference returns new arrays and its train step donates the old
 ones).  The train step (``launch.steps``) calls it only after a finite
 loss, so a non-finite step changes nothing, the step counter included.
+The elementwise passes run over groups of parameters of at most
+``GROUP_ELEMS`` elements, so that their float32 temporaries stay near
+two groups' worth (rwkv6-3b's 3.3 G parameters would otherwise need 26
+GB of them on top of its 53 GB of state); every element's arithmetic is
+the same as over the whole list at once.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 Tree = Dict[str, torch.Tensor]
+GROUP_ELEMS = 1 << 28
 
 
 class AdamWState(NamedTuple):
@@ -95,6 +101,28 @@ def update(cfg: AdamWConfig, grads: Tree, state: AdamWState, params: Tree
     # the float32 values, as Python floats (exact), for the foreach ops
     scale_, lr_, b1c_, b2c_ = (float(x) for x in
                                torch.stack([scale, lr, b1c, b2c]).cpu())
+    for group in _groups(names, params):
+        _apply(cfg, group, grads, state, params, scale_, lr_, b1c_, b2c_)
+    state = AdamWState(step, state.m, state.v, state.master)
+    return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _groups(names: list, params: Tree) -> list:
+    """``names`` cut in order into runs of at most ``GROUP_ELEMS``
+    elements (a larger parameter alone)."""
+    groups, cur, n = [], [], 0
+    for k in names:
+        size = params[k].numel()
+        if cur and n + size > GROUP_ELEMS:
+            groups.append(cur)
+            cur, n = [], 0
+        cur.append(k)
+        n += size
+    return groups + [cur] if cur else groups
+
+
+def _apply(cfg, names, grads, state, params, scale_, lr_, b1c_, b2c_):
+    """The elementwise update of the parameters ``names``, in place."""
     m = [state.m[k] for k in names]
     v = [state.v[k] for k in names]
     w = [state.master[k] for k in names]
@@ -120,5 +148,3 @@ def update(cfg: AdamWConfig, grads: Tree, state: AdamWState, params: Tree
     del upd
     for k, mw in zip(names, w):
         params[k].copy_(mw)
-    state = AdamWState(step, state.m, state.v, state.master)
-    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -1210,15 +1210,66 @@ def test_flash_bwd_rejects_what_it_does_not_take(cuda):
         kflash.flash_attention_bwd(big, big, big, big, big, lse[:, :1, :4])
 
 
-def test_wkv_chunked_raises_under_grad_on_the_card(cuda):
-    """No backward kernel for the WKV yet: under autograd on a CUDA tensor
-    ``ops.wkv_chunked`` raises rather than run its plain version."""
-    gen = torch.Generator().manual_seed(0)
-    r, k, v, lw, u = _wkv_inputs(gen, 1, 2, 64, 16, torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.wkv_chunked(r.requires_grad_(), k, v, lw, u, chunk=16)
-    with torch.no_grad():
-        ops.wkv_chunked(r, k, v, lw, u, chunk=16)
+# the backward at the training call's shape and its edges: (b, h, s, d,
+# chunk, dtype, initial state and final-state gradient, strong decay)
+WKV_BWD_CASES = [
+    (8, 48, 1024, 64, 128, torch.bfloat16, False, False),
+    (2, 3, 64, 16, 16, torch.float32, True, False),
+    (1, 3, 128, 32, 64, torch.float32, False, False),
+    (1, 4, 256, 64, 128, torch.float32, True, False),
+    (1, 2, 8, 64, 1, torch.float32, True, False),
+    (1, 4, 128, 64, 16, torch.bfloat16, True, False),
+    (2, 3, 32, 32, 32, torch.bfloat16, False, False),
+    (1, 4, 256, 64, 64, torch.float32, True, True)]
+WKV_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _wkv_bwd_case(gen, b, h, s, d, chunk, dtype, extras, strong, dev):
+    r, k, v, lw, u = _wkv_inputs(gen, b, h, s, d, dtype, dev)
+    if strong:              # |log w| near 2.5 a step
+        lw = (-2.5 * torch.exp(torch.randn((b, s, h, d), generator=gen)
+                               * 0.05)).to(dev).transpose(1, 2)
+    s0 = (torch.randn((b, h, d, d), generator=gen) * 0.1).to(dev) \
+        if extras else None
+    ds = torch.randn((b, h, d, d), generator=gen).to(dev) if extras else None
+    go = torch.randn((b, s, h, d), generator=gen).to(dev).transpose(1, 2)
+    return r, k, v, lw, u, s0, go, ds
+
+
+@pytest.mark.parametrize("b,h,s,d,chunk,dtype,extras,strong", WKV_BWD_CASES)
+def test_wkv_chunked_bwd_kernel_matches_plain(cuda, b, h, s, d, chunk, dtype,
+                                              extras, strong):
+    """The backward kernel against ``wkv_chunked_bwd_ref`` on the same
+    saved states: each gradient within 1e-4 (float32) or 1e-2 (bf16
+    dr/dk/dv) of its largest magnitude, bit-equal between two runs, dr /
+    dk / dv / dlog_w in the layouts of r / k / v / log_w; the forward's
+    output and final state bit-equal with and without the states, which
+    are within 1e-4 of the plain forward's."""
+    from repro_torch.kernels import wkv as kwkv
+    gen = torch.Generator().manual_seed(b * s + d + chunk)
+    r, k, v, lw, u, s0, go, ds = _wkv_bwd_case(gen, b, h, s, d, chunk,
+                                               dtype, extras, strong, cuda)
+    out, st = kwkv.wkv_chunked(r, k, v, lw, u, chunk=chunk, state0=s0)
+    out2, st2, states = kwkv.wkv_chunked(r, k, v, lw, u, chunk=chunk,
+                                         state0=s0, return_states=True)
+    assert torch.equal(out, out2) and torch.equal(st, st2)
+    want_states = ref.wkv_chunked_ref(r, k, v, lw, u, chunk=chunk,
+                                      state0=s0, return_states=True)[2]
+    torch.testing.assert_close(states, want_states, atol=1e-4, rtol=1e-3)
+    before = ops.launch_counts()[kwkv.BWD]
+    got = kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go, ds, chunk=chunk)
+    again = kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go, ds, chunk=chunk)
+    want = ref.wkv_chunked_bwd_ref(r, k, v, lw, u, states, go, ds,
+                                   chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[kwkv.BWD] == before + 2
+    for i, (g, w, x) in enumerate(zip(got, want, (r, k, v, lw, u, s0))):
+        tol = WKV_BWD_TOL[g.dtype]
+        scale = max(1e-30, float(w.float().abs().max()))
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale, i
+        assert torch.equal(g, again[i]), i
+        if i < 4:
+            assert g.stride() == x.stride() and g.dtype == x.dtype, i
 
 
 def _wkv_inputs(gen, b, h, s, d, dtype, dev):
@@ -1488,6 +1539,17 @@ def test_wkv_rejects_what_it_does_not_take(cuda):
     from repro_torch.kernels import wkv as kwkv
     gen = torch.Generator().manual_seed(0)
     r, k, v, lw, u = _wkv_inputs(gen, 1, 2, 64, 16, torch.float32, cuda)
+    _, _, states = kwkv.wkv_chunked(r, k, v, lw, u, chunk=16,
+                                    return_states=True)
+    go = torch.zeros_like(r)
+    with pytest.raises(ValueError):                  # states of another chunk
+        kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go, chunk=32)
+    with pytest.raises(ValueError):                  # dout not float32
+        kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go.bfloat16(),
+                             chunk=16)
+    with pytest.raises(ValueError):                  # dstate of another shape
+        kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go, states[:, :, 0, :8],
+                             chunk=16)
     with pytest.raises(ValueError):                  # chunk does not divide S
         kwkv.wkv_chunked(r, k, v, lw, u, chunk=48)
     with pytest.raises(ValueError):                  # chunk above 128
@@ -1629,13 +1691,15 @@ def test_moe_on_the_card_is_deterministic(cuda):
 # kernels against the plain versions on the CPU
 
 @pytest.mark.parametrize("arch", ["qwen3_0p6b", "zamba2_1p2b", "dbrx_132b",
-                                  "llama3p2_vision_11b", "hubert_xlarge"])
+                                  "llama3p2_vision_11b", "hubert_xlarge",
+                                  "rwkv6_3b"])
 def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     """The smoke model in float32: ``LM.loss``, its gradients and two AdamW
     steps on the card (flash's CUDA-core forward and its backward kernel,
-    one of each per attention layer and pass) against the CPU, the
-    losses and gradient norms within 1e-4, each gradient within 1e-4 of
-    its largest magnitude."""
+    one of each per attention layer and pass; for rwkv the WKV forward
+    twice a layer under its ``"full"`` remat, the backward once) against
+    the CPU, the losses and gradient norms within 1e-4, each gradient
+    within 1e-4 of its largest magnitude."""
     from repro_torch import configs
     from repro_torch.data import pipeline
     from repro_torch.launch import steps
@@ -1653,11 +1717,18 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     ops.reset_launches()
     lg, mg, gg = steps.loss_and_grads(gpu, pipeline.to_device(host, cuda))
     counts = ops.launch_counts()
-    n_attn = cfg.n_layers // cfg.hybrid_attn_every \
-        if cfg.family == "hybrid" else cfg.n_layers
-    assert counts["flash_attention"] == counts["flash_attention_bwd"] \
-        == n_attn, counts          # float32: the CUDA-core routes alone
-    assert _bwd_launches() == {"flash_attention_bwd": n_attn}, counts
+    if cfg.family == "rwkv":
+        remat = 2 if cfg.remat_policy != "nothing" else 1
+        assert counts["wkv_chunked"] == remat * cfg.n_layers and \
+            counts["wkv_chunked_bwd"] == cfg.n_layers and \
+            counts["flash_attention"] == 0, counts
+    else:
+        n_attn = cfg.n_layers // cfg.hybrid_attn_every \
+            if cfg.family == "hybrid" else cfg.n_layers
+        assert counts["flash_attention"] == \
+            counts["flash_attention_bwd"] == n_attn, counts
+        # float32: the CUDA-core routes alone
+        assert _bwd_launches() == {"flash_attention_bwd": n_attn}, counts
     lc, mc, gc = steps.loss_and_grads(cpu, pipeline.to_device(host, "cpu"))
     torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
     for k, v in gc.items():
@@ -1677,17 +1748,34 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     np.testing.assert_allclose(out["gpu"], out["cpu"], rtol=1e-4)
 
 
-def test_rwkv_training_raises_on_the_card(cuda):
-    """The WKV kernel has no backward yet: rwkv's loss under autograd on the
-    card raises (ROADMAP.md), and runs without grad."""
+def test_rwkv_training_on_the_card_matches_the_cpu(cuda):
+    """rwkv's loss and gradients on the card, through the WKV forward and
+    backward kernels (``ops._WKV``), against the CPU's plain versions, in
+    float32 at the smoke config with a padded head (D = 16, two chunks of
+    128 over S = 256): the loss and every gradient within 1e-4 of its
+    largest magnitude; and its loss without grad."""
     from repro_torch import configs
     from repro_torch.models import LM, layers
-    cfg = configs.get_smoke("rwkv6_3b")
-    lm = LM(cfg, device=cuda).init(torch.Generator(cuda).manual_seed(0))
-    tok = torch.randint(0, cfg.vocab, (2, 64), device=cuda)
-    batch = {"tokens": tok, "labels": tok}
-    with torch.no_grad():
-        assert torch.isfinite(lm.loss(batch)[0])
-    layers.trainable(lm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.loss(batch)
+    cfg = configs.get_smoke("rwkv6_3b").with_(
+        param_dtype="float32", compute_dtype="float32", rwkv_pad_heads=5)
+    cpu = layers.trainable(LM(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)))
+    gpu = layers.trainable(LM(cfg, device=cuda))
+    gpu.load_state_dict(cpu.state_dict())
+    tok = torch.randint(0, cfg.vocab, (2, 256),
+                        generator=torch.Generator().manual_seed(1))
+    out = {}
+    for name, lm, dev in (("gpu", gpu, cuda), ("cpu", cpu, "cpu")):
+        batch = {"tokens": tok.to(dev), "labels": tok.to(dev)}
+        with torch.no_grad():
+            assert torch.isfinite(lm.loss(batch)[0])
+        ops.reset_launches()
+        loss = lm.loss(batch)[0]
+        grads = torch.autograd.grad(loss, list(lm.parameters()))
+        out[name] = (loss, grads, ops.launch_counts())
+    (lg, gg, counts), (lc, gc, _) = out["gpu"], out["cpu"]
+    assert counts["wkv_chunked_bwd"] == cfg.n_layers, counts
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    for (name, _), g, c in zip(cpu.named_parameters(), gg, gc):
+        scale = max(1e-6, float(c.abs().max()))
+        assert float((g.cpu() - c).abs().max()) <= 1e-4 * scale, name

@@ -1,12 +1,15 @@
 """The port's in-loop telemetry (``EngCfg.telemetry``, ``repro_torch.obs``)
 against the JAX reference, on the CPU, compared bit for bit.
 
-Run ``python tests/test_torch_obs.py --write-golden`` to regenerate
-``src/repro_torch/golden/telemetry_h10000.json``: the JAX reference's
-``run_grid(delta=True, telemetry=True, trace_every=8, trace_len=256)``
-at the defaults of ``run_grid_h10000.json`` (``run_grid``'s defaults
-with the horizon cut to 10,000), whose telemetry ``chip_smoke.py``
-holds the port's run on the card to.
+Run ``python tests/test_torch_obs.py --write-golden --horizon 5000`` to
+regenerate ``src/repro_torch/golden/telemetry_h5000.json``: the JAX
+reference's ``run_grid(delta=True, telemetry=True, trace_every=8,
+trace_len=256)`` at the defaults of ``run_grid_h5000.json``
+(``run_grid``'s defaults with the horizon cut to 5,000), whose telemetry
+``chip_smoke.py``'s phase 6 holds the port's run on the card to (about
+five minutes of CPU).  ``--horizon 10000`` writes
+``telemetry_h10000.json`` from ``run_grid_h10000.json`` (about ten
+minutes), the horizon phase 6 ran to before.
 """
 import hashlib
 import json
@@ -36,10 +39,9 @@ from repro_torch.obs import trace as TTR  # noqa: E402
 
 GOLDEN_DIR = Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
     / "golden"
-# chip_smoke.py's phase 6 runs the default grid to this horizon
-HORIZON = 10_000
-GRID_GOLDEN = GOLDEN_DIR / f"run_grid_h{HORIZON}.json"
-TM_GOLDEN = GOLDEN_DIR / f"telemetry_h{HORIZON}.json"
+# chip_smoke.py's phase 6 runs the default grid to the first horizon; the
+# second is the one it ran to before
+HORIZONS = (5_000, 10_000)
 TM_RUN = dict(delta=True, telemetry=True, trace_every=8, trace_len=256)
 HISTS = ("lat_hist", "wait_hist", "restart_hist", "abort_causes",
          "block_causes")
@@ -63,14 +65,24 @@ def mid_lane(figs, mpl_grid, seeds) -> int:
     return (len(figs) // 2) * m * s + (m // 2) * s
 
 
-def write_golden(path: Path = TM_GOLDEN) -> None:
+def grid_golden(horizon: int) -> Path:
+    return GOLDEN_DIR / f"run_grid_h{horizon}.json"
+
+
+def tm_golden(horizon: int) -> Path:
+    return GOLDEN_DIR / f"telemetry_h{horizon}.json"
+
+
+def write_golden(horizon: int = HORIZONS[0]) -> Path:
     """Run the reference ``run_grid`` with ``TM_RUN`` at the defaults of
-    ``GRID_GOLDEN``, check its lane metrics against that file, and write
-    every lane's telemetry."""
+    ``run_grid_h<horizon>.json``, check its lane metrics against that
+    file, and write every lane's telemetry to
+    ``telemetry_h<horizon>.json``; returns that path."""
     from repro.core import sweep
     from repro.obs import metrics as JM
 
-    base = json.loads(GRID_GOLDEN.read_text())
+    grid_path, path = grid_golden(horizon), tm_golden(horizon)
+    base = json.loads(grid_path.read_text())
     grid = {k: base[k] for k in ("figs", "mpl_grid", "seeds", "horizon",
                                  "protocols")}
     t0 = time.perf_counter()
@@ -88,7 +100,7 @@ def write_golden(path: Path = TM_GOLDEN) -> None:
             if [v.item() for v in flat] != base["lanes"][proto][metric]:
                 raise AssertionError(
                     f"{proto}.{metric} with {TM_RUN} differs from "
-                    f"{GRID_GOLDEN.name}")
+                    f"{grid_path.name}")
 
         def flat_tm(key):
             a = np.stack([np.asarray(out[f][proto]["telemetry"][key])
@@ -103,11 +115,12 @@ def write_golden(path: Path = TM_GOLDEN) -> None:
                                            grid["seeds"])
     doc = {
         "what": "per-lane telemetry of the JAX reference repro.core.sweep."
-                f"run_grid(**run) at the defaults of {GRID_GOLDEN.name}, "
+                f"run_grid(**run) at the defaults of {grid_path.name}, "
                 "lanes figure-major (lane f*M*S + m*S + s); traces as "
                 "sha256 of float32 little-endian bytes, the mid lane's "
                 "in full",
-        "command": "python tests/test_torch_obs.py --write-golden",
+        "command": "python tests/test_torch_obs.py --write-golden "
+                   f"--horizon {horizon}",
         "jax": jax.__version__,
         "backend": jax.default_backend(),
         "cpu_seconds": round(seconds, 1),
@@ -120,6 +133,7 @@ def write_golden(path: Path = TM_GOLDEN) -> None:
         "lanes": lanes,
     }
     path.write_text(_dump(doc))
+    return path
 
 
 def _dump(doc) -> str:
@@ -275,20 +289,21 @@ def test_host_reductions_match_reference(tmp_path):
 # the committed golden
 # --------------------------------------------------------------------------
 
-def test_golden_schema_and_input_digest():
-    """``telemetry_h10000.json`` describes the run ``chip_smoke.py``
-    makes: the grid of ``run_grid_h10000.json``, the defaults of
-    ``run_grid`` but the horizon, the lanes the port builds for it
-    (their digest), the port's histogram edges, and every lane's
-    telemetry of that run."""
+@pytest.mark.parametrize("horizon", HORIZONS)
+def test_golden_schema_and_input_digest(horizon):
+    """``telemetry_h<horizon>.json`` describes the run ``chip_smoke.py``
+    makes (at 5,000; at 10,000 before): the grid of
+    ``run_grid_h<horizon>.json``, the defaults of ``run_grid`` but the
+    horizon, the lanes the port builds for it (their digest), the port's
+    histogram edges, and every lane's telemetry of that run."""
     import inspect
-    doc = json.loads(TM_GOLDEN.read_text())
-    base = json.loads(GRID_GOLDEN.read_text())
+    doc = json.loads(tm_golden(horizon).read_text())
+    base = json.loads(grid_golden(horizon).read_text())
     defaults = {k: v.default for k, v in
                 inspect.signature(TS.run_grid).parameters.items()}
     for k in ("figs", "mpl_grid", "seeds", "protocols"):
         assert doc[k] == base[k] == list(defaults[k]), k
-    assert doc["horizon"] == base["horizon"] == HORIZON
+    assert doc["horizon"] == base["horizon"] == horizon
     assert doc["run"] == TM_RUN
     seed_l, mpl_l, rt_l = TS.grid_lanes(doc["figs"], doc["mpl_grid"],
                                         doc["seeds"], "cpu")
@@ -320,8 +335,11 @@ def test_golden_schema_and_input_digest():
 
 
 if __name__ == "__main__":
-    if "--write-golden" in sys.argv[1:]:
-        write_golden()
-        print(f"wrote {TM_GOLDEN}")
+    args = sys.argv[1:]
+    if "--write-golden" in args:
+        h = int(args[args.index("--horizon") + 1]) if "--horizon" in args \
+            else HORIZONS[0]
+        print(f"wrote {write_golden(h)}")
     else:
-        sys.exit("usage: python tests/test_torch_obs.py --write-golden")
+        sys.exit("usage: python tests/test_torch_obs.py --write-golden "
+                 "[--horizon 5000|10000]")

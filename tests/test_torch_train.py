@@ -24,7 +24,10 @@ Run ``JAX_PLATFORMS=cpu PYTHONPATH=src python tests/test_torch_train.py
 (about a minute of CPU): the reference's run of
 ``repro_torch.launch.train_golden`` (qwen3-0.6b at full width cut to 2
 layers, float32, seeded weights, 3 AdamW steps), which the CPU test and
-``chip_smoke.py`` hold the port to.
+``chip_smoke.py`` hold the port to.  ``--write-golden --arch rwkv6_3b``
+writes ``train_rwkv_full_width.json``, the same run of rwkv6-3b at full
+width cut to 2 layers (its WKV through the plain forward and backward on
+the CPU, through the two kernels in ``chip_smoke.py``'s phase 12).
 """
 import json
 import sys
@@ -50,7 +53,6 @@ from repro_torch.launch import train_golden as TG  # noqa: E402
 from repro_torch.models import LM, convert, layers  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 
-GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "train_full_width.json"
 ARCHS = ("qwen3_0p6b", "llama3p2_1b", "stablelm_1p6b", "yi_34b",
          "rwkv6_3b", "zamba2_1p2b", "dbrx_132b", "llama4_maverick_400b",
          "llama3p2_vision_11b", "hubert_xlarge")
@@ -219,12 +221,27 @@ def test_full_width_golden():
     """The port's CPU run of ``train_golden`` (qwen3-0.6b at full width, 2
     layers, float32, 3 AdamW steps) against the reference's golden, within
     its tolerance (1e-4 relative)."""
-    gold = json.loads(GOLDEN.read_text())
-    assert gold["run"] == TG.run_record()
-    tree = convert.random_jax_tree(TG.golden_config(), TG.SEED)
-    assert convert.tree_sha256(tree) == gold["weights_sha256"]
-    got = TG.port_run("cpu", tree)
-    check_golden(got, gold)
+    hold_golden("qwen3_0p6b")
+
+
+def test_rwkv_full_width_golden():
+    """The same for rwkv6-3b at full width, 2 layers: its WKV forward and
+    backward through ``ops.wkv_chunked``'s ``_WKV`` (the plain versions on
+    the CPU), against the reference's autodiff of its chunk scan."""
+    hold_golden("rwkv6_3b")
+
+
+def hold_golden(arch):
+    gold = json.loads(TG.GOLDENS[arch].read_text())
+    assert gold["run"] == TG.run_record(arch)
+
+    def checked_tree():
+        tree = convert.random_jax_tree(TG.golden_config(arch), TG.SEED)
+        assert convert.tree_sha256(tree) == gold["weights_sha256"]
+        return tree
+    # the weights' only reference goes to port_run, which frees them once
+    # loaded (rwkv6-3b's 2 layers hold 2.1 GB of them)
+    check_golden(TG.port_run("cpu", checked_tree(), arch), gold)
 
 
 def check_golden(got, gold):
@@ -240,13 +257,13 @@ def check_golden(got, gold):
                                    err_msg=k)
 
 
-def jax_run(tree) -> dict:
+def jax_run(tree, arch) -> dict:
     """The reference's side of ``train_golden.port_run``."""
-    cfg = jconfigs.get(TG.ARCH).with_(n_layers=TG.LAYERS, **F32)
+    cfg = jconfigs.get(arch).with_(n_layers=TG.LAYERS, **F32)
     params = jax.tree.map(jnp.asarray, tree)
     jlm = JLM(cfg)
     batches_ = [{k: jnp.asarray(v) for k, v in h.items()}
-                for h in TG.host_batches(TG.golden_config())]
+                for h in TG.host_batches(TG.golden_config(arch))]
     (loss, m), g = jax.jit(jax.value_and_grad(jlm.loss, has_aux=True))(
         params, batches_[0])
     leaf = {"/".join(p): float(np.sqrt(np.sum(np.asarray(v, np.float64)
@@ -265,13 +282,20 @@ def jax_run(tree) -> dict:
     return {**out, **rec}
 
 
-def write_golden():
+DESCRIPTIONS = {
+    "qwen3_0p6b": "qwen3-0.6b at its published width cut to 2 layers",
+    "rwkv6_3b": "rwkv6-3b at its published width (d 2,560, d_ff 8,960, "
+                "vocab 65,536, 40 WKV heads of 64 padded to 48) cut to 2 "
+                "layers"}
+
+
+def write_golden(arch):
     t0 = time.perf_counter()
-    cfg = TG.golden_config()
+    cfg = TG.golden_config(arch)
     tree = convert.random_jax_tree(cfg, TG.SEED)
     sha = convert.tree_sha256(tree)
-    want = jax_run(tree)
-    got = TG.port_run("cpu", tree)
+    want = jax_run(tree, arch)
+    got = TG.port_run("cpu", tree, arch)
 
     def rel(a, b):
         a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -281,12 +305,13 @@ def write_golden():
                  for k, v in want["leaf_grad_norms"].items()])
     gold = {
         "command": "JAX_PLATFORMS=cpu PYTHONPATH=src python "
-                   "tests/test_torch_train.py --write-golden",
+                   "tests/test_torch_train.py --write-golden"
+                   + ("" if arch == TG.ARCH else f" --arch {arch}"),
         "jax": jax.__version__, "torch": torch.__version__,
         "cpu_seconds": round(time.perf_counter() - t0, 1),
-        "run": TG.run_record(),
+        "run": TG.run_record(arch),
         "weights_sha256": sha,
-        "description": "qwen3-0.6b at its published width cut to 2 layers, "
+        "description": f"{DESCRIPTIONS[arch]}, "
                        "float32, seeded weights (convert.random_jax_tree), "
                        "SyntheticLM batches of 2 x 128: step 0's loss, ce, "
                        "global and per-leaf gradient norms, then 3 AdamW "
@@ -299,14 +324,18 @@ def write_golden():
                              "cpu_max_rel_err"},
         "record": want,
     }
-    GOLDEN.write_text(json.dumps(gold, indent=1) + "\n")
+    TG.GOLDENS[arch].write_text(json.dumps(gold, indent=1) + "\n")
     print(f"port on the CPU vs the reference: max rel err {err:.3g} "
           f"({time.perf_counter() - t0:.0f} s)")
 
 
 if __name__ == "__main__":
-    if "--write-golden" in sys.argv[1:]:
-        write_golden()
-        print(f"wrote {GOLDEN}")
+    args = sys.argv[1:]
+    if "--write-golden" in args:
+        arch = args[args.index("--arch") + 1] if "--arch" in args \
+            else TG.ARCH
+        write_golden(arch)
+        print(f"wrote {TG.GOLDENS[arch]}")
     else:
-        sys.exit("usage: python tests/test_torch_train.py --write-golden")
+        sys.exit("usage: python tests/test_torch_train.py --write-golden "
+                 "[--arch rwkv6_3b]")

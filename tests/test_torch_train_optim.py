@@ -95,6 +95,33 @@ def test_adamw_update_matches_reference(clip):
     assert all(clipped) if clip == 1.0 else not any(clipped)
 
 
+@pytest.mark.parametrize("group_elems", [1, 200, 1000])
+def test_adamw_grouped_passes_bit_equal(monkeypatch, group_elems):
+    """The update's elementwise passes over groups of at most
+    ``GROUP_ELEMS`` elements (one leaf a group; the small leaves together,
+    a leaf past the limit alone) give the bits of one pass over every
+    leaf."""
+    kw = dict(peak_lr=1e-2, warmup_steps=3, total_steps=8, clip_norm=1.0)
+    cfg = adamw.AdamWConfig(**kw)
+    runs = []
+    for elems in (1 << 40, group_elems):
+        monkeypatch.setattr(adamw, "GROUP_ELEMS", elems)
+        tp = to_torch(leaves(0))
+        ts = adamw.init(tp)
+        for step in range(3):
+            tp, ts, _ = adamw.update(cfg, to_torch(leaves(100 + step, 3.0)),
+                                     ts, tp)
+        runs.append((tp, ts))
+    names = list(SHAPES)
+    assert len(adamw._groups(names, runs[0][0])) == \
+        {1: 5, 200: 3, 1000: 2}[group_elems]
+    (p1, s1), (p2, s2) = runs
+    for k in SHAPES:
+        for a, b in ((p1, p2), (s1.m, s2.m), (s1.v, s2.v),
+                     (s1.master, s2.master)):
+            assert torch.equal(a[k], b[k]), k
+
+
 def test_cosine_lr_matches_reference():
     for kw in (dict(), dict(peak_lr=1e-3, warmup_steps=5, total_steps=50),
                dict(warmup_steps=0, total_steps=3, min_lr_ratio=0.0)):
