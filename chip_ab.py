@@ -56,14 +56,24 @@ alone on random inputs of the rwkv6-3b prefill's shape and layout (B =
 views of [B, S, H*D] tensors, log w = -exp(.), float32) the same way,
 and the sha256 of its output and final state (the line before the card's
 says whether every run of both checkouts gave the same bits);
-the bf16 prefill of rwkv6-3b at full depth on 8 x 1,024 tokens; flash's
+the bf16 prefill of rwkv6-3b at full depth on 8 x 1,024 tokens;
+``wkv_chunked_bwd`` alone at rwkv6-3b's training call (its inputs made by
+``wkv_bwd_case`` from one seed, the forward's saved states from the
+checkout's own forward) by ``cuda_times``, after a device sleep and back
+to back, and the sha256 of its six outputs (the line before the card's
+says whether each checkout gave the same bits in all its runs; two
+checkouts may differ); the wall of one full-depth rwkv6-3b training step
+on 8 x 1,024 tokens (as the qwen3 step below, median of 5 after 2
+warm-ups) with its tokens/s and the device time of one profiled step,
+freed before anything else runs; flash's
 bf16 backward alone at qwen3-0.6b's training call (B = 8, Hq = Hkv = 16
 after the model repeats its KV heads, S = 1,024, D = 128, causal), its
 inputs made as phase 11 makes them, by ``cuda_times`` after a device
 sleep and back to back; and the wall of one full-depth qwen3-0.6b
 training step on 8 x 1,024 tokens (``launch.train.build``'s step on one
 fixed batch, bf16 with float32 AdamW state, the median of 5 steps after
-2 warm-up steps) with its tokens/s.  Each run prints one JSON line;
+2 warm-up steps) with its tokens/s and the device time of one profiled
+step.  Each run prints one JSON line;
 the last lines are the card's name and power limit and a summary of
 medians per checkout.  The script imports nothing of JAX and nothing of
 the JAX package.
@@ -287,6 +297,29 @@ def measure(root: Path) -> dict:
     del lm, prefill, tok
     torch.cuda.empty_cache()
 
+    # wkv_chunked_bwd alone at rwkv6-3b's training call, and the bits of
+    # its six outputs
+    bgen = torch.Generator(dev).manual_seed(28)
+    shape = dict(smoke.WKV_BWD_SHAPES)["rwkv6-3b training"]
+    r, k, v, lw, u, _, go, _ = smoke.wkv_bwd_case(shape, torch.bfloat16,
+                                                  bgen, torch, dev)
+    chunk = shape[4]
+    states = kwkv.wkv_chunked(r, k, v, lw, u, chunk=chunk,
+                              return_states=True)[2]
+
+    def wkv_bwd():
+        return kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go, chunk=chunk)
+    out["wkv_bwd_sha256"] = hashlib.sha256(b"".join(
+        x.float().cpu().numpy().tobytes() for x in wkv_bwd())).hexdigest()
+    out["wkv_bwd_ms"] = smoke.cuda_times(wkv_bwd, 20, torch)
+    out["wkv_bwd_ms_no_sleep"] = smoke.cuda_times(wkv_bwd, 20, torch,
+                                                  sleep=False)
+    del r, k, v, lw, u, go, states
+    torch.cuda.empty_cache()
+    # one full-depth rwkv6-3b training step on 8 x 1,024 tokens
+    out.update(train_step("rwkv6_3b", "rwkv_train", torch, dev, pipeline,
+                          train, configs, ShapeSpec))
+
     # flash's bf16 backward alone at qwen3-0.6b's training call, its inputs
     # made as phase 11 makes them
     b, hq, hkv, sq, sk, d, causal, window = dict(smoke.BWD_SHAPES)[
@@ -309,7 +342,20 @@ def measure(root: Path) -> dict:
     torch.cuda.empty_cache()
 
     # one full-depth qwen3-0.6b training step on 8 x 1,024 tokens
-    cfg = configs.get("qwen3_0p6b")
+    out.update(train_step("qwen3_0p6b", "train", torch, dev, pipeline, train,
+                          configs, ShapeSpec))
+    return out
+
+
+def train_step(arch, key, torch, dev, pipeline, train, configs, ShapeSpec):
+    """The wall of one full-depth training step of ``arch`` on 8 x 1,024
+    tokens (``launch.train.build``'s step on one fixed batch, bf16 with
+    float32 AdamW state): ``{key}_step_ms`` (the median of 5 steps after 2
+    warm-up steps), ``{key}_tokens_per_s``, ``{key}_step_walls_ms`` and
+    ``{key}_step_device_ms``, the device kernel time of one more step
+    under torch.profiler (0 where the profiler saw none); everything it
+    made is freed."""
+    cfg = configs.get(arch)
     loop, _ = train.build(cfg, batch=smoke.TRAIN_B, seq=smoke.TRAIN_S,
                           lr=1e-3, steps=smoke.TRAIN_STEPS, device=dev,
                           ckpt_every=0)
@@ -326,11 +372,14 @@ def measure(root: Path) -> dict:
         state[:] = loop.train_step(*state, batch)[:2]
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    out["train_step_ms"] = statistics.median(walls)
-    out["train_tokens_per_s"] = \
-        smoke.TRAIN_B * smoke.TRAIN_S / out["train_step_ms"] * 1e3
-    out["train_step_walls_ms"] = walls
-    return out
+    dev_ms = smoke.device_profile(lambda: loop.train_step(*state, batch), 1,
+                                  torch)[0]
+    del loop, batch, state
+    torch.cuda.empty_cache()
+    ms = statistics.median(walls)
+    return {f"{key}_step_ms": ms,
+            f"{key}_tokens_per_s": smoke.TRAIN_B * smoke.TRAIN_S / ms * 1e3,
+            f"{key}_step_walls_ms": walls, f"{key}_step_device_ms": dev_ms}
 
 
 def main() -> None:
@@ -371,8 +420,12 @@ def main() -> None:
         results[which].append(json.loads(lines[-1]))
     digests = {str(roots[w]): sorted({r["wkv_out_sha256"] for r in
                                       results[w]}) for w in (0, 1)}
+    bwd = {str(roots[w]): sorted({r["wkv_bwd_sha256"] for r in results[w]})
+           for w in (0, 1)}
     print(json.dumps({"wkv_out_sha256": digests, "bit_equal": len(
-        {d for ds in digests.values() for d in ds}) == 1}), flush=True)
+        {d for ds in digests.values() for d in ds}) == 1,
+        "wkv_bwd_sha256": bwd, "wkv_bwd_bit_equal_within_each": all(
+            len(ds) == 1 for ds in bwd.values())}), flush=True)
     print(smoke.smi_line(), flush=True)
     keys = [k for k, v in results[0][0].items()
             if isinstance(v, float) and k in results[1][0]]

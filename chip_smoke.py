@@ -157,21 +157,26 @@ Phases (any failure exits non-zero):
      width, 2 layers, a failure injected at step 4, checkpoints every 3
      steps in a temporary directory it removes) against a clean run; the
      step's busy share and the backward's share at the end;
- 12. rwkv training: the WKV backward kernel (csrc/wkv_bwd.cu) against its
-     plain version in both dtypes at rwkv6-3b's training call (B 8, H 48,
-     S 1,024, D 64, chunk 128, r/k/v views of [B, S, 3,072]) and edges (D
-     = 16, 32, 64; chunks of 1, 16, 64, 128; S = chunk; an initial state
-     and a final-state gradient; views off 16 bytes; strong decay), within
-     1e-4 (float32) or 1e-2 (bf16) of each gradient's largest magnitude,
-     bit-equal between two runs, the forward bit-equal with and without
-     its saved states; its time beside its byte and operation bounds; the
+ 12. rwkv training: the WKV backward (csrc/wkv_bwd.cu: four device
+     kernels a call) against its plain version in both dtypes at
+     rwkv6-3b's training call (B 8, H 48, S 1,024, D 64, chunk 128, r/k/v
+     views of [B, S, 3,072]) and edges (D = 16, 32, 64; chunks of 1, 16,
+     24, 64, 100, 128; S = chunk, one chunk; B = H = 1, fewer CTAs than
+     SMs; an initial state and a final-state gradient; views off 16
+     bytes; strong decay), within 1e-4 (float32) or 1e-2 (bf16) of each
+     gradient's largest magnitude, bit-equal between two runs, the forward
+     bit-equal with and without its saved states; its time beside its
+     bound (the function's bytes against three TF32 passes of its
+     products) and the float32 CUDA-core floor, the bytes its kernels
+     move, each device kernel's CTAs an SM, registers and spills; the
      float32 train golden src/repro_torch/golden/train_rwkv_full_width.json
      (rwkv6-3b full width, 2 layers, 3 AdamW steps) within 1e-4;
      rwkv6-3b at full width and depth, bf16, 8 steps of launch.train's
      loop on one fixed batch of 8 x 1,024 with a falling loss, 64 WKV
      forwards (remat 'full') and 32 backwards a step and no flash, its
      step wall, tokens/s and peak memory; the step's busy share and the
-     WKV forward's and backward's shares at the end.
+     WKV forward's and backward's shares, and each of the backward's
+     device kernels a call (profiled), at the end.
 
 Phase 6 and phase 8's runs follow phase 3, then phases 10, 11, 12, 7 and
 9, all before phase 4's profiler sessions; phase 8's kernel checks and
@@ -184,6 +189,7 @@ import hashlib
 import inspect
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -405,16 +411,40 @@ WKV_BWD_SHAPES = [
     ("D=16 C=64", (2, 48, 512, 16, 64, False, False, False)),
     ("C=1", (1, 8, 8, 64, 1, True, False, False)),
     ("S=C=128", (2, 48, 128, 64, 128, True, False, False)),
+    ("B=H=1 (fewer CTAs than SMs)", (1, 1, 1024, 64, 128, True, False,
+                                     False)),
     ("S=C=16 D=16", (2, 8, 16, 16, 16, True, False, False)),
     ("views off 16 bytes", (2, 48, 256, 64, 128, True, False, True)),
     ("strong decay", (2, 48, 512, 64, 64, True, True, False)),
+    ("C=100 (no multiple of 8)", (2, 48, 300, 64, 100, True, False, False)),
+    ("S=C=24 D=32 strong decay", (2, 8, 24, 32, 24, True, True, False)),
 ]
 WKV_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}  # of the largest magnitude
 # the WKV kernels' device names (the profile's shares of an rwkv step)
 WKV_FWD_KERNELS = ("wkv_kernel",)
-WKV_BWD_KERNELS = ("wkv_bwd_kernel", "wkv_du_sum")
+WKV_BWD_KERNELS = ("wkv_bwd_pstate", "wkv_bwd_dstate", "wkv_bwd_chunk",
+                   "wkv_du_sum")
 RWKV_TRAIN_LAYERS = 32           # rwkv6-3b's full depth
 SLEEP_CYCLES = 2_000_000         # ~1 ms of device sleep ahead of a timing
+
+
+def ptxas_usage(log: str, name: str, tag: str):
+    """(registers, spill-store bytes) of the device function whose mangled
+    name holds ``name`` and ``tag`` in an ``-Xptxas -v`` log, or None."""
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            spill = None
+        elif fn and name in fn and tag in fn:
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                return int(m.group(1)), spill
+    return None
 
 
 def fail(msg: str) -> None:
@@ -1779,11 +1809,11 @@ def lm_phase(torch, dev, smi, cuda_ms):
     log(f"[7] wkv_chunked at B={bw} H={hw} S={sw} D={dw} chunk={chunk} "
         f"{str(r.dtype)[6:]} r/k/v: {ms_w:.4f} ms ({ms0_w:.4f} ms back to "
         f"back; plain {plain_w:.4f} ms; "
-        f"bound {w_bound:.5f} ms by {w_by}: {w_bytes / 1e6:.1f} MB at 3.35 "
-        f"TB/s against {w_flops / 1e9:.2f} GFLOP of float32 chunk products "
-        f"at 67 TFLOP/s; the tensor-core bound {w_tc:.5f} ms by {w_tc_by}: "
-        f"the bytes against 3 x {w_flops / 1e9:.2f} GFLOP at the TF32 "
-        f"495 TFLOP/s; library call: none) [{smi}]")
+        f"bound {w_tc:.5f} ms by {w_tc_by}: {w_bytes / 1e6:.1f} MB at 3.35 "
+        f"TB/s against 3 x {w_flops / 1e9:.2f} GFLOP of chunk products at "
+        f"the TF32 495 TFLOP/s, {ms_w / w_tc:.2f}x it; the float32 "
+        f"CUDA-core floor {w_bound:.5f} ms by {w_by} at 67 TFLOP/s; library "
+        f"call: none) [{smi}]")
     log(f"[7] wkv_chunked issues {len(w_per)} device operations a call, "
         f"{w_dev:.4f} ms of device time (profiled, 10 calls): " + ", ".join(
             f"{k_[:48]} {v_:.4f} ms" for v_, k_ in largest(w_per, 4)))
@@ -1808,11 +1838,11 @@ def lm_phase(torch, dev, smi, cuda_ms):
                      "at :27, pallas_call at :81)",
          "launches": lm_counts["wkv_chunked"],
          "max_abs_err": errs["wkv_chunked"], "ms": ms_w, "plain_ms": plain_w,
-         "bound_ms": w_bound, "bound_by": w_by, "library_ms": None,
-         "ms_no_sleep": ms0_w, "bound_note": "bound_ms: float32 chunk "
-         "products on the CUDA cores; tensor_core_bound_ms: the kernel's "
-         "three TF32 passes on the tensor cores",
-         "tensor_core_bound_ms": w_tc, "tensor_core_bound_by": w_tc_by,
+         "bound_ms": w_tc, "bound_by": w_tc_by, "library_ms": None,
+         "ms_no_sleep": ms0_w, "bound_note": "bound_ms: the kernel's three "
+         "TF32 passes on the tensor cores; cuda_core_bound_ms: float32 "
+         "chunk products on the CUDA cores",
+         "cuda_core_bound_ms": w_bound, "cuda_core_bound_by": w_by,
          "device_kernels_per_call": len(w_per),
          "device_ms_by_kernel": {k_[:60]: v_ for k_, (v_, _) in
                                  w_per.items()}}]
@@ -2445,7 +2475,7 @@ def wkv_bwd_errs(got, want) -> list:
     return [x if math.isfinite(x) else float("inf") for x in out]
 
 
-def rwkv_train_phase(torch, dev, smi, cuda_ms):
+def rwkv_train_phase(torch, dev, smi, cuda_ms, ptxas_log: str = ""):
     """Phase 12: rwkv training.  The WKV backward kernel against its plain
     version at ``WKV_BWD_SHAPES`` in both dtypes (the forward with and
     without its saved states), its time beside its bounds at rwkv6-3b's
@@ -2454,7 +2484,9 @@ def rwkv_train_phase(torch, dev, smi, cuda_ms):
     ``launch.train``'s loop on one fixed batch of 8 x 1,024 (the main
     path, counted).  Returns (the backward's kernel row, the WKV
     forward's launches in the training run, a function that profiles one
-    full-depth step, to run after every wall)."""
+    full-depth step, to run after every wall).  ``ptxas_log``: the
+    compiler's output for ``wkv_bwd`` (``build.build_all``), for the
+    kernels' registers and spills."""
     from repro_torch import configs
     from repro_torch.data import pipeline
     from repro_torch.kernels import flash_attention as kflash
@@ -2489,9 +2521,9 @@ def rwkv_train_phase(torch, dev, smi, cuda_ms):
                      f"plain version's at {label}, {dt}")
             before = ops.launch_counts()[kwkv.BWD]
             got = kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go, ds,
-                                       chunk=chunk)
+                                       st2, chunk=chunk)
             again = kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go, ds,
-                                         chunk=chunk)
+                                         st2, chunk=chunk)
             want = ref.wkv_chunked_bwd_ref(r, k, v, lw, u, states, go, ds,
                                            chunk=chunk)
             torch.cuda.synchronize()
@@ -2550,17 +2582,44 @@ def rwkv_train_phase(torch, dev, smi, cuda_ms):
     # A^T dO, dA k', dA^T r') and four of C x D x D
     flops = b * h * (s // chunk) * (5 * chunk * (chunk - 1) * d
                                     + 8 * chunk * d * d)
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    # the kernels run the products as three TF32 passes on the tensor cores
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_OPS_PER_S
     bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    # the float32 CUDA-core floor of the same products
+    core = max(t_b, flops / F32_OPS_PER_S) * 1e3
+    # a note on the design, not a bound: the bytes its four kernels move
+    # (kernel 1 reads log w, r, dO and writes each chunk's P into the G
+    # scratch; the scan reads P and the states and writes G; the chunk
+    # kernel reads r, k, v, log w, dO, the states and G and writes dr, dk,
+    # dv, dlog w; the [B, H, S/C, D] scratch written and read once)
+    nc = s // chunk
+    scratch = states.numel() * 4
+    design_bytes = (n * (8 + esz) + scratch           # 1
+                    + 3 * scratch                     # scan: P, states, G
+                    + n * (6 * esz + 12) + 2 * scratch  # chunks
+                    + 2 * 3 * b * h * nc * d * 4      # e^L, gL, du's parts
+                    + h * d * 4 + h * d * 4 + b * h * d * d * 4)
+    ctas = kwkv.bwd_occupancy(r.dtype, d)
+    occ = {k_: {"ctas_per_sm": ctas[k_],
+                "registers_spill_bytes": ptxas_usage(
+                    ptxas_log, k_, "ILi64E" if k_ == "wkv_bwd_dstate"
+                    else "I13__nv_bfloat16Li64E" if k_ != "wkv_du_sum"
+                    else "wkv_du_sum") or "not reported (a cached build)"}
+           for k_ in WKV_BWD_KERNELS}
     log(f"[12] wkv_chunked_bwd at B={b} H={h} S={s} D={d} chunk={chunk} "
         f"bfloat16 r/k/v ([B, S, {h * d}] views), float32 log w and dO: "
         f"{ms:.4f} ms ({ms0:.4f} ms back to back; plain {plain:.4f} ms; "
         f"library call: none); bound {bound:.5f} ms by {by}: "
         f"{nbytes / 1e6:.1f} MB at 3.35 TB/s ({t_b * 1e3:.5f} ms) against "
-        f"{flops / 1e9:.2f} GFLOP of float32 chunk products at 67 TFLOP/s "
-        f"({t_o * 1e3:.5f} ms), {ms / bound:.2f}x its bound; the forward "
-        f"at this call {fwd:.4f} ms, with its saved states "
-        f"({states.numel() * 4 / 1e6:.1f} MB) {fwd_states:.4f} ms [{smi}]")
+        f"3 x {flops / 1e9:.2f} GFLOP of chunk products at the TF32 495 "
+        f"TFLOP/s ({t_o * 1e3:.5f} ms), {ms / bound:.2f}x its bound; the "
+        f"float32 CUDA-core floor at 67 TFLOP/s {core:.5f} ms; the four "
+        f"kernels move {design_bytes / 1e6:.1f} MB (the G scratch, the "
+        f"states and r, log w, dO read twice; {design_bytes / 1e6 / ms:.0f}"
+        f" GB/s); occupancy (CTAs an SM, registers and spill bytes, bf16 D=64) "
+        f"{occ}; the forward at this call {fwd:.4f} ms, with its saved "
+        f"states ({states.numel() * 4 / 1e6:.1f} MB) {fwd_states:.4f} ms "
+        f"[{smi}]")
     del timed, r, k, v, lw, u, states, go
     torch.cuda.empty_cache()
 
@@ -2676,15 +2735,52 @@ def rwkv_train_phase(torch, dev, smi, cuda_ms):
            "shape": f"B={b} H={h} S={s} D={d} chunk={chunk} bfloat16 "
                     f"r/k/v ([B, S, {h * d}] views), float32 log w and dO",
            "ms_no_sleep": ms0, "bytes": nbytes, "flops": flops,
+           "bound_note": "bound_ms: the function's bytes against three "
+           "TF32 passes of its products on the tensor cores; "
+           "cuda_core_bound_ms: the products in float32 on the CUDA cores; "
+           "design_bytes: what the four device kernels move",
+           "cuda_core_bound_ms": core, "design_bytes": design_bytes,
+           "occupancy": occ,
            "launches_per_step": L,
            "forward_ms": fwd, "forward_with_states_ms": fwd_states,
            "max_rel_err_by_shape": {f"{lb} {dt}": max(e) for (lb, dt), e in
                                     rels.items()}}
 
+    def by_kernel_ms():
+        """Each of the WKV backward's device kernels a call at the training
+        call (three calls profiled, up to five sessions), into the kernel
+        row."""
+        g2 = torch.Generator(dev).manual_seed(27)
+        r, k, v, lw, u, _, go, _ = wkv_bwd_case(WKV_BWD_SHAPES[0][1],
+                                                torch.bfloat16, g2, torch,
+                                                dev)
+        states = kwkv.wkv_chunked(r, k, v, lw, u, chunk=chunk,
+                                  return_states=True)[2]
+        kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go, chunk=chunk)
+        dev_ms, _, per = device_profile(lambda: kwkv.wkv_chunked_bwd(
+            r, k, v, lw, u, states, go, chunk=chunk), 3, torch, tries=5)
+        del r, k, v, lw, u, go, states
+        torch.cuda.empty_cache()
+        if dev_ms <= 0:
+            log("[12] wkv_chunked_bwd's device kernels: not measured (the "
+                "profiler saw no device time)")
+            return
+        ms_by = {k_: round(sum(x[0] for key, x in per.items() if k_ in key),
+                           5) for k_ in WKV_BWD_KERNELS}
+        if not all(ms_by.values()):
+            fail(f"[12] one call of wkv_chunked_bwd did not run its device "
+                 f"kernels {WKV_BWD_KERNELS}: {per}")
+        row["device_ms_by_kernel"] = ms_by
+        log(f"[12] wkv_chunked_bwd at the training call, each device "
+            f"kernel a call (profiled): {ms_by} ms, {dev_ms:.4f} ms in all "
+            f"[{smi}]")
+
     def busy():
         """Device kernel time of one rwkv6-3b training step from
         torch.profiler over the unprofiled median wall, the WKV forward's
-        and backward's shares, the largest kernels."""
+        and backward's shares, the largest kernels; ``by_kernel_ms``
+        first."""
+        by_kernel_ms()
         loop, _ = train.build(cfg, batch=TRAIN_B, seq=TRAIN_S, lr=1e-3,
                               steps=TRAIN_STEPS, device=dev, ckpt_every=0)
         lm, opt, _ = loop.init_state()
@@ -4196,7 +4292,7 @@ def main() -> None:
     # (after phase 11 has freed its model: the full-depth run holds ~60 GB)
     wkv_bwd_row, p12_launches, p12_busy = rwkv_train_phase(
         torch, dev, smi, lambda fn, reps, sleep=True:
-        cuda_times(fn, reps, torch, sleep))
+        cuda_times(fn, reps, torch, sleep), logs.get("wkv_bwd", ""))
 
     lap("12 rwkv training")
 

@@ -187,10 +187,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 class _WKV(torch.autograd.Function):
-    """The chunked WKV with its backward: the forward keeps its inputs and
-    the state entering each chunk for the backward kernel; a gradient of
-    the output or of the final state that autograd does not give counts
-    as zero."""
+    """The chunked WKV with its backward: the forward keeps its inputs, the
+    state entering each chunk and the final state (which the backward
+    kernel reads only with the final state's gradient); a gradient of the
+    output or of the final state that autograd does not give counts as
+    zero."""
 
     @staticmethod
     def forward(ctx, r, k, v, log_w, u, state0, chunk):
@@ -198,7 +199,7 @@ class _WKV(torch.autograd.Function):
             else ref.wkv_chunked_ref
         out, state, states = fn(r, k, v, log_w, u, chunk=chunk,
                                 state0=state0, return_states=True)
-        ctx.save_for_backward(r, k, v, log_w, u, states)
+        ctx.save_for_backward(r, k, v, log_w, u, states, state)
         ctx.chunk = chunk
         ctx.has_state0 = state0 is not None
         ctx.set_materialize_grads(False)
@@ -206,13 +207,16 @@ class _WKV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, dstate):
-        r, k, v, log_w, u, states = ctx.saved_tensors
+        r, k, v, log_w, u, states, state = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
-        fn = _wkv.wkv_chunked_bwd if _route(r, "wkv_chunked") \
-            else ref.wkv_chunked_bwd_ref
-        dr, dk, dv, dw, du, ds0 = fn(r, k, v, log_w, u, states, dout,
-                                     dstate, chunk=ctx.chunk)
+        if _route(r, "wkv_chunked"):
+            grads = _wkv.wkv_chunked_bwd(r, k, v, log_w, u, states, dout,
+                                         dstate, state, chunk=ctx.chunk)
+        else:
+            grads = ref.wkv_chunked_bwd_ref(r, k, v, log_w, u, states, dout,
+                                            dstate, chunk=ctx.chunk)
+        dr, dk, dv, dw, du, ds0 = grads
         return dr, dk, dv, dw, du, ds0 if ctx.has_state0 else None, None
 
 

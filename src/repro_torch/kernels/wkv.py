@@ -22,9 +22,16 @@ float32 ``[B, H, S / chunk, D, D]``, which the backward reads.
 
 ``wkv_chunked_bwd`` replaces no TPU kernel (the reference trains by XLA's
 autodiff of the model's chunk scan): from the forward's inputs, its
-states and the output's gradient (and, if any, the final state's), one
-host call (two device kernels) gives dr, dk, dv in the dtypes of r, k, v,
-and dlog_w, du and dstate0 in float32.  The plain versions are
+states and the output's gradient (and, if any, the final state's, with
+the forward's final state), one host call gives dr, dk, dv in the dtypes of r, k, v, and dlog_w, du and
+dstate0 in float32.  It issues four device kernels (``BWD_KERNELS``):
+each chunk's term of the state gradient's update, all chunks at once; the
+state gradient of every chunk, a scan over the chunks in reverse; every
+chunk's gradients at once from its saved state and its state gradient,
+on the tensor cores (three TF32 passes); du's sum over the batch and the
+chunks.  The wrapper allocates their float32 scratch: the state
+gradients ``[B, H, S / chunk, D, D]`` (the size of the forward's saved
+states) and three ``[B, H, S / chunk, D]``.  The plain versions are
 ``ref.wkv_chunked_ref`` and ``ref.wkv_chunked_bwd_ref``.  ``launches``
 counts launches (host calls), and nothing else.
 """
@@ -40,6 +47,9 @@ HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BWD = "wkv_chunked_bwd"
+# the backward's device kernels, in launch order
+BWD_KERNELS = ("wkv_bwd_pstate", "wkv_bwd_dstate", "wkv_bwd_chunk",
+               "wkv_du_sum")
 launches = {"wkv_chunked": 0, BWD: 0}
 
 _fns: dict = {}
@@ -57,11 +67,19 @@ def _launcher(name: str = "wkv"):
                            + [ctypes.c_void_p])
         else:
             fn = lib.wkv_bwd_launch
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
-                           + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 19
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def _vec(*ts) -> bool:
+    """Every pointer 16-byte aligned and every outer stride a multiple of
+    8 elements: the kernels' vector loads."""
+    return all(t.data_ptr() % 16 == 0 and not any(x % 8 for x in
+                                                  t.stride()[:3])
+               for t in ts)
 
 
 def _check(name, r, k, v, log_w, u, chunk):
@@ -93,6 +111,20 @@ def _check(name, r, k, v, log_w, u, chunk):
     return b, h, s, d
 
 
+def bwd_occupancy(dtype, d: int) -> dict:
+    """CTAs an SM of each of the backward's device kernels
+    (``BWD_KERNELS``) at r/k/v ``dtype`` and head size ``d``, as the card
+    reports them (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    fn = build.load("wkv_bwd").wkv_bwd_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(BWD_KERNELS))()
+    rc = fn(DTYPES[dtype], d, ctypes.addressof(out))
+    if rc:
+        raise RuntimeError(f"wkv_bwd_occupancy failed: cudaError {rc}")
+    return dict(zip(BWD_KERNELS, out))
+
+
 def wkv_chunked(r, k, v, log_w, u, *, chunk: int = 64, state0=None,
                 return_states: bool = False):
     """One launch -> (out float32 ``[B, H, S, D]``, final state float32
@@ -111,10 +143,7 @@ def wkv_chunked(r, k, v, log_w, u, *, chunk: int = 64, state0=None,
                          device=dev) if return_states else None
     if state.numel():
         strides = [x for t in (r, k, v, log_w, out) for x in t.stride()[:3]]
-        # vector loads: 16-byte aligned rows at strides of 8 elements
-        vec = all(t.data_ptr() % 16 == 0 and not any(x % 8 for x in
-                                                      t.stride()[:3])
-                  for t in (r, k, v, log_w))
+        vec = _vec(r, k, v, log_w)
         rc = _launcher()(DTYPES[r.dtype], r.data_ptr(), k.data_ptr(),
                          v.data_ptr(), log_w.data_ptr(), u.data_ptr(),
                          0 if state0 is None else state0.data_ptr(),
@@ -130,13 +159,14 @@ def wkv_chunked(r, k, v, log_w, u, *, chunk: int = 64, state0=None,
     return out, state
 
 
-def wkv_chunked_bwd(r, k, v, log_w, u, states, dout, dstate=None, *,
-                    chunk: int = 64):
-    """One launch (two device kernels) -> ``(dr, dk, dv, dlog_w, du,
+def wkv_chunked_bwd(r, k, v, log_w, u, states, dout, dstate=None,
+                    state=None, *, chunk: int = 64):
+    """One launch (four device kernels) -> ``(dr, dk, dv, dlog_w, du,
     dstate0)``: the gradients of ``wkv_chunked``'s (out, final state)
     against ``dout`` (float32 ``[B, H, S, D]``, any strides with a
     contiguous last axis) and ``dstate`` (float32 ``[B, H, D, D]``, None
-    for zeros), from the forward's arguments and its ``states``.  dr, dk,
+    for zeros), from the forward's arguments, its ``states`` and, with a
+    ``dstate``, its final ``state``.  dr, dk,
     dv come in the dtypes and, where those are dense, the layouts of r, k,
     v; dlog_w in log_w's; du ``[H, D]`` and dstate0 ``[B, H, D, D]``
     float32."""
@@ -153,15 +183,23 @@ def wkv_chunked_bwd(r, k, v, log_w, u, states, dout, dstate=None, *,
     if dout.numel() and dout.stride(3) != 1:
         dout = dout.contiguous()
     if dstate is not None:
-        build.check_arg(name, "dstate", dstate, torch.float32, (b, h, d, d),
-                        dev)
+        for arg, t in (("dstate", dstate), ("state", state)):
+            if t is None:
+                raise ValueError(f"{name}: a dstate needs the forward's "
+                                 f"final state")
+            build.check_arg(name, arg, t, torch.float32, (b, h, d, d), dev)
     dr, dk, dv, dlog_w = (torch.empty_like(t) for t in (r, k, v, log_w))
-    du = torch.zeros((h, d), dtype=torch.float32, device=dev)
+    du = torch.empty((h, d), dtype=torch.float32, device=dev)
     dstate0 = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
     if not r.numel():
-        return dr, dk, dv, dlog_w, du, dstate0.zero_() if dstate is None \
-            else dstate.clone()
-    du_part = torch.empty((b, h, d), dtype=torch.float32, device=dev)
+        return dr, dk, dv, dlog_w, du.zero_(), dstate0.zero_() \
+            if dstate is None else dstate.clone()
+    if states.data_ptr() % 16:          # its rows are copied 16 bytes at
+        states = states.clone()          # a time
+    nc = s // chunk
+    gs = torch.empty((b, h, nc, d, d), dtype=torch.float32, device=dev)
+    el, gl, du_part = torch.empty((3, b, h, nc, d), dtype=torch.float32,
+                                  device=dev)
     strides = (ctypes.c_longlong * 27)(*(
         x for t in (r, k, v, log_w, dout, dr, dk, dv, dlog_w)
         for x in t.stride()[:3]))
@@ -169,8 +207,11 @@ def wkv_chunked_bwd(r, k, v, log_w, u, states, dout, dstate=None, *,
         DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
         log_w.data_ptr(), u.data_ptr(), states.data_ptr(), dout.data_ptr(),
         0 if dstate is None else dstate.data_ptr(), dr.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(), du_part.data_ptr(),
-        du.data_ptr(), dstate0.data_ptr(), b, h, s, d, chunk, strides,
+        dk.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(), gs.data_ptr(),
+        el.data_ptr(), gl.data_ptr(), du_part.data_ptr(),
+        0 if dstate is None else state.data_ptr(), du.data_ptr(),
+        dstate0.data_ptr(), b, h, s, d, chunk,
+        int(_vec(r, k, v, log_w, dout)), strides,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")

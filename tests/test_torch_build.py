@@ -41,10 +41,11 @@ def test_copy_of_the_sources_gives_the_same_library(csrc_copy, name):
 @pytest.mark.parametrize("name", build.SOURCES)
 def test_header_byte_changes_the_library_path(csrc_copy, name):
     headers = sorted(csrc_copy.glob("*.cuh"))
-    assert [h.name for h in headers] == ["hopper.cuh"]
-    before = build.target(name, csrc_copy)[1]
-    _flip_byte(headers[0])
-    assert build.target(name, csrc_copy)[1] != before
+    assert [h.name for h in headers] == ["hopper.cuh", "tf32.cuh"]
+    for header in headers:
+        before = build.target(name, csrc_copy)[1]
+        _flip_byte(header)
+        assert build.target(name, csrc_copy)[1] != before
 
 
 def test_source_byte_changes_only_its_library(csrc_copy):
@@ -58,6 +59,11 @@ def test_source_byte_changes_only_its_library(csrc_copy):
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd"])
 def test_flash_sources_include_the_shared_header(name):
     assert '#include "hopper.cuh"' in (build.CSRC / f"{name}.cu").read_text()
+
+
+@pytest.mark.parametrize("name", ["wkv", "wkv_bwd"])
+def test_wkv_sources_include_the_tf32_header(name):
+    assert '#include "tf32.cuh"' in (build.CSRC / f"{name}.cu").read_text()
 
 
 @pytest.mark.parametrize("dtype,d,route", [

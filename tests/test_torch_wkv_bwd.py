@@ -20,12 +20,20 @@ its centring).  ``ops.wkv_chunked`` under grad goes through ``_WKV`` and
 gives the same gradients, with a gradient of only the output or only
 the final state.
 
-``wkv_bwd_twin`` is a torch twin of the kernel's order of operations: the
-prefix by channel in segments of 256 / D threads, r' and k' as the
-forward makes them, the reverse scan of dlog w's sums as 8 rows a thread
-and then the later row groups' totals, gL's two parts summed by row
-group; it is within ``JAX_TOL`` of the plain version, so the kernel's
-order is no source of error beyond it.
+``wkv_bwd_twin`` is a torch twin of the kernels' order of operations
+(``csrc/wkv_bwd.cu``): every chunk's term P of G's update on its own, the
+prefix in tiles of 16 rows (each in order, then the earlier tiles'
+totals); the scan of G over the chunks in reverse, each row on its own,
+with gL = sum_j G S' and S' the state the chunk writes (the next chunk's
+saved state, or the forward's final state for the last chunk); then
+each chunk's gradients from its saved state and its G alone, dlog w's reverse scan in 512 / D segments a channel with
+the later segments' totals added from the last down, du's part of each
+chunk by tiles of 16 rows, then summed over the batch and the chunks in
+order.  It is within ``JAX_TOL`` of the plain version (and the strong
+decay within ``F64_TOL`` of float64 autograd), so the kernels' order is
+no source of error beyond it; and the scan's G of each chunk is
+the plain backward's dstate0 of the suffix that starts after it, which
+checks the split itself.
 """
 import sys
 from pathlib import Path
@@ -268,91 +276,155 @@ def test_model_wkv_gradient_reaches_u_and_the_dead_heads():
 
 # ------------------------------------------------------------------ twin
 
-SEG_THREADS = 256          # the kernel's CTA
-ROWS = 128                 # its rows a chunk (C padded to 128)
+TILE = 16                  # the kernels' prefix tiles and row tiles
+THREADS = 512              # the chunk kernel's CTA
+ROWS = 128                 # a chunk's rows at most
 
 
-def segment_cumsum(w):
-    """The kernel's prefix of a chunk ``[..., C, D]``: each channel in
-    256 / D segments of 128 / (256 / D) rows, each segment summed in
-    order, then the earlier segments' totals added in order.  Returns
-    (cum, cum_last)."""
-    c, d = w.shape[-2], w.shape[-1]
-    nseg = SEG_THREADS // d
-    rps = ROWS // nseg
+def tile_cumsum(w):
+    """Both backward kernels' prefix of a chunk ``[..., C, D]`` by channel:
+    tiles of 16 rows, each summed in order, then the earlier tiles' totals
+    added in order.  Returns (cum, cum_last)."""
+    c = w.shape[-2]
     x = torch.nn.functional.pad(w, (0, 0, 0, ROWS - c))
-    segs = [x[..., i * rps:(i + 1) * rps, :].cumsum(-2) for i in
-            range(nseg)]
-    tot = [sg[..., -1:, :] for sg in segs]
-    out, acc = [], torch.zeros_like(tot[0])
-    for sg, t in zip(segs, tot):
-        out.append(sg + acc)
-        acc = acc + t
+    out, acc = [], torch.zeros_like(x[..., :1, :])
+    for i in range(ROWS // TILE):
+        tile = x[..., i * TILE:(i + 1) * TILE, :].cumsum(-2)
+        out.append(tile + acc)
+        acc = acc + tile[..., -1:, :]
     return torch.cat(out, -2)[..., :c, :], acc
 
 
-def grouped_suffix(hs):
-    """The kernel's reverse scan of ``[..., C, D]`` over the rows: within
-    each group of 8 rows from the last up, then the later groups' totals
-    added from the last group down."""
-    c = hs.shape[-2]
+def segment_suffix(hs):
+    """The chunk kernel's reverse scan of ``[..., C, D]`` over the rows:
+    512 / D segments of D / 4 rows, each summed from its last row up, then
+    the later segments' totals added from the last segment down."""
+    c, d = hs.shape[-2], hs.shape[-1]
+    n = THREADS // d
+    rows = ROWS // n
     x = torch.nn.functional.pad(hs, (0, 0, 0, ROWS - c))
-    groups = [x[..., g * 8:(g + 1) * 8, :].flip(-2).cumsum(-2).flip(-2)
-              for g in range(ROWS // 8)]
+    segs = [x[..., i * rows:(i + 1) * rows, :].flip(-2).cumsum(-2).flip(-2)
+            for i in range(n)]
     out = []
-    for g in range(ROWS // 8):
-        later = torch.zeros_like(groups[g][..., :1, :])
-        for g2 in range(ROWS // 8 - 1, g, -1):
-            later = later + groups[g2][..., :1, :]
-        out.append(groups[g] + later)
+    for i in range(n):
+        later = torch.zeros_like(segs[i][..., :1, :])
+        for j in range(n - 1, i, -1):
+            later = later + segs[j][..., :1, :]
+        out.append(segs[i] + later)
     return torch.cat(out, -2)[..., :c, :]
 
 
-def wkv_bwd_twin(r, k, v, log_w, u, states, dout, dstate, chunk):
+def pstate(r, log_w, dout, chunk):
+    """``wkv_bwd_pstate``'s order on float32 ``[B, H, S, D]`` tensors,
+    every chunk on its own: (P = e^c (r'^T dO) ``[B, H, S / C, D, D]``,
+    the chunk's term of G's update; e^L ``[B, H, S / C, D]``)."""
+    b, h, s, d = r.shape
+    nc = s // chunk
+    ps = torch.zeros((b, h, nc, d, d))
+    el = torch.zeros((b, h, nc, d))
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        lw = log_w[:, :, sl]
+        cum, last = tile_cumsum(lw)
+        c = last * 0.5
+        rp = r[:, :, sl] * torch.exp((cum - lw) - c)
+        ps[:, :, ci] = torch.exp(c).transpose(-1, -2) * \
+            (rp.transpose(-1, -2) @ dout[:, :, sl])
+        el[:, :, ci] = torch.exp(last)[:, :, 0]
+    return ps, el
+
+
+def dstate_scan(ps, el, states, state, dstate):
+    """``wkv_bwd_dstate``'s order: each row of G on its own (all rows at
+    once here), the chunks in reverse from the final state's gradient (or
+    0): gL = sum_j G S' with S' the state the chunk writes (the next
+    chunk's saved state, or the forward's final ``state`` for the last
+    chunk), G kept, then G <- e^L G + P.  Returns (G of every chunk ``[B,
+    H, S / C, D, D]``, the gradient of the state it writes; gL ``[B, H, S
+    / C, D]``; dstate0)."""
+    nc = ps.shape[2]
+    g = torch.zeros_like(ps[:, :, 0]) if dstate is None else dstate.clone()
+    gs, gl = torch.zeros_like(ps), torch.zeros_like(el)
+    for ci in reversed(range(nc)):
+        s_next = states[:, :, ci + 1] if ci + 1 < nc else state
+        gl[:, :, ci] = (g * s_next).sum(-1)
+        gs[:, :, ci] = g
+        g = el[:, :, ci, :, None] * g + ps[:, :, ci]
+    return gs, gl, g
+
+
+def chunk_grads(r, k, v, log_w, u, st, g, gl, dout):
+    """``wkv_bwd_chunk``'s order for one chunk ``[B, H, C, D]`` from its
+    saved state ``st``, the G and gL of the scan: (dr, dk, dv, dlog
+    w, du's part ``[B, H, D]``)."""
+    c_n = r.shape[-2]
+    uu = u[None, :, None, :]
+    tril = torch.ones((c_n, c_n), dtype=torch.bool).tril(-1)
+    cum, last = tile_cumsum(log_w)
+    c = last * 0.5
+    ec = torch.exp(c).transpose(-1, -2)
+    er, ek = torch.exp((cum - log_w) - c), torch.exp(c - cum)
+    rp, kp = r * er, k * ek
+    ru = ((r * uu) * k).sum(-1, keepdim=True)
+    dru = (dout * v).sum(-1, keepdim=True)
+    gm, sm = ec * g, ec * st
+    a = torch.where(tril, rp @ kp.transpose(-1, -2), 0.0)
+    da = torch.where(tril, dout @ v.transpose(-1, -2), 0.0)
+    dv = (kp @ gm + a.transpose(-1, -2) @ dout) + ru * dout
+    dk_pre = v @ gm.transpose(-1, -2) + da.transpose(-1, -2) @ rp
+    dr_pre = dout @ sm.transpose(-1, -2) + da @ kp
+    dk = ek * dk_pre + (dru * uu) * r
+    dr = er * dr_pre + (dru * uu) * k
+    gcum, gce = -(kp * dk_pre), rp * dr_pre
+    hs = gcum + torch.nn.functional.pad(gce[:, :, 1:], (0, 0, 0, 1))
+    dw = segment_suffix(hs) + gl[:, :, None, :]
+    x = torch.nn.functional.pad((dru * r) * k, (0, 0, 0, ROWS - c_n))
+    du = torch.zeros_like(x[:, :, 0])
+    for i in range(ROWS // TILE):      # a tile's rows in order, then tiles
+        part = torch.zeros_like(du)
+        for t in range(i * TILE, (i + 1) * TILE):
+            part = part + x[:, :, t]
+        du = du + part
+    return dr, dk, dv, dw, du
+
+
+def wkv_bwd_twin(r, k, v, log_w, u, states, dout, dstate, state, chunk):
     """``csrc/wkv_bwd.cu``'s order of operations on float32 ``[B, H, S,
-    D]`` tensors (the products as matrix products: their sums run in
+    D]`` tensors: every chunk's P, the scan (G and gL of every chunk, from
+    the forward's final ``state``), each chunk's
+    gradients from its S and G alone, du's parts summed over the batch and
+    then the chunks (the products as matrix products: their sums run in
     another order on the card, as in the plain version)."""
     b, h, s, d = r.shape
-    uu = u[None, :, None, :]
-    tril = torch.ones((chunk, chunk), dtype=torch.bool).tril(-1)
-    g = torch.zeros((b, h, d, d)) if dstate is None else dstate.clone()
+    nc = s // chunk
+    gs, gl, ds0 = dstate_scan(*pstate(r, log_w, dout, chunk), states, state,
+                              dstate)
     out = {n: [] for n in ("dr", "dk", "dv", "dw")}
-    du = torch.zeros((b, h, d))
-    for ci in reversed(range(s // chunk)):
+    du_part = []
+    for ci in range(nc):
         sl = slice(ci * chunk, (ci + 1) * chunk)
-        rq, kq, vq, wq, go = (x[:, :, sl] for x in (r, k, v, log_w, dout))
-        st = states[:, :, ci]
-        cum, last = segment_cumsum(wq)
-        c = last * 0.5
-        ec, el = torch.exp(c).transpose(-1, -2), torch.exp(last)
-        rp = rq * torch.exp((cum - wq) - c)
-        kp = kq * torch.exp(c - cum)
-        ru = ((rq * uu) * kq).sum(-1, keepdim=True)
-        dru = (go * vq).sum(-1, keepdim=True)
-        gm = ec * g
-        a = torch.where(tril, rp @ kp.transpose(-1, -2), 0.0)
-        out["dv"].append(a.transpose(-1, -2) @ go + ru * go + kp @ gm)
-        da = torch.where(tril, go @ vq.transpose(-1, -2), 0.0)
-        acc2 = vq @ gm.transpose(-1, -2)
-        dk_pre = da.transpose(-1, -2) @ rp + acc2
-        gcum = -(kp * dk_pre)
-        part2 = torch.nn.functional.pad(kp * acc2, (0, 0, 0, ROWS - chunk))
-        gl2 = sum(part2[..., i * 8:(i + 1) * 8, :].sum(-2, keepdim=True)
-                  for i in range(ROWS // 8))
-        out["dk"].append(torch.exp(c - cum) * dk_pre + (dru * uu) * rq)
-        sm = ec * st
-        gl1 = ((el.transpose(-1, -2) * st) * g).sum(-1)[:, :, None]
-        dr_pre = da @ kp + go @ sm.transpose(-1, -2)
-        gce = rp * dr_pre
-        out["dr"].append(torch.exp((cum - wq) - c) * dr_pre
-                         + (dru * uu) * kq)
-        du += ((dru * rq) * kq).sum(2)
-        hs = gcum + torch.nn.functional.pad(gce[:, :, 1:], (0, 0, 0, 1))
-        out["dw"].append(grouped_suffix(hs) + (gl1 + gl2))
-        g = el.transpose(-1, -2) * g + ec * (rp.transpose(-1, -2) @ go)
-    dr, dk, dv, dw = (torch.cat(out[n][::-1], 2)
-                      for n in ("dr", "dk", "dv", "dw"))
-    return dr, dk, dv, dw, du.sum(0), g
+        got = chunk_grads(*(x[:, :, sl] for x in (r, k, v, log_w)), u,
+                          states[:, :, ci], gs[:, :, ci], gl[:, :, ci],
+                          dout[:, :, sl])
+        for n, x in zip(out, got):
+            out[n].append(x)
+        du_part.append(got[4])
+    du = torch.zeros((h, d))
+    for bb in range(b):
+        for ci in range(nc):
+            du = du + du_part[ci][bb]
+    dr, dk, dv, dw = (torch.cat(out[n], 2) for n in ("dr", "dk", "dv", "dw"))
+    return dr, dk, dv, dw, du, ds0
+
+
+def twin_inputs(x, chunk, s0, go, ds):
+    r, k, v, lw, u = (torch.from_numpy(a) for a in x)
+    _, state, states = ref.wkv_chunked_ref(
+        r, k, v, lw, u, chunk=chunk,
+        state0=None if s0 is None else torch.from_numpy(s0),
+        return_states=True)
+    return (r, k, v, lw, u, states, torch.from_numpy(go),
+            None if ds is None else torch.from_numpy(ds), state)
 
 
 @pytest.mark.parametrize("b,h,s,dk,chunk,dead", SHAPES)
@@ -360,12 +432,7 @@ def test_kernel_order_twin_matches_plain(b, h, s, dk, chunk, dead):
     x = inputs(b, h, s, dk, seed=s + 5 * dk, dead=dead)
     s0, ds, rng = extras(b, h, dk, seed=7)
     go = rng.standard_normal((b, h, s, dk), dtype=np.float32)
-    r, k, v, lw, u = (torch.from_numpy(a) for a in x)
-    _, _, states = ref.wkv_chunked_ref(r, k, v, lw, u, chunk=chunk,
-                                       state0=torch.from_numpy(s0),
-                                       return_states=True)
-    twin = wkv_bwd_twin(r, k, v, lw, u, states, torch.from_numpy(go),
-                        torch.from_numpy(ds), chunk)
+    twin = wkv_bwd_twin(*twin_inputs(x, chunk, s0, go, ds), chunk)
     close(twin, plain_bwd(x, chunk, s0, go, ds), JAX_TOL)
 
 
@@ -373,13 +440,36 @@ def test_kernel_order_twin_strong_decay():
     x = strong(1, 2, 256, 64, seed=13)
     s0, ds, rng = extras(1, 2, 64, seed=14)
     go = rng.standard_normal((1, 2, 256, 64), dtype=np.float32)
-    r, k, v, lw, u = (torch.from_numpy(a) for a in x)
-    _, _, states = ref.wkv_chunked_ref(r, k, v, lw, u, chunk=64,
-                                       state0=torch.from_numpy(s0),
-                                       return_states=True)
-    twin = wkv_bwd_twin(r, k, v, lw, u, states, torch.from_numpy(go),
-                        torch.from_numpy(ds), 64)
+    twin = wkv_bwd_twin(*twin_inputs(x, 64, s0, go, ds), 64)
     close(twin, f64_grads(x, s0, go, ds), F64_TOL)
+
+
+@pytest.mark.parametrize("with_state", [False, True],
+                         ids=["zeros", "state0+dstate"])
+@pytest.mark.parametrize("b,h,s,dk,chunk", [(2, 3, 128, 32, 32),
+                                            (1, 2, 256, 64, 64),
+                                            (1, 2, 8, 16, 1)])
+def test_dstate_pass_is_the_gradient_of_each_suffix(b, h, s, dk, chunk,
+                                                    with_state):
+    """The split itself: the scan's G of chunk c - 1 (the gradient of
+    the state entering chunk c) is the plain backward's dstate0 over the
+    suffix of chunks from c on, with the suffix's saved states and the same
+    final-state gradient; its last update is the whole call's dstate0."""
+    x = inputs(b, h, s, dk, seed=s + dk)
+    s0, ds, rng = extras(b, h, dk, seed=dk)
+    if not with_state:
+        s0 = ds = None
+    go = rng.standard_normal((b, h, s, dk), dtype=np.float32)
+    r, k, v, lw, u, states, tgo, tds, fin = twin_inputs(x, chunk, s0, go,
+                                                        ds)
+    gs, _, ds0 = dstate_scan(*pstate(r, lw, tgo, chunk), states, fin, tds)
+    for ci in range(s // chunk):
+        sl = slice(ci * chunk, s)
+        want = ref.wkv_chunked_bwd_ref(
+            *(t[:, :, sl] for t in (r, k, v, lw)), u, states[:, :, ci:],
+            tgo[:, :, sl], tds, chunk=chunk)[5]
+        got = ds0 if ci == 0 else gs[:, :, ci - 1]
+        close([got], [want], JAX_TOL, names=(f"G entering chunk {ci}",))
 
 
 def test_forward_states_are_the_chunk_entry_states():
