@@ -95,8 +95,10 @@ Phases (any failure exits non-zero):
      state); wkv's time beside its CUDA-core and its tensor-core bound,
      and its device kernels per call;
   8. the engine's other modes and the batch admission: the multipass PPCC
-     chain (run_grid(fused=False), phase 3's grid and golden, no megastep
-     launch, reserve_cohort once per body iteration); the one-event
+     chain (run_grid(fused=False), phase 3's lanes to horizon 1,000, cut
+     from 5,000 for phase 13, against the JAX golden
+     src/repro_torch/golden/run_grid_h1000.json, no megastep launch,
+     reserve_cohort once per body iteration); the one-event
      engine (simulate_sweep(step_mode="event"), 8 seeds as lanes, Fig. 6's
      setting at MPL 25 to horizon 550, cut from 3,000 for the time) and
      simulate() (the same setting to horizon 1,000, cohort mode), each
@@ -176,10 +178,25 @@ Phases (any failure exits non-zero):
      forwards (remat 'full') and 32 backwards a step and no flash, its
      step wall, tokens/s and peak memory; the step's busy share and the
      WKV forward's and backward's shares, and each of the backward's
-     device kernels a call (profiled), at the end.
+     device kernels a call (profiled), at the end;
+ 13. the multi-device modules on a one-rank NCCL mesh (one card: real
+     multi-rank sharding is held by the CPU tests on gloo worlds of 2 and
+     4): a process group made by sharding.init_distributed and an
+     all_reduce through it; the fleet on fleet_mesh(..., pods=True) (Fig.
+     7, MPLs 10, 25, 50 x seeds 0, 1, horizon 200; PPCC and OCC, then PPCC
+     with delta) bit-equal to the unsharded fleet in the same run, with
+     megastep, occ_validate and rowslab_drain launched once per body
+     iteration; the float32 train golden through the mesh path (the model
+     sharded on a (1, 1) mesh, make_global_batch) within 1e-4;
+     qwen3-0.6b at full width and depth, bf16, 3 steps on 8 x 1,024 on
+     the mesh against the unsharded step in the same run (whether the
+     bits match, walls, tokens/s, peak memory, 28 + 28 tensor-core flash
+     launches a step); rwkv6-3b at its width cut to 2 layers on the mesh
+     through the WKV forward and backward; a sharded checkpoint restart
+     equal to a clean run to the bit.  The group is destroyed at the end.
 
-Phase 6 and phase 8's runs follow phase 3, then phases 10, 11, 12, 7 and
-9, all before phase 4's profiler sessions; phase 8's kernel checks and
+Phase 6 and phase 8's runs follow phase 3, then phases 10, 11, 12, 13, 7
+and 9, all before phase 4's profiler sessions; phase 8's kernel checks and
 times come last, then the profiles of phases 7, 9, 10, 11 and 12.
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  The script imports
@@ -214,6 +231,9 @@ SCHED_GOLDEN = SRC / "repro_torch" / "golden" / "sched_n4096_w1024.json"
 EVENT_GOLDEN = SRC / "repro_torch" / "golden" / "event_h550.json"
 SIMULATE_GOLDEN = SRC / "repro_torch" / "golden" / "simulate_h1000.json"
 PHASE8_FIG, PHASE8_MPL = 6, 25
+# phase 8's multipass grid: phase 3's lanes to horizon 1,000 (5,000 until
+# phase 13 needed the time)
+PHASE8_GRID_GOLDEN = SRC / "repro_torch" / "golden" / "run_grid_h1000.json"
 # admit_ops at the reference's sched_admit shape (benchmarks/run.py:380)
 # and at the scheduler's phase-5 scale: (label, n, d, m)
 ADMIT_OPS_SHAPES = [("sched_admit", 256, 1024, 512),
@@ -426,6 +446,12 @@ WKV_BWD_KERNELS = ("wkv_bwd_pstate", "wkv_bwd_dstate", "wkv_bwd_chunk",
                    "wkv_du_sum")
 RWKV_TRAIN_LAYERS = 32           # rwkv6-3b's full depth
 SLEEP_CYCLES = 2_000_000         # ~1 ms of device sleep ahead of a timing
+# phase 13: the multi-device modules on a one-rank NCCL mesh
+MESH_FIG, MESH_MPLS, MESH_SEEDS = 7, (10, 25, 50), (0, 1)
+MESH_HORIZON = 200.0
+MESH_STEPS = 3                   # qwen3-0.6b and rwkv6-3b steps on the mesh
+MESH_RWKV_LAYERS = 2
+MESH_RESTART_STEPS, MESH_CKPT_EVERY, MESH_FAIL_AT = 4, 2, 3
 
 
 def ptxas_usage(log: str, name: str, tag: str):
@@ -2823,6 +2849,274 @@ def rwkv_train_phase(torch, dev, smi, cuda_ms, ptxas_log: str = ""):
     return row, counts["wkv_chunked"], busy
 
 
+def mesh_phase(torch, dev, smi):
+    """Phase 13: the multi-device modules on a one-rank NCCL mesh.  The
+    fleet on ``fleet_mesh(..., pods=True)`` (PPCC and OCC, and PPCC with
+    delta) against the unsharded fleet, bit for bit, its launches equal to
+    the body iterations; the float32 train golden through the mesh path;
+    qwen3-0.6b at full width and depth against the unsharded step; rwkv6-3b
+    at its width, 2 layers; a sharded checkpoint restart.  The group is
+    destroyed at the end, pass or fail.  Returns ``{path: {kernel:
+    launches}}``."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core import sweep
+    from repro_torch.core.types import paper_figure_params
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import wkv as kwkv
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train, train_golden as TG
+    from repro_torch.models import convert
+    from repro_torch.parallel import sharding
+
+    t13 = time.perf_counter()
+    if dist.is_initialized():
+        fail("[13] a process group exists before phase 13")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    paths = {}
+    try:
+        t = time.perf_counter()
+        if not sharding.init_distributed(f"file://{root}/store", 1, 0,
+                                         device=dev):
+            fail("[13] init_distributed made no group")
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            fail(f"[13] group {dist.get_backend()} of "
+                 f"{dist.get_world_size()}, expected nccl of 1")
+        probe = torch.ones(4, device=dev)
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        log(f"[13] process group: nccl, world 1, rank 0 on cuda:"
+            f"{torch.cuda.current_device()}, an all_reduce through it "
+            f"({time.perf_counter() - t:.1f} s)")
+
+        # ---- (1) the fleet on the pod mesh against the unsharded fleet
+        t = time.perf_counter()
+        mpls, seeds = MESH_MPLS, MESH_SEEDS
+        p = paper_figure_params(MESH_FIG).with_(horizon=MESH_HORIZON)
+        mesh = sweep.fleet_mesh(len(mpls) * len(seeds), pods=True)
+        if mesh is None or dict(zip(mesh.mesh_dim_names, mesh.shape)) != \
+                {"pod": 1, "data": 1, "model": 1}:
+            fail(f"[13] fleet_mesh(pods=True) gave {mesh}")
+        for label, protos, kw in (("fused", ("ppcc", "occ"), {}),
+                                  ("delta", ("ppcc",), {"delta": True})):
+            common = dict(protocols=protos, n_slots=sweep.slot_bucket(
+                max(mpls)), device=dev, **kw)
+            plain = sweep.Fleet(p, **common)(mpls, seeds)
+            fleet = sweep.Fleet(p, mesh=mesh, **common)
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fleet(mpls, seeds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            for proto in protos:
+                for k, v in plain[proto].items():
+                    if got[proto][k].dtype != v.dtype or \
+                            not np.array_equal(got[proto][k], v):
+                        fail(f"[13] {label} fleet on the pod mesh: {proto} "
+                             f"{k} {got[proto][k].tolist()} differs from the "
+                             f"unsharded fleet's {v.tolist()}")
+            body = fleet.body_iters
+            if label == "fused":
+                want = {"megastep": body["ppcc"],
+                        "occ_validate": body["occ"],
+                        "reserve_cohort": sum(body.values()) + len(protos),
+                        "rowslab_drain": 0, "rowslab": 0}
+            else:
+                want = {"megastep": 1, "rowslab_drain": body["ppcc"],
+                        "reserve_cohort": body["ppcc"] + 1, "rowslab": 0,
+                        "occ_validate": 0}
+            have = {k: counts[k] for k in want}
+            if have != want:
+                fail(f"[13] {label} fleet on the pod mesh launched {have}, "
+                     f"expected {want} (body iterations {body})")
+            paths[f"{label} fleet on the pod mesh"] = {
+                k: v for k, v in have.items() if v}
+            log(f"[13] {label} fleet on fleet_mesh(pods=True) (pod 1 x data "
+                f"1 x model 1; Fig. {MESH_FIG}, MPLs {list(mpls)} x seeds "
+                f"{list(seeds)}, horizon {MESH_HORIZON:g}, {protos}): every "
+                f"lane equals the unsharded fleet's in "
+                f"{sorted(plain[protos[0]])}, bit for bit; body iterations "
+                f"{body}, launches {have} ({wall:.2f} s of wall)")
+        log(f"[13] fleets in {time.perf_counter() - t:.1f} s")
+
+        mesh11 = mesh_mod.make_mesh((1, 1), ("data", "model"))
+
+        # ---- (2) the float32 train golden through the mesh path
+        t = time.perf_counter()
+        gold = json.loads(TRAIN_GOLDEN.read_text())
+        if gold["run"] != TG.run_record():
+            fail(f"{TRAIN_GOLDEN.name} was written for another run")
+        tree = convert.random_jax_tree(TG.golden_config(), TG.SEED)
+        if convert.tree_sha256(tree) != gold["weights_sha256"]:
+            fail("[13] the golden's seeded weights differ on this machine")
+        ops.reset_launches()
+        got = TG.port_run(dev, tree, mesh=mesh11)
+        torch.cuda.synchronize()
+        del tree
+        counts = ops.launch_counts()
+        worst = hold_train_golden(got, gold, "[13]")
+        n_fwd = TG.LAYERS * (TG.STEPS + 1)
+        if counts["flash_attention"] != n_fwd or counts[kflash.BWD] != n_fwd:
+            fail(f"[13] the float32 golden on the mesh launched {counts}, "
+                 f"expected {n_fwd} CUDA-core forwards and backwards")
+        paths["float32 train golden on the (1, 1) mesh"] = {
+            "flash_attention": n_fwd, kflash.BWD: n_fwd}
+        log(f"[13] float32 train golden through the mesh path (the model "
+            f"sharded on the (1, 1) mesh, make_global_batch) within "
+            f"{gold['tolerance']['rtol']} of {TRAIN_GOLDEN.name}: max rel "
+            f"err {worst:.3g}; flash {n_fwd} CUDA-core forwards and "
+            f"{n_fwd} backwards ({time.perf_counter() - t:.1f} s)")
+        torch.cuda.empty_cache()
+
+        # ---- (3) qwen3-0.6b, full width and depth, bf16: the mesh step
+        # against the unsharded step on one fixed batch
+        cfg = configs.get("qwen3_0p6b")
+        runs = {}
+        for name, m in (("unsharded", None), ("mesh (1, 1)", mesh11)):
+            t = time.perf_counter()
+            loop, make_batch = train.build(
+                cfg, batch=TRAIN_B, seq=TRAIN_S, lr=1e-3,
+                steps=MESH_STEPS, device=dev, ckpt_every=0, mesh=m)
+            lm, opt, data = loop.init_state()
+            batch = make_batch(data)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            walls, losses, per_step = [], [], []
+            for _ in range(MESH_STEPS):
+                before = ops.launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lm, opt, met = loop.train_step(lm, opt, batch)
+                losses.append(float(met["loss"]))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                after = ops.launch_counts()
+                per_step.append({k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]})
+            h = hashlib.sha256()
+            for k, p_ in lm.named_parameters():
+                h.update(sharding.local(p_).detach().contiguous()
+                         .view(torch.uint8).cpu().numpy().tobytes())
+            sharded = all(sharding.is_sharded(p_) for p_ in lm.parameters())
+            runs[name] = dict(losses=losses, walls=walls, digest=h.hexdigest(),
+                              peak=torch.cuda.max_memory_allocated(),
+                              per_step=per_step, sharded=sharded,
+                              seconds=time.perf_counter() - t)
+            del loop, lm, opt, data, batch, make_batch
+            torch.cuda.empty_cache()
+        a, b = runs["unsharded"], runs["mesh (1, 1)"]
+        L = cfg.n_layers
+        if not b["sharded"] or a["sharded"]:
+            fail("[13] the mesh run's parameters are not all DTensors")
+        if any(s_.get("flash_attention_tc") != L or
+               s_.get(kflash.BWD_TC) != L for s_ in b["per_step"]):
+            fail(f"[13] qwen3 on the mesh launched {b['per_step']} a step, "
+                 f"expected {L} tensor-core flash forwards and backwards")
+        rel = max(abs(x - y) / abs(y) for x, y in zip(b["losses"],
+                                                      a["losses"]))
+        if not all(map(math.isfinite, b["losses"])) or rel > 1e-4:
+            fail(f"[13] qwen3 on the mesh: losses {b['losses']}, unsharded "
+                 f"{a['losses']}")
+        bits = b["losses"] == a["losses"] and b["digest"] == a["digest"]
+        med = {k: statistics.median(r["walls"][1:]) for k, r in runs.items()}
+        paths["qwen3_0p6b training on the (1, 1) mesh, 3 steps"] = {
+            "flash_attention_tc": L * MESH_STEPS, kflash.BWD_TC: L * MESH_STEPS}
+        log(f"[13] qwen3-0.6b at full width and depth ({L} layers, bf16), "
+            f"{MESH_STEPS} steps of launch.train's loop on one fixed batch of "
+            f"{TRAIN_B} x {TRAIN_S}, sharded on the (1, 1) mesh (every "
+            f"parameter and AdamW leaf a DTensor, make_global_batch) against "
+            f"the unsharded step in this run: bits match {bits} (losses "
+            f"{b['losses']} against {a['losses']}, max rel diff {rel:.3g}; "
+            f"parameter digests {'equal' if b['digest'] == a['digest'] else 'differ'}"
+            f"); step walls mesh {[round(w * 1e3, 1) for w in b['walls']]} ms, "
+            f"unsharded {[round(w * 1e3, 1) for w in a['walls']]} ms; median "
+            f"of steps 1-{MESH_STEPS - 1} {med['mesh (1, 1)'] * 1e3:.2f} ms "
+            f"({TRAIN_B * TRAIN_S / med['mesh (1, 1)']:.0f} tokens/s) against "
+            f"{med['unsharded'] * 1e3:.2f} ms "
+            f"({TRAIN_B * TRAIN_S / med['unsharded']:.0f} tokens/s); peak "
+            f"device memory {b['peak'] / 1e9:.2f} GB against "
+            f"{a['peak'] / 1e9:.2f} GB; {L} flash forwards and {L} backwards "
+            f"a step on the tensor cores ({b['seconds']:.1f} + "
+            f"{a['seconds']:.1f} s with the inits) [{smi}]")
+
+        # ---- (4) rwkv6-3b at its width, 2 layers, on the mesh
+        t = time.perf_counter()
+        rcfg = configs.get("rwkv6_3b").with_(n_layers=MESH_RWKV_LAYERS)
+        loop, make_batch = train.build(
+            rcfg, batch=TRAIN_B, seq=TRAIN_S, lr=1e-3, steps=MESH_STEPS,
+            device=dev, ckpt_every=0, mesh=mesh11)
+        lm, opt, data = loop.init_state()
+        batch = make_batch(data)
+        ops.reset_launches()
+        losses = []
+        for _ in range(MESH_STEPS):
+            lm, opt, met = loop.train_step(lm, opt, batch)
+            losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = {"wkv_chunked": 2 * MESH_RWKV_LAYERS * MESH_STEPS,
+                kwkv.BWD: MESH_RWKV_LAYERS * MESH_STEPS}
+        if {k: counts[k] for k in want} != want or \
+                not all(map(math.isfinite, losses)):
+            fail(f"[13] rwkv6-3b on the mesh: launches {counts}, expected "
+                 f"{want}; losses {losses}")
+        paths[f"rwkv6_3b training, {MESH_RWKV_LAYERS} layers, on the (1, 1) "
+              f"mesh, 3 steps"] = want
+        log(f"[13] rwkv6-3b at its width ({MESH_RWKV_LAYERS} of 32 layers, "
+            f"bf16) on the (1, 1) mesh, {MESH_STEPS} steps on {TRAIN_B} x "
+            f"{TRAIN_S}: losses {[round(x, 4) for x in losses]}; launches "
+            f"{want} (the WKV forward twice a layer under remat 'full', its "
+            f"backward once) ({time.perf_counter() - t:.1f} s)")
+        del loop, lm, opt, data, batch, make_batch
+        torch.cuda.empty_cache()
+
+        # ---- (5) the sharded checkpoint restart
+        t = time.perf_counter()
+        cfg2 = cfg.with_(n_layers=2)
+        hist = {}
+        for name, fail_at in (("clean", None), ("faulty", MESH_FAIL_AT)):
+            loop, make_batch = train.build(
+                cfg2, batch=RESTART_B, seq=RESTART_S, lr=1e-3,
+                steps=MESH_RESTART_STEPS, device=dev,
+                ckpt_dir=str(root / name), ckpt_every=MESH_CKPT_EVERY,
+                inject_failure_at=fail_at, mesh=mesh11)
+            summ = loop.run(make_batch, MESH_RESTART_STEPS)
+            hist[name] = (summ["restarts"], list(loop.history))
+            del loop, make_batch
+            torch.cuda.empty_cache()
+        (rc, clean), (rf, faulty) = hist["clean"], hist["faulty"]
+        if rc or rf != 1 or dict(faulty) != dict(clean):
+            fail(f"[13] sharded restart: clean {hist['clean']}, faulty "
+                 f"{hist['faulty']}")
+        manifest = json.loads(
+            (root / "clean" / f"step_{MESH_RESTART_STEPS:08d}" /
+             "manifest.json").read_text())
+        n_sharded = sum(1 for e in manifest["leaves"]
+                        if e["shards"][0]["index"] is not None)
+        log(f"[13] sharded checkpoint restart (qwen3-0.6b full width, 2 "
+            f"layers, on the (1, 1) mesh, {RESTART_B} x {RESTART_S}, a "
+            f"checkpoint every {MESH_CKPT_EVERY} steps, a failure at step "
+            f"{MESH_FAIL_AT}): restarted once, {len(faulty)} steps run, every "
+            f"step's loss equals the clean run's to the bit (final "
+            f"{faulty[-1][1]:.6f}); {n_sharded} of "
+            f"{len(manifest['leaves'])} leaves saved as indexed shards "
+            f"({time.perf_counter() - t:.1f} s)")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[13] process group destroyed; phase 13 in "
+        f"{time.perf_counter() - t13:.1f} s")
+    return paths
+
+
 def hybrid_int8_phase(torch, dev, smi, cuda_ms):
     """Phase 9: the int8 and sliding-window KV caches and the hybrid
     family.  The golden's yi-34b and zamba2-1.2b runs; zamba2-1.2b at its
@@ -3497,9 +3791,10 @@ def admit_ops_case(label, n, d, m, gen, torch, P, dev):
     return s, ops_
 
 
-def phase8_runs(torch, dev, sweep, E, P, ops, golden3) -> dict:
-    """Phase 8, its runs: the multipass PPCC grid, the one-event engine and
-    simulate(), each against its JAX golden, each with its launches."""
+def phase8_runs(torch, dev, sweep, E, P, ops, golden8) -> dict:
+    """Phase 8, its runs: the multipass PPCC grid (phase 3's lanes to
+    ``golden8``'s horizon), the one-event engine and simulate(), each
+    against its JAX golden, each with its launches."""
     import numpy as np
     from repro_torch.core.types import SimParams, paper_figure_params
     info = {}
@@ -3508,21 +3803,21 @@ def phase8_runs(torch, dev, sweep, E, P, ops, golden3) -> dict:
     torch.cuda.synchronize()
     t = time.perf_counter()
     out, fl = sweep.run_grid(
-        figs=golden3["figs"], mpl_grid=golden3["mpl_grid"],
-        seeds=golden3["seeds"], horizon=golden3["horizon"],
+        figs=golden8["figs"], mpl_grid=golden8["mpl_grid"],
+        seeds=golden8["seeds"], horizon=golden8["horizon"],
         protocols=("ppcc",), fused=False, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = ops.launch_counts()
     body = fl.body_iters["ppcc"]
-    lanes = len(golden3["figs"]) * len(golden3["mpl_grid"]) * \
-        len(golden3["seeds"])
-    log(f"[8] multipass: run_grid(horizon={golden3['horizon']:g}, "
+    lanes = len(golden8["figs"]) * len(golden8["mpl_grid"]) * \
+        len(golden8["seeds"])
+    log(f"[8] multipass: run_grid(horizon={golden8['horizon']:g}, "
         f"protocols=('ppcc',), fused=False): {lanes} lanes, {body} body "
         f"iterations, wall {wall:.3f} s ({wall / body * 1e3:.3f} ms an "
         f"iteration); kernel launches "
         f"{({k: v for k, v in counts.items() if v})}")
-    check_lanes(out, ("ppcc",), golden3, "8", sweep)
+    check_lanes(out, ("ppcc",), golden8, "8", sweep)
     want = {"megastep": 0, "rowslab": 0, "rowslab_drain": 0,
             "reserve_cohort": body + 1, "occ_validate": 0}
     got = {k: counts[k] for k in want}
@@ -3534,8 +3829,10 @@ def phase8_runs(torch, dev, sweep, E, P, ops, golden3) -> dict:
         ("acyclic", P.acyclic), ("classes_consistent", P.classes_consistent))}
     if not all(inv.values()):
         fail(f"[8] Theorem-1 invariants fail on the multipass states: {inv}")
-    log(f"[8] multipass: every PPCC lane equals {PHASE3_GOLDEN.name} (the "
-        f"fused grid's golden) in {sweep.METRICS + ('now',)}; megastep "
+    log(f"[8] multipass: every PPCC lane equals {PHASE8_GRID_GOLDEN.name} "
+        f"(the fused grid's golden at horizon {golden8['horizon']:g}, cut "
+        f"from phase 3's 5,000 for phase 13's time) in "
+        f"{sweep.METRICS + ('now',)}; megastep "
         f"launched 0 times, reserve_cohort once per body iteration and once "
         f"for the init; Theorem-1 invariants hold {inv}")
     info["multipass"] = {"wall_s": wall, "iterations": body,
@@ -3899,7 +4196,7 @@ def main() -> None:
         fail(f"run_grid's default horizon is not the golden's {horizon}")
     golden3 = json.loads(PHASE3_GOLDEN.read_text())
     golden6 = json.loads(PHASE6_GOLDEN.read_text())
-    for g_ in (PHASE3_GOLDEN, PHASE6_GOLDEN):
+    for g_ in (PHASE3_GOLDEN, PHASE6_GOLDEN, PHASE8_GRID_GOLDEN):
         for k in ("figs", "mpl_grid", "seeds", "protocols"):
             if json.loads(g_.read_text())[k] != golden[k]:
                 fail(f"{g_.name}'s {k} is not {GOLDEN.name}'s")
@@ -4266,7 +4563,8 @@ def main() -> None:
 
     # ---------------- phase 8, its runs (walls before any profiler) -------
     t8 = time.perf_counter()
-    p8 = phase8_runs(torch, dev, sweep, E, P, ops, golden3)
+    p8 = phase8_runs(torch, dev, sweep, E, P, ops,
+                     json.loads(PHASE8_GRID_GOLDEN.read_text()))
     t8 = time.perf_counter() - t8
 
     lap("8 runs")
@@ -4295,6 +4593,12 @@ def main() -> None:
         cuda_times(fn, reps, torch, sleep), logs.get("wkv_bwd", ""))
 
     lap("12 rwkv training")
+
+    # ---------------- phase 13: the multi-device modules -----------------
+    # (after phase 12 has freed its model; walls before any profiler)
+    p13_paths = mesh_phase(torch, dev, smi)
+
+    lap("13 mesh")
 
     # ---------------- phase 7: LM serving (walls before any profiler) ----
     lm_rows, lm_busy = lm_phase(torch, dev, smi, lambda fn, reps, sleep=True:
@@ -4585,9 +4889,19 @@ def main() -> None:
     rows.append(bwd_row)
     rows.append(wkv_bwd_row)
     rows.append(admit_row)
+    # phase 13's launches, by the row each counter belongs to
+    row_of = {"rowslab_drain": "rowslab", "flash_attention_tc":
+              "flash_attention", "flash_attention_bwd_tc":
+              "flash_attention_bwd"}
+    for path, per in p13_paths.items():
+        for counter, n_ in per.items():
+            for row in rows:
+                if row["name"] == row_of.get(counter, counter):
+                    row.setdefault("launches_by_path", {})[
+                        f"{path} (phase 13, {counter})"] = n_
     lap("profiles of 7, 9, 10, 11, 12")
     log(f"[done] seconds by phase, in the order run: {dict(laps)}")
-    log(f"[done] all twelve phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] all thirteen phases in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,16 @@ explicit lane axis: ``cond`` is computed per lane, the body runs on all
 lanes, and lanes whose ``cond`` was false keep their state.  The host
 reads "any lane still running" once every ``CHECK_EVERY`` iterations;
 frozen lanes stay frozen, so the extra iterations change nothing.
-Lane sharding over a device mesh is not ported: the fleet runs on one
-card.
+
+A fleet on a mesh (``Fleet(mesh=)``, ``fleet_mesh``; ``run_fleet`` and
+``run_grid`` with ``shard=True`` once a process group exists) splits the
+lanes over the mesh's data axes as the reference's ``shard_map`` does:
+each rank runs ``run_while`` on its contiguous block of lanes, pod-major
+over ``("pod", "data")``, never in step with the others, and every rank
+then gathers every block, so each returns the reference's global
+arrays.  Lanes are independent, so a sharded fleet equals the unsharded
+one bit for bit.  Without a process group, or in a world of one with
+``host_mesh``, the fleet runs unsharded.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from . import engine as E
 from .types import (GRID_FIGS, SimParams, grid_cover_params,
                     paper_figure_params)
 from ..device import resolve
+from ..parallel import sharding
 
 PROTOCOLS = ("ppcc", "2pl", "occ")
 METRICS = ("commits", "aborts", "blocks", "ops_done", "iters")
@@ -64,6 +73,36 @@ def run_while(cond, step, s: E.EngState) -> Tuple[E.EngState, int]:
     return s, iters
 
 
+def fleet_mesh(n_lanes: int, pods: Optional[bool] = None):
+    """The largest mesh whose lane axes divide ``n_lanes`` (each rank an
+    even block), or ``None`` (no process group, or a world of one
+    without ``pods``).
+
+    One host: the ``("data", "model")`` host mesh.  Several hosts
+    (``world > LOCAL_WORLD_SIZE``), or ``pods=True`` to force the pod
+    path on one: the ``("pod", "data", "model")`` mesh, the lanes over
+    ``("pod", "data")``.  Every rank must call it together; a smaller
+    mesh leaves the last ranks outside, and they still return the
+    gathered results."""
+    if not torch.distributed.is_initialized():
+        return None
+    world, per = sharding.world_size(), sharding.local_world_size()
+    if pods is None:
+        pods = world > per
+    if pods:
+        n_pods = world // per
+        if n_lanes % n_pods:
+            return None         # lanes must split evenly across hosts
+        nd = per
+        while nd > 1 and n_lanes % (n_pods * nd):
+            nd -= 1
+        return sharding.pod_mesh(nd)
+    nd = world
+    while nd > 1 and n_lanes % nd:
+        nd -= 1
+    return sharding.host_mesh(nd) if nd > 1 else None
+
+
 class Fleet:
     """One lane batch per protocol for a (protocol × lane) grid.
 
@@ -81,11 +120,16 @@ class Fleet:
     iteration (fused only); ``telemetry=True`` adds each protocol's
     per-lane ``telemetry`` block (``TELEMETRY``) to the results.  All
     three leave every metric unchanged.
+
+    ``mesh`` (``fleet_mesh``) shards the lanes over its data axes: each
+    rank runs its block, and every rank returns every lane's results;
+    ``final`` and ``body_iters`` are then this rank's (``final`` is
+    ``None`` on a rank outside the mesh).
     """
 
     def __init__(self, p: SimParams, protocols: Sequence[str] = PROTOCOLS,
                  n_slots: Optional[int] = None, max_iters: int = 400_000,
-                 cohort_dt: Optional[float] = None,
+                 cohort_dt: Optional[float] = None, mesh=None,
                  pool: Optional[int] = None, fused: bool = True,
                  order: str = "index",
                  megakernel: Optional[bool] = None, delta: bool = False,
@@ -100,6 +144,7 @@ class Fleet:
         self.params = p
         self.protocols = tuple(protocols)
         self.n_slots = n_slots
+        self.mesh = mesh
         self.device = resolve(device)
         self.telemetry = telemetry
         self.parts = {
@@ -126,8 +171,18 @@ class Fleet:
         if int(mpls.max()) > self.n_slots:
             raise ValueError(f"max(mpls)={int(mpls.max())} exceeds "
                              f"n_slots={self.n_slots}")
+        block = None
+        if self.mesh is not None:
+            block = _lane_block(self.mesh, seeds.shape[0])
+            lo, hi = block[1] if block else (0, 0)
+            seeds, mpls = seeds[lo:hi], mpls[lo:hi]
+            rts = E.RtParams(*(x[lo:hi] for x in rts))
         out = {}
         for proto in self.protocols:
+            if self.mesh is not None and not block:
+                self.final[proto] = None
+                out[proto] = None
+                continue
             init, cond, step = self.parts[proto]
             s, iters = run_while(cond, step, init(seeds, mpls, rts))
             self.final[proto] = s
@@ -138,6 +193,8 @@ class Fleet:
                 res["telemetry"] = {k: getattr(s.tm, k).cpu().numpy()
                                     for k in TELEMETRY}
             out[proto] = res
+        if self.mesh is not None:
+            out = _gather_lanes(block, out)
         return out
 
     def __call__(self, mpls, seeds):
@@ -150,6 +207,40 @@ class Fleet:
                 for proto, res in flat.items()}
 
 
+def _lane_block(mesh, n_lanes: int):
+    """(shard index, (lo, hi)): this rank's contiguous block of lanes over
+    the mesh's data axes, pod-major; ``None`` outside the mesh."""
+    sh = sharding.data_shard(mesh)
+    if sh is None:
+        return None
+    k, n = sh
+    if n_lanes % n:
+        raise ValueError(f"{n_lanes} lanes do not split over {n} shards")
+    b = n_lanes // n
+    return k, (k * b, (k + 1) * b)
+
+
+def _gather_lanes(block, out):
+    """Every rank's ``{protocol: results}`` of its lane block,
+    concatenated in lane order on every rank (each block once)."""
+    parts = [None] * sharding.world_size()
+    torch.distributed.all_gather_object(
+        parts, (block[0] if block else None, out))
+    blocks = {}
+    for k, res in parts:
+        if k is not None:
+            blocks.setdefault(k, res)
+    order = [blocks[k] for k in sorted(blocks)]
+    return {proto: _concat([b[proto] for b in order]) for proto in out}
+
+
+def _concat(results):
+    first = results[0]
+    return {k: _concat([r[k] for r in results]) if isinstance(v, dict)
+            else np.concatenate([r[k] for r in results])
+            for k, v in first.items()}
+
+
 def _fold(res, fn):
     """Apply ``fn`` to every array of a result dict, telemetry block
     included (its arrays keep their trailing axes)."""
@@ -160,17 +251,20 @@ def _fold(res, fn):
 def run_fleet(fig: int, mpl_grid: Sequence[int], seeds: Sequence[int],
               horizon: float, protocols: Sequence[str] = PROTOCOLS,
               n_slots: Optional[int] = None, max_iters: int = 400_000,
-              delta: bool = False, delta_k: int = 0,
+              shard: bool = True, delta: bool = False, delta_k: int = 0,
               telemetry: bool = False, trace_every: int = 0,
               trace_len: int = 256, device=None
               ) -> Tuple[Dict[str, Dict[str, np.ndarray]], Fleet]:
     """One paper figure's (MPL × seed) grid: ``({protocol: {metric:
-    np.ndarray[M, S]}}, fleet)``."""
+    np.ndarray[M, S]}}, fleet)``; ``shard`` runs it on ``fleet_mesh``
+    where there is one."""
     p = paper_figure_params(fig).with_(horizon=horizon)
     if n_slots is None:
         n_slots = slot_bucket(max(mpl_grid))
+    mesh = fleet_mesh(len(mpl_grid) * len(seeds)) if shard else None
     fleet = Fleet(p, protocols=protocols, n_slots=n_slots,
-                  max_iters=max_iters, delta=delta, delta_k=delta_k,
+                  max_iters=max_iters, mesh=mesh, delta=delta,
+                  delta_k=delta_k,
                   telemetry=telemetry, trace_every=trace_every,
                   trace_len=trace_len, device=device)
     return fleet(list(mpl_grid), list(seeds)), fleet
@@ -209,7 +303,8 @@ def run_grid(figs: Sequence[int] = GRID_FIGS,
              seeds: Sequence[int] = (0, 1), horizon: float = 20_000.0,
              protocols: Sequence[str] = PROTOCOLS,
              n_slots: Optional[int] = None, max_iters: int = 400_000,
-             fleet: Optional[Fleet] = None, megakernel: Optional[bool] = None,
+             shard: bool = True, fleet: Optional[Fleet] = None,
+             megakernel: Optional[bool] = None,
              fused: bool = True, delta: bool = False, delta_k: int = 0,
              telemetry: bool = False,
              trace_every: int = 0, trace_len: int = 256, device=None
@@ -222,15 +317,18 @@ def run_grid(figs: Sequence[int] = GRID_FIGS,
     ``({fig: {protocol: {metric: np.ndarray[M, S]}}}, fleet)``, with a
     ``telemetry`` block of ``[M, S, ...]`` arrays per protocol when
     ``telemetry`` is on.  ``fused=False`` runs PPCC through the
-    multipass chain.  Pass ``fleet`` from an earlier call to reuse it.
+    multipass chain.  Pass ``fleet`` from an earlier call to reuse it;
+    ``shard`` builds it on ``fleet_mesh`` where there is one.
     """
     figs = tuple(figs)
     if fleet is None:
         cover = grid_cover_params(figs).with_(horizon=horizon)
         if n_slots is None:
             n_slots = slot_bucket(max(mpl_grid))
+        mesh = fleet_mesh(len(figs) * len(mpl_grid) * len(seeds)) \
+            if shard else None
         fleet = Fleet(cover, protocols=protocols, n_slots=n_slots,
-                      max_iters=max_iters, megakernel=megakernel,
+                      max_iters=max_iters, mesh=mesh, megakernel=megakernel,
                       fused=fused, delta=delta, delta_k=delta_k,
                       telemetry=telemetry, trace_every=trace_every,
                       trace_len=trace_len, device=device)

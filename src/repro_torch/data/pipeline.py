@@ -1,15 +1,16 @@
-"""Deterministic, checkpointable synthetic token pipeline: the port of
-``repro/data/pipeline.py``, numpy as the reference's host side, so the
-streams are the reference's to the bit.
+"""Deterministic, shardable, checkpointable synthetic token pipeline:
+the port of ``repro/data/pipeline.py``, numpy as the reference's host
+side, so the streams are the reference's to the bit.
 
 Each row of the global batch at a step is drawn from its own seed
-``(seed, step, row)``, so the stream needs no coordination and survives
-restarts (its state is the step counter).  ``Prefetcher`` keeps
-``depth`` batches in flight on a background thread and exposes a
+``(seed, step, row)``, so the stream needs no coordination, survives
+restarts (its state is the step counter) and re-partitions on a new
+mesh.  ``make_global_batch`` has each rank generate only its own rows
+and returns DTensors sharded over the mesh's data axes.  ``Prefetcher``
+keeps ``depth`` batches in flight on a background thread and exposes a
 deadline (``get(timeout)`` raises ``queue.Empty``), the straggler hook
 of the async trainer.  ``to_device`` moves a host batch to the model's
-device (token ids as int64).  ``make_global_batch``, which needs a mesh,
-waits for the distribution slice (ROADMAP.md, queue 1 item 5).
+device (token ids as int64).
 """
 from __future__ import annotations
 
@@ -79,6 +80,43 @@ class SyntheticLM:
                 (self.shape.global_batch, self.shape.seq_len,
                  self.cfg.d_model)).astype(np.float32)
             del out["tokens"]
+        return out
+
+    def make_global_batch(self, mesh, step: Optional[int] = None
+                          ) -> Dict[str, torch.Tensor]:
+        """``host_batch``'s tensors as DTensors on ``mesh`` (token ids as
+        int64, floats as float32): rows ``Shard(0)`` over its data axes
+        (pod-major), replicated over ``model``.  Each rank draws only its
+        rows of ``tokens`` and ``labels`` (``_tokens_for(lo, hi)``); the
+        vlm family's ``img`` and the audio family's ``frames``, one draw
+        for the whole batch, are cut to its rows.  The reference's
+        returns ``tokens`` and ``labels`` only."""
+        from torch.distributed.tensor import DTensor
+        from ..parallel import sharding
+        step = self.state.step if step is None else step
+        b, s = self.shape.global_batch, self.shape.seq_len
+        k, n = sharding.data_shard(mesh)
+        if b % n:
+            raise ValueError(f"global batch {b} does not split over {n} "
+                             f"data shards")
+        lo, hi = k * b // n, (k + 1) * b // n
+        raw = _tokens_for(self.cfg, self.seed, step, lo, hi, s)
+        rows = {"tokens": raw[:, :-1], "labels": raw[:, 1:]}
+        if self.cfg.family in ("vlm", "audio"):
+            whole = self.host_batch(step)
+            rows.update({key: v[lo:hi] for key, v in whole.items()
+                         if key not in rows})
+            if "tokens" not in whole:
+                del rows["tokens"]
+        placements = sharding.to_placements(
+            sharding.P(sharding.data_axes(mesh)), mesh)
+        out = {}
+        for key, loc in to_device(rows, mesh.device_type).items():
+            loc = loc.contiguous()
+            shape = (b, *loc.shape[1:])
+            out[key] = DTensor.from_local(
+                loc, mesh, placements, run_check=False, shape=shape,
+                stride=torch.empty(shape, device="meta").stride())
         return out
 
     def advance(self) -> None:

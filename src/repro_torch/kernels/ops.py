@@ -19,6 +19,7 @@ two kernels on CUDA tensors and to the plain versions
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import admit as _admit
 from . import admit_ops as _admit_ops
@@ -31,7 +32,12 @@ from . import wkv as _wkv
 
 
 def _route(t, name: str) -> bool:
-    """True for the kernel (CUDA tensor), False for the plain version."""
+    """True for the kernel (CUDA tensor), False for the plain version.  A
+    DTensor raises: the kernels take raw pointers to whole tensors, and
+    a sharded model gathers its parameters before they reach here."""
+    if isinstance(t, DTensor):
+        raise TypeError(f"{name}: given a DTensor; pass its local or "
+                        f"gathered tensor")
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":

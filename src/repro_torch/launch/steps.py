@@ -4,6 +4,17 @@
 The reference builds an ``LM`` from a config and passes the parameters to
 each call; here ``LM`` holds its parameters, so each maker takes the
 model, and the train step takes the model in the parameters' place.
+
+A model whose parameters are DTensors (``sharding.shard_params``) trains
+on their mesh, as the reference's step does under its ambient mesh: each
+rank takes its rows of the batch (a ``make_global_batch`` DTensor's local
+shard, or its block of a whole batch), gathers each block's parameters on
+use, and weights its cross-entropy by its share of the global token
+count, so the loss is the mean over the global batch; each gradient is
+the sum over the data ranks, held on the parameter's shards, and AdamW
+updates the shards.  The MoE load-balance term is the mean of the data
+ranks' (each over its rows), where the reference's is the global
+batch's.
 """
 from __future__ import annotations
 
@@ -14,6 +25,7 @@ import torch
 from ..models import layers
 from ..models.lm import LM
 from ..optim import adamw
+from ..parallel import sharding
 
 
 def _split(batch, accum: int):
@@ -28,11 +40,44 @@ def loss_and_grads(model: LM, batch):
     the parameter's dtype (zeros for a parameter the loss does not
     reach), as ``jax.value_and_grad`` gives them."""
     names, params = zip(*model.named_parameters())
+    mesh = sharding.mesh_of(params)
+    if mesh is not None:
+        return _sharded_loss_and_grads(model, _local_rows(batch, mesh),
+                                       names, params, mesh)
     total, metrics = model.loss(batch)
     grads = torch.autograd.grad(total, params, allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for n, p, g in zip(names, params, grads)}
     return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def _local_rows(batch, mesh):
+    return {k: sharding.local_rows(v, mesh) for k, v in batch.items()}
+
+
+def _sharded_loss_and_grads(model, batch, names, params, mesh):
+    """``loss_and_grads`` of a model with DTensor parameters on this
+    rank's rows ``batch``: its cross-entropy weighted by its share of the
+    global token count, gradients summed over the data ranks onto the
+    shards; the metrics are the global batch's."""
+    _, metrics = model.loss(batch)
+    ce, aux, count = metrics["ce"], metrics["aux"], metrics["tokens"]
+    n_data = sharding.data_shard(mesh)[1]
+    share = count / sharding.data_sum(count, mesh)
+    total = ce * share + 0.01 * aux / n_data
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    out = {}
+    for n, p, g in zip(names, params, grads):
+        if g is None:
+            g = sharding.from_local(torch.zeros_like(sharding.local(p)), p)
+        elif g.placements != p.placements:
+            g = g.redistribute(mesh, p.placements)
+        out[n] = g
+    ce_g = sharding.data_sum(ce.detach() * share.detach(), mesh)
+    aux_g = sharding.data_sum(aux.detach(), mesh) / n_data
+    return (sharding.data_sum(total.detach(), mesh),
+            {"ce": ce_g, "aux": aux_g,
+             "tokens": sharding.data_sum(count, mesh)}, out)
 
 
 def make_train_step(lm: LM, opt_cfg: Optional[adamw.AdamWConfig] = None,
@@ -60,12 +105,17 @@ def make_train_step(lm: LM, opt_cfg: Optional[adamw.AdamWConfig] = None,
         if accum == 1:
             loss, metrics, grads = loss_and_grads(model, batch)
         else:
+            names, params = zip(*model.named_parameters())
+            mesh = sharding.mesh_of(params)
+            if mesh is not None:
+                batch = _local_rows(batch, mesh)
             grads, loss = None, 0.0
             for mb in _split(batch, accum):
-                l, metrics, g = loss_and_grads(model, mb)
+                l, metrics, g = loss_and_grads(model, mb) if mesh is None \
+                    else _sharded_loss_and_grads(model, mb, names, params,
+                                                 mesh)
                 if grads is None:
-                    grads = {k: torch.zeros(v.shape, dtype=torch.float32,
-                                            device=v.device)
+                    grads = {k: torch.zeros_like(v, dtype=torch.float32)
                              for k, v in g.items()}
                 for k, v in g.items():
                     grads[k] += v.float()

@@ -17,7 +17,8 @@ float32, with seeded weights (``models.convert.random_jax_tree``) and
 
 ``tests/test_torch_train.py --write-golden [--arch rwkv6_3b]`` runs the
 JAX reference the same way and writes the golden; the CPU tests and
-``chip_smoke.py`` (phases 11 and 12) hold the port's run to it.
+``chip_smoke.py`` (phases 11 and 12, and phase 13 on a mesh) hold the
+port's run to it.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from ..models import convert, layers
 from ..models.config import ModelConfig, ShapeSpec
 from ..models.lm import LM
 from ..optim import adamw
+from ..parallel import sharding
 from . import steps as steps_mod
 
 ARCH = "qwen3_0p6b"
@@ -78,22 +80,31 @@ def leaf_norms(cfg: ModelConfig, grads: dict) -> dict:
     return out
 
 
-def port_run(device, tree=None, arch: str = ARCH) -> dict:
+def port_run(device, tree=None, arch: str = ARCH, mesh=None) -> dict:
     """The port's record of ``arch``'s run on ``device``: ``{"loss0",
     "ce0", "grad_norm0", "leaf_grad_norms", "loss", "ce", "grad_norm"}``
-    (the last three one value a step)."""
+    (the last three one value a step).  With a ``mesh`` the model is
+    sharded on it by the rules and the batches are
+    ``make_global_batch``'s."""
     cfg = golden_config(arch)
     tree = convert.random_jax_tree(cfg, SEED) if tree is None else tree
     lm = LM(cfg, device=device)
     lm.load_state_dict(convert.params_from_jax(cfg, tree))   # a copy
     del tree           # freed here when the caller passed its only reference
     layers.trainable(lm)
-    host = host_batches(cfg)
-    batches = [pipeline.to_device(h, device) for h in host]
+    if mesh is None:
+        batches = [pipeline.to_device(h, device) for h in host_batches(cfg)]
+    else:
+        sharding.shard_params(cfg, lm, mesh)
+        data = pipeline.SyntheticLM(cfg, ShapeSpec("golden", S, B, "train"),
+                                    seed=SEED)
+        batches = [data.make_global_batch(mesh, i) for i in range(STEPS)]
     loss, metrics, grads = steps_mod.loss_and_grads(lm, batches[0])
     out = {"loss0": float(loss), "ce0": float(metrics["ce"]),
-           "grad_norm0": float(adamw.global_norm(grads)),
-           "leaf_grad_norms": leaf_norms(cfg, grads)}
+           "grad_norm0": float(adamw.global_norm(grads))}
+    grads = {k: v.full_tensor() if sharding.is_sharded(v) else v
+             for k, v in grads.items()}
+    out["leaf_grad_norms"] = leaf_norms(cfg, grads)
     del grads
     step = steps_mod.make_train_step(lm, adamw.AdamWConfig(**OPT))
     opt = adamw.init(dict(lm.named_parameters()))

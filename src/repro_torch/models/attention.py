@@ -32,8 +32,12 @@ The branches of the reference's ``attention()``:
   ``cache_dtype`` is: the reference's prefill does not quantise
   (``:334-337``, ``:358-362``), and the port keeps that behaviour.
 
-Not ported (``NotImplementedError``, ROADMAP.md queue 1): the sharding
-pins ``_pin``/``_dax`` (``act_constraints``).
+The sharding pins ``_pin`` and ``_dax`` are ``parallel.sharding``'s
+``pin`` and ``dax``: without an ambient mesh a pin returns its input, as
+the reference's does; under one it redistributes a DTensor and returns a
+local tensor as it is, so it never changes a value.  The reference pins
+its XLA twin of the kernel (``_sdpa_chunked``), which the port does not
+have; ``models.rwkv`` pins its WKV operands with them.
 
 Query heads can be padded (``pad_q_heads``): the padded heads' rows of
 ``wo`` are zeroed, so they are exact no-ops.  KV heads are replicated
@@ -50,6 +54,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..kernels import ops
+from ..parallel import sharding
 from . import layers
 from .config import ModelConfig
 
@@ -69,12 +74,15 @@ def effective_kv_heads(cfg: ModelConfig, kv_repeat: int) -> int:
     return cfg.n_kv_heads * kv_repeat
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for an attention feature that waits for a later slice."""
-    if cfg.act_constraints:
-        raise NotImplementedError(
-            "act_constraints: the sharding pins are not ported yet "
-            "(ROADMAP.md, queue 1)")
+def _pin(x: torch.Tensor, axes):
+    """``x`` pinned to ``axes`` under the ambient mesh (``sharding.pin``);
+    ``x`` itself without one."""
+    return sharding.pin(x, axes)
+
+
+def _dax():
+    """The ambient mesh's data axes, ``None`` without one."""
+    return sharding.dax()
 
 
 class Attention(torch.nn.Module):

@@ -49,6 +49,7 @@ from typing import Dict, Tuple, Union
 import torch
 
 from ..device import resolve
+from ..parallel import sharding
 from . import attention as attn_mod
 from . import layers, rwkv as rwkv_mod, ssm as ssm_mod
 from . import transformer as tf
@@ -66,11 +67,6 @@ def _map(fn, cache):
 def _check(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
-    if cfg.family != "rwkv":
-        attn_mod.check_supported(cfg)
-    elif cfg.rwkv_wkv_pins or cfg.act_constraints:
-        raise NotImplementedError(
-            "the sharding pins are not ported yet (ROADMAP.md, queue 1)")
 
 
 class LM(torch.nn.Module):
@@ -182,12 +178,19 @@ class LM(torch.nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def wrap(body):
-            return tf.remat(body, cfg.remat_policy)
+            def run(x, *blks):
+                with sharding.gathered(*blks):
+                    return body(x, *blks)
+            return tf.remat(run, cfg.remat_policy)
+
+        def pin(y):
+            return sharding.constrain_act(y) if cfg.act_constraints else y
 
         @wrap
         def dense(x, blk):
-            return tf.dense_block(blk, cfg, x, positions)[0]
+            return pin(tf.dense_block(blk, cfg, x, positions)[0])
 
+        x = pin(x)
         if cfg.family in ("dense", "audio"):
             for blk in self.blocks:
                 x = dense(x, blk)
@@ -197,7 +200,7 @@ class LM(torch.nn.Module):
                 @wrap
                 def body(x, blk):
                     y, _, a = tf.moe_block(blk, cfg, x, positions)
-                    return y, a
+                    return pin(y), a
                 for blk in self.blocks:
                     x, a = body(x, blk)
                     auxs.append(a)
@@ -205,27 +208,33 @@ class LM(torch.nn.Module):
                 @wrap
                 def body(x, dblk, mblk):
                     y, _ = tf.dense_block(dblk, cfg, x, positions)
-                    y, _, a = tf.moe_block(mblk, cfg, y, positions)
-                    return y, a
+                    y, _, a = tf.moe_block(mblk, cfg, pin(y), positions)
+                    return pin(y), a
                 for dblk, mblk in zip(self.dense_blocks, self.moe_blocks):
                     x, a = body(x, dblk, mblk)
                     auxs.append(a)
             aux = torch.stack(auxs).mean()
         elif cfg.family == "vlm":
             img = batch["img"].to(x.dtype)
+
+            @wrap
+            def self_block(x, blk):
+                return tf.dense_block(blk, cfg, x, positions)[0]
             for selfs, cross in zip(self.self_blocks, self.cross_blocks):
                 for blk in selfs:
-                    x = dense(x, blk)
-                x = tf.cross_block(cross, cfg, x, img, positions)
+                    x = self_block(x, blk)
+                with sharding.gathered(cross):
+                    x = tf.cross_block(cross, cfg, x, img, positions)
         elif cfg.family == "rwkv":
             @wrap
             def body(x, blk):
                 h, _, _ = rwkv_mod.time_mix_forward(
-                    blk.time, cfg, layers.rmsnorm(x, blk.ln1, cfg.norm_eps))
-                y = x + h
+                    blk.time, cfg, layers.rmsnorm(x, blk.ln1, cfg.norm_eps),
+                    pin=pin if cfg.act_constraints else None)
+                y = pin(x + h)
                 h2, _ = rwkv_mod.channel_mix_forward(
                     blk.chan, cfg, layers.rmsnorm(y, blk.ln2, cfg.norm_eps))
-                return y + h2
+                return pin(y + h2)
             for blk in self.blocks:
                 x = body(x, blk)
         else:
@@ -237,7 +246,8 @@ class LM(torch.nn.Module):
             for group in self.mamba_groups:
                 for blk in group:
                     x = mamba(x, blk)
-                x, _ = tf.dense_block(self.shared_attn, cfg, x, positions)
+                with sharding.gathered(self.shared_attn):
+                    x, _ = tf.dense_block(self.shared_attn, cfg, x, positions)
             for blk in getattr(self, "mamba_tail", ()):
                 x = mamba(x, blk)
         return x, aux
@@ -251,7 +261,13 @@ class LM(torch.nn.Module):
         cross-entropy of ``batch["labels"]`` (over ``batch["loss_mask"]``
         where given; chunked over the sequence with ``cfg.ce_chunk``) plus
         0.01 times the MoE load-balance loss.  Returns (total, {"ce",
-        "aux", "tokens"}), all float32."""
+        "aux", "tokens"}), all float32.  Parameters stored as DTensors
+        (``sharding.shard_params``) are gathered on use: the top-level
+        ones for the whole call, each block's around its body."""
+        with sharding.gathered(self, recurse=False):
+            return self._loss(batch)
+
+    def _loss(self, batch):
         cfg = self.cfg
         x = self._embed(batch)
         positions = torch.arange(x.shape[1], device=x.device)

@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel import sharding
+from . import attention as attn_mod
 from . import layers
 from .config import ModelConfig
 
@@ -152,7 +154,8 @@ def _decay(p: TimeMix, xw: torch.Tensor) -> torch.Tensor:
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 log_w: torch.Tensor, u: torch.Tensor, head_dim: int,
-                state0: Optional[torch.Tensor] = None, chunk: int = 128
+                state0: Optional[torch.Tensor] = None, chunk: int = 128,
+                pins: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked WKV.  r/k/v ``[B,S,d]``; log_w ``[B,S,d]`` float32; u
     ``[d]`` float32.  Returns (out ``[B,S,d]`` float32, final state
@@ -161,16 +164,27 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The kernel (or its plain version) gets ``[B, H, S, D]`` views of the
     ``[B, S, H*D]`` tensors, strides and all, and writes its output in
-    the ``[B, S, H, D]`` layout, so no copy is made either way."""
+    the ``[B, S, H, D]`` layout, so no copy is made either way.
+
+    ``pins`` (``cfg.rwkv_wkv_pins``) pins the heads over ``model`` and
+    the batch over the data axes, as the reference pins its chunk scan
+    (``attention._pin``: nothing changes without an ambient mesh)."""
     b, s, d = r.shape
     h = d // head_dim
+    dax = attn_mod._dax() if pins else None
+    pin = attn_mod._pin if pins else (lambda x, spec: x)
 
     def heads(x):
-        return x.unflatten(-1, (h, head_dim)).transpose(1, 2)
+        return pin(x.unflatten(-1, (h, head_dim)).transpose(1, 2),
+                   (dax, "model", None, None))
 
+    if state0 is not None:
+        state0 = pin(state0, (dax, "model", None, None))
     out, state = ops.wkv_chunked(heads(r), heads(k), heads(v), heads(log_w),
                                  u.reshape(h, head_dim),
                                  chunk=min(chunk, s), state0=state0)
+    out = pin(out, (dax, None, "model", None))
+    state = pin(state, (dax, "model", None, None))
     return out.transpose(1, 2).reshape(b, s, d), state
 
 
@@ -183,18 +197,27 @@ def _gate_out(p: TimeMix, cfg: ModelConfig, out: torch.Tensor,
 
 def time_mix_forward(p: TimeMix, cfg: ModelConfig, x: torch.Tensor,
                      cache_shift: Optional[torch.Tensor] = None,
-                     state0: Optional[torch.Tensor] = None
+                     state0: Optional[torch.Tensor] = None, pin=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (y, final_state, last_token) for ``[B,S,d]`` input."""
+    """Returns (y, final_state, last_token) for ``[B,S,d]`` input.
+
+    ``cfg.rwkv_wkv_pins`` (or a ``pin``, ``act_constraints``) pins the
+    widened WKV operands' channel dim over ``model`` (``pin_w``); no pin
+    changes a value."""
+    use_pins = cfg.rwkv_wkv_pins or pin is not None
+
+    def pin_w(t):                    # [B, S, dw]: channel dim over model
+        return sharding.constrain_act(t, last_model=True) if use_pins else t
+
     xx = _shift(x, cache_shift)
     xr, xk, xv, xw, xg = _ddlerp(p, x, xx)
-    r = xr @ p.wr
-    k = xk @ p.wk
-    v = xv @ p.wv
-    g = xg @ p.wg
-    log_w = _decay(p, xw)
+    r = pin_w(xr @ p.wr)
+    k = pin_w(xk @ p.wk)
+    v = pin_w(xv @ p.wv)
+    g = pin_w(xg @ p.wg)
+    log_w = pin_w(_decay(p, xw))
     out, state = wkv_chunked(r, k, v, log_w, p.u, cfg.rwkv_head_dim,
-                             state0=state0)
+                             state0=state0, pins=use_pins)
     return _gate_out(p, cfg, out, g, x), state, x[:, -1:]
 
 

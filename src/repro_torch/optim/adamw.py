@@ -22,6 +22,14 @@ The elementwise passes run over groups of parameters of at most
 two groups' worth (rwkv6-3b's 3.3 G parameters would otherwise need 26
 GB of them on top of its 53 GB of state); every element's arithmetic is
 the same as over the whole list at once.
+
+Sharded parameters (DTensors, ``parallel.sharding.shard_params``) get a
+state that shards like them, as the reference's does: ``m``, ``v`` and
+``master`` are DTensors with each parameter's placements, and the update
+runs on the local shards.  ``global_norm`` then sums each leaf's squares
+over its shards on every rank that holds a distinct one, before the sum
+over the leaves in the same order: on a mesh of one rank the step is the
+unsharded step to the bit.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+
+from ..parallel import sharding
 
 Tree = Dict[str, torch.Tensor]
 GROUP_ELEMS = 1 << 28
@@ -68,21 +78,33 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params: Tree) -> AdamWState:
-    """Zero moments and float32 master copies, on the params' device."""
+    """Zero moments and float32 master copies, on the params' device (a
+    sharded parameter's are sharded like it)."""
     dev = next(iter(params.values())).device
+
+    def like(p, x):
+        return sharding.from_local(x, p) if sharding.is_sharded(p) else x
+
+    def zeros(p):
+        return like(p, torch.zeros(sharding.local(p).shape,
+                                   dtype=torch.float32, device=p.device))
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
-        m={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for k, p in params.items()},
-        v={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for k, p in params.items()},
-        master={k: p.detach().float().clone() for k, p in params.items()})
+        m={k: zeros(p) for k, p in params.items()},
+        v={k: zeros(p) for k, p in params.items()},
+        master={k: like(p, sharding.local(p).detach().float().clone())
+                for k, p in params.items()})
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+    """sqrt of the sum of every leaf's float32 sum of squares (a sharded
+    leaf's over all its shards)."""
+    terms = [torch.sum(torch.square(sharding.local(x).float()))
+             for x in tree.values()]
+    if sharding.mesh_of(tree.values()) is not None:
+        terms = sharding.sharded_sums(torch.stack(terms),
+                                      list(tree.values())).unbind()
+    return torch.sqrt(sum(terms))
 
 
 @torch.no_grad()
@@ -92,6 +114,12 @@ def update(cfg: AdamWConfig, grads: Tree, state: AdamWState, params: Tree
     ``grad_norm``, ``lr``)."""
     names = list(params)
     gnorm = global_norm({k: grads[k] for k in names})
+    # the elementwise passes run on the local shards, in place
+    loc = {k: sharding.local(params[k]) for k in names}
+    loc_grads = {k: sharding.local(grads[k]) for k in names}
+    loc_state = AdamWState(state.step, *({k: sharding.local(v)
+                                          for k, v in tree.items()}
+                                         for tree in state[1:]))
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     stepf = step.float()
@@ -101,8 +129,9 @@ def update(cfg: AdamWConfig, grads: Tree, state: AdamWState, params: Tree
     # the float32 values, as Python floats (exact), for the foreach ops
     scale_, lr_, b1c_, b2c_ = (float(x) for x in
                                torch.stack([scale, lr, b1c, b2c]).cpu())
-    for group in _groups(names, params):
-        _apply(cfg, group, grads, state, params, scale_, lr_, b1c_, b2c_)
+    for group in _groups(names, loc):
+        _apply(cfg, group, loc_grads, loc_state, loc, scale_, lr_, b1c_,
+               b2c_)
     state = AdamWState(step, state.m, state.v, state.master)
     return params, state, {"grad_norm": gnorm, "lr": lr}
 

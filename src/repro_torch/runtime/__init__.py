@@ -1,1 +1,2 @@
-"""Fault tolerance (``fault``): the port of ``repro/runtime/fault.py``."""
+"""Fault tolerance (``fault``), elastic re-meshing (``elastic``) and
+straggler policies (``stragglers``): the port of ``repro/runtime/``."""

@@ -1,5 +1,5 @@
 """Fault tolerance: the checkpoint/restart driver with failure injection,
-the port of ``repro/runtime/fault.py`` for one device.
+the port of ``repro/runtime/fault.py``.
 
 ``ResilientLoop`` wraps a train step with:
 
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import ckpt
+from ..parallel import sharding
 
 
 @dataclasses.dataclass
@@ -66,7 +67,7 @@ def _put(params, restored):
     if isinstance(params, torch.nn.Module):
         with torch.no_grad():
             for name, p in params.named_parameters():
-                p.copy_(restored[name])
+                sharding.local(p).copy_(sharding.local(restored[name]))
         return params
     return restored
 

@@ -236,7 +236,7 @@ def test_run_grid_matches_reference():
     assert fleet.n_slots == 64
 
 
-@pytest.mark.parametrize("horizon", [None, 5000.0, 10000.0])
+@pytest.mark.parametrize("horizon", [None, 1000.0, 5000.0, 10000.0])
 def test_golden_describes_run_grid(horizon):
     """The committed grid goldens hold ``run_grid()`` at its defaults
     (``horizon`` replaced): 168 lanes per protocol, each metric."""

@@ -67,6 +67,7 @@ from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
 
 GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "lm_full_width.json"
 ARCHS = ("qwen3_0p6b", "llama3p2_1b", "rwkv6_3b", "zamba2_1p2b",
@@ -449,7 +450,9 @@ def test_init_shapes_dtypes_padding_and_scale(arch):
 def test_registry_matches_reference_and_raises_for_unported():
     """All ten of the reference's configs, published and smoke, equal the
     reference's; an unknown name raises ``KeyError``; every smoke config
-    builds; the sharding pins, not ported, raise."""
+    builds; a model with the sharding pins on (``act_constraints``, and
+    the WKV pins) under an ambient mesh gives the unpinned model's
+    logits."""
     assert configs.ARCH_NAMES == jconfigs.ARCH_NAMES
     for arch in configs.ARCH_NAMES:
         assert dataclasses.asdict(configs.get(arch)) == \
@@ -465,11 +468,20 @@ def test_registry_matches_reference_and_raises_for_unported():
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get("llama4_scout")
     LM(configs.get_smoke("yi_34b").with_(cache_dtype="int8"), device="cpu")
+    # the sharding pins: a pinned model gives the unpinned model's logits
     for arch in ("qwen3_0p6b", "zamba2_1p2b", "dbrx_132b",
-                 "llama3p2_vision_11b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LM(configs.get_smoke(arch).with_(act_constraints=True),
-               device="cpu")
+                 "llama3p2_vision_11b", "rwkv6_3b"):
+        cfg = configs.get_smoke(arch).with_(**F32)
+        plain = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        pinned = LM(cfg.with_(act_constraints=True,
+                              rwkv_wkv_pins=cfg.family == "rwkv"),
+                    device="cpu")
+        pinned.load_state_dict(plain.state_dict())
+        _, tb = batches(cfg, (2, 16))
+        want = tsteps.make_prefill_step(plain)(tb)
+        with sharding.use_mesh({"data": 2, "model": 2}):
+            got = tsteps.make_prefill_step(pinned)(tb)
+        assert torch.equal(got, want), arch
 
 
 # -------------------------------------------------------------- serving
