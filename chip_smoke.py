@@ -189,11 +189,23 @@ Phases (any failure exits non-zero):
      iteration; the float32 train golden through the mesh path (the model
      sharded on a (1, 1) mesh, make_global_batch) within 1e-4;
      qwen3-0.6b at full width and depth, bf16, 3 steps on 8 x 1,024 on
-     the mesh against the unsharded step in the same run (whether the
-     bits match, walls, tokens/s, peak memory, 28 + 28 tensor-core flash
+     the mesh bit-equal to the unsharded step in the same run (losses and
+     parameters; walls, tokens/s, peak memory, 28 + 28 tensor-core flash
      launches a step); rwkv6-3b at its width cut to 2 layers on the mesh
-     through the WKV forward and backward; a sharded checkpoint restart
-     equal to a clean run to the bit.  The group is destroyed at the end.
+     through the WKV forward and backward; both models served on the
+     mesh through the tensor-parallel code (qwen3-0.6b's LM.prefill of 8
+     x 1,024 and 8 decode steps in its caches, rwkv6-3b's prefill and 8
+     decode steps from fresh caches) bit-equal to the same model
+     unsharded, with their walls; flash and the WKV, forward and
+     backward, at each rank's shapes of model = 2, 4 and 16 (qwen3-0.6b's
+     training call with its 16 query and 16 effective KV heads split,
+     rwkv6-3b's 48 padded heads split) against their plain versions,
+     timed beside their bounds, plain versions and SDPA; a sharded
+     checkpoint restart equal to a clean run to the bit; the group
+     destroyed, two ranks on the card over gloo with CUDA tensors (NCCL
+     refuses two ranks on one card): one float32 train step of qwen3-0.6b
+     at full width, 2 layers, on a (1, 2) mesh, each rank's loss and
+     gradient shards within 1e-5 of the unsharded step.
 
 Phase 6 and phase 8's runs follow phase 3, then phases 10, 11, 12, 13, 7
 and 9, all before phase 4's profiler sessions; phase 8's kernel checks and
@@ -452,6 +464,10 @@ MESH_HORIZON = 200.0
 MESH_STEPS = 3                   # qwen3-0.6b and rwkv6-3b steps on the mesh
 MESH_RWKV_LAYERS = 2
 MESH_RESTART_STEPS, MESH_CKPT_EVERY, MESH_FAIL_AT = 4, 2, 3
+MESH_DECODES = 8                 # decode steps after the prefill on the mesh
+RANK_MODELS = (2, 4, 16)         # model axes whose per-rank kernel shapes
+PROBE_LAYERS, PROBE_B, PROBE_S = 2, 2, 128   # the two-rank gloo probe
+PROBE_TIMEOUT_S = 240
 
 
 def ptxas_usage(log: str, name: str, tag: str):
@@ -2849,15 +2865,263 @@ def rwkv_train_phase(torch, dev, smi, cuda_ms, ptxas_log: str = ""):
     return row, counts["wkv_chunked"], busy
 
 
-def mesh_phase(torch, dev, smi):
+def serve_bits(lm, prompt, steps_mod, sharding, ops, torch):
+    """One prefill of ``prompt`` and ``MESH_DECODES`` decode steps after it,
+    counted: ``LM.prefill`` for the dense family (the decode continues in
+    caches of ``S + MESH_DECODES`` slots holding the prefill's keys and
+    values), ``make_prefill_step`` and fresh caches for the others.
+    Returns (the prefill's logits, the decode steps' logits, the final
+    caches' leaves, all whole tensors; the launches of the prefill; the
+    prefill's wall and the decode steps' walls in seconds)."""
+    b, s = prompt.shape
+    whole = (lambda x: x.full_tensor() if sharding.is_sharded(x) else x)
+    dense = lm.cfg.family == "dense"
+    with torch.inference_mode():
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if dense:
+            logits, pre = lm.prefill({"tokens": prompt})
+        else:
+            logits = steps_mod.make_prefill_step(lm)({"tokens": prompt})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        out = [whole(logits).clone()]
+        caches = lm.init_caches(b, s + MESH_DECODES)
+        start = 0
+        if dense:                # k, v [L, B, S, H, D] and pos [L, S]
+            for a, w in zip(caches[:3], pre[:3]):
+                a = sharding.local(a)
+                a.narrow(2 if a.dim() == 5 else 1, 0, s).copy_(
+                    sharding.local(w))
+            start = s
+            del pre
+        walls = []
+        for t in range(MESH_DECODES):
+            tok = prompt[:, t:t + 1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = lm.decode_step(caches, tok, start + t)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            out.append(whole(lg).clone())
+        leaves = [whole(a).clone() for a in caches if a is not None]
+    return out, leaves, counts, wall, walls
+
+
+def flash_bwd_at_shape(q, k, v, kw, torch, smi, cuda_ms, tag) -> dict:
+    """Flash's backward at one call: held to its plain version (in pieces;
+    bf16 within 2e-2 of each gradient's largest magnitude, float32 1e-4
+    per element), timed beside its plain version, SDPA's backward and its
+    bound (phase 11's: the bytes of q, k, v, O, dO, lse and the gradients
+    against ten products over the unmasked pairs).  Logs one line and
+    returns the row's entry."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kflash
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    gen = torch.Generator(q.device).manual_seed(31)
+    dout = torch.randn(q.shape, generator=gen, device=q.device,
+                       dtype=torch.float32).to(q.dtype)
+    out, lse = kflash.flash_attention(q, k, v, return_lse=True, **kw)
+    got = kflash.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = flash_bwd_ref_pieces(q, k, v, out, lse, dout, torch, **kw)
+    torch.cuda.synchronize()
+    err = bwd_err(got, want, q.dtype, torch)
+    if err == float("inf"):
+        fail(f"{tag} flash_attention_bwd differs from its plain version at "
+             f"B={b} Hq={hq} Hkv={hkv} S={sq} D={d} {q.dtype}")
+    del got, want
+    ms = cuda_ms(lambda: kflash.flash_attention_bwd(
+        q, k, v, out, lse, dout, **kw), 10)
+    plain = cuda_ms(lambda: flash_bwd_ref_pieces(
+        q, k, v, out, lse, dout, torch, **kw), 2)
+    g = hq // hkv
+    qx, kx, vx = (t.detach().clone().requires_grad_() for t in (
+        q, k.repeat_interleave(g, 1) if g > 1 else k,
+        v.repeat_interleave(g, 1) if g > 1 else v))
+    sdpa = F.scaled_dot_product_attention(qx, kx, vx,
+                                          is_causal=kw.get("causal", True))
+    lib = cuda_ms(lambda: torch.autograd.grad(
+        sdpa, (qx, kx, vx), dout, retain_graph=True), 10)
+    pairs = unmasked_pairs(sq, sk, kw.get("causal", True),
+                           kw.get("window", 0))
+    flops = 10 * b * hq * pairs * d
+    nbytes = (4 * b * hq * sq * d + 4 * b * hkv * sk * d) * \
+        q.element_size() + 4 * b * hq * sq
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+    bound, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    label = (f"B={b} Hq={hq} Hkv={hkv} S={sq} D={d} {str(q.dtype)[6:]} "
+             f"causal={kw.get('causal', True)}")
+    log(f"{tag} flash_attention_bwd ({kflash.bwd_route(q.dtype, d)}) at "
+        f"{label}: {ms:.4f} ms (plain {plain:.4f} ms over pieces; SDPA's "
+        f"backward {lib:.4f} ms; bound {bound:.5f} ms by {by}); max abs err "
+        f"{err:.3g}; {ms / lib:.2f}x SDPA's backward, {ms / bound:.2f}x its "
+        f"bound [{smi}]")
+    return {"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
+            "library": "scaled_dot_product_attention's backward"}
+
+
+def wkv_at_shape(b, h, s, d, chunk, torch, dev, smi, cuda_ms, tag):
+    """The WKV forward and backward at ``[B, H, S, D]`` (bf16 r/k/v as views
+    of ``[B, S, H*D]``, float32 log w, u and dO): each held to its plain
+    version (the forward within atol 1e-4, rtol 1e-3; the backward within
+    ``WKV_BWD_TOL`` of each gradient's largest magnitude), timed beside its
+    plain version and its bound (phases 7 and 12's: the bytes against
+    three TF32 passes of the chunk products).  Returns the two rows'
+    entries."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv as kwkv
+    gen = torch.Generator(dev).manual_seed(32)
+    r, k, v, lw, u, _, go, _ = wkv_bwd_case(
+        (b, h, s, d, chunk, False, False, False), torch.bfloat16, gen,
+        torch, dev)
+    out, st, states = kwkv.wkv_chunked(r, k, v, lw, u, chunk=chunk,
+                                       return_states=True)
+    want = ref.wkv_chunked_ref(r, k, v, lw, u, chunk=chunk)
+    torch.cuda.synchronize()
+    f_err = 0.0
+    for g_, w_ in zip((out, st), want):
+        diff = (g_.double() - w_.double()).abs()
+        if bool((diff > 1e-4 + 1e-3 * w_.double().abs()).any()):
+            fail(f"{tag} wkv_chunked differs from its plain version at B={b} "
+                 f"H={h} S={s} D={d}: max abs err {float(diff.max()):.4g}")
+        f_err = max(f_err, float(diff.max()))
+    got = kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go, chunk=chunk)
+    want_b = ref.wkv_chunked_bwd_ref(r, k, v, lw, u, states, go, chunk=chunk)
+    torch.cuda.synchronize()
+    rel = wkv_bwd_errs(got, want_b)
+    if not all(e <= WKV_BWD_TOL[str(g_.dtype)[6:]] for e, g_ in
+               zip(rel, got) if g_ is not None):
+        fail(f"{tag} wkv_chunked_bwd differs from its plain version at B={b} "
+             f"H={h} S={s} D={d}: relative errors {rel}")
+    b_err = max_abs_err(got, want_b, torch)
+    del got, want, want_b
+    f_ms = cuda_ms(lambda: kwkv.wkv_chunked(r, k, v, lw, u, chunk=chunk), 10)
+    f_plain = cuda_ms(lambda: ref.wkv_chunked_ref(r, k, v, lw, u,
+                                                  chunk=chunk), 2)
+    b_ms = cuda_ms(lambda: kwkv.wkv_chunked_bwd(r, k, v, lw, u, states, go,
+                                                chunk=chunk), 10)
+    b_plain = cuda_ms(lambda: ref.wkv_chunked_bwd_ref(
+        r, k, v, lw, u, states, go, chunk=chunk), 2)
+    n, esz = r.numel(), r.element_size()
+    nc = s // chunk
+    f_bytes = 3 * n * esz + n * 4 + h * d * 4 + n * 4 + b * h * d * d * 4
+    f_flops = b * h * nc * (2 * chunk * (chunk - 1) * d + 4 * chunk * d * d)
+    b_bytes = (3 * n * esz + 2 * n * 4 + states.numel() * 4 + h * d * 4
+               + 3 * n * esz + n * 4 + h * d * 4 + b * h * d * d * 4)
+    b_flops = b * h * nc * (5 * chunk * (chunk - 1) * d + 8 * chunk * d * d)
+    rows = []
+    label = f"B={b} H={h} S={s} D={d} chunk={chunk} bfloat16 r/k/v"
+    for name, ms, plain, nbytes, flops, e in (
+            ("wkv_chunked", f_ms, f_plain, f_bytes, f_flops, f_err),
+            ("wkv_chunked_bwd", b_ms, b_plain, b_bytes, b_flops, b_err)):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_OPS_PER_S
+        bound = max(t_b, t_o) * 1e3
+        by = "bytes" if t_b >= t_o else "operations"
+        log(f"{tag} {name} at {label}: {ms:.4f} ms (plain {plain:.4f} ms; "
+            f"library call: none; bound {bound:.5f} ms by {by}, three TF32 "
+            f"passes of {flops / 1e9:.2f} GFLOP against {nbytes / 1e6:.1f} "
+            f"MB); max abs err {e:.3g}; {ms / bound:.2f}x its bound [{smi}]")
+        rows.append({"shape": label, "max_abs_err": e, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None})
+    return rows
+
+
+def gloo_probe_worker(rank, n, store, out):
+    """One rank of the two-rank probe on one card: a ``gloo`` group (NCCL
+    refuses two ranks on one card) whose mesh holds CUDA tensors, and one
+    float32 train step of qwen3-0.6b at full width cut to
+    ``PROBE_LAYERS`` layers on the (1, 2) mesh against the unsharded step
+    from the same weights.  Writes ``{rank}.json``: the loss, the largest
+    gradient error over the largest magnitude of each leaf, the
+    launches; or the error it raised."""
+    sys.path.insert(0, str(SRC))
+    res = {}
+    try:
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        from repro_torch import configs
+        from repro_torch.data import pipeline
+        from repro_torch.kernels import ops
+        from repro_torch.launch import steps
+        from repro_torch.models import LM, layers
+        from repro_torch.models.config import ShapeSpec
+        from repro_torch.parallel import sharding
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=n, rank=rank)
+        mesh = DeviceMesh("cuda", torch.arange(n).reshape(1, n),
+                          mesh_dim_names=("data", "model"))
+        cfg = configs.get("qwen3_0p6b").with_(
+            n_layers=PROBE_LAYERS, param_dtype="float32",
+            compute_dtype="float32", cache_dtype="float32")
+        dev = torch.device("cuda", 0)
+        lm = layers.trainable(LM(cfg, device=dev)).init(
+            torch.Generator(dev).manual_seed(0))
+        batch = pipeline.to_device(pipeline.SyntheticLM(
+            cfg, ShapeSpec("probe", PROBE_S, PROBE_B, "train"), seed=0)
+            .host_batch(0), dev)
+        loss0, _, grads0 = steps.loss_and_grads(lm, batch)
+        sharding.shard_params(cfg, lm, mesh)
+        ops.reset_launches()
+        loss, _, grads = steps.loss_and_grads(lm, batch)
+        torch.cuda.synchronize()
+        res["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+        res["loss"], res["loss0"] = float(loss), float(loss0)
+        worst = 0.0
+        for name, g in grads.items():
+            want = grads0[name]
+            pl = g.placements[1]
+            if isinstance(pl, sharding.Shard):
+                step = want.shape[pl.dim] // n
+                want = want.narrow(pl.dim, rank * step, step)
+            scale = max(float(want.abs().max()), 1e-30)
+            worst = max(worst, float((sharding.local(g) - want).abs().max())
+                        / scale)
+        res["grad_rel_err"] = worst
+        dist.destroy_process_group()
+    except Exception as exc:                 # reported by the parent
+        res["error"] = f"{type(exc).__name__}: {exc}"
+    Path(out, f"{rank}.json").write_text(json.dumps(res))
+
+
+def gloo_probe(root: Path, torch):
+    """Run ``gloo_probe_worker`` on two spawned ranks (killed past
+    ``PROBE_TIMEOUT_S``); their results by rank."""
+    import torch.multiprocessing as mp
+    out = root / "probe"
+    out.mkdir()
+    ctx = mp.start_processes(gloo_probe_worker, args=(
+        2, str(root / "probe_store"), str(out)), nprocs=2, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + PROBE_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            fail(f"[13] the two-rank gloo probe ran past {PROBE_TIMEOUT_S} s")
+    return [json.loads((out / f"{r}.json").read_text()) for r in range(2)]
+
+
+def mesh_phase(torch, dev, smi, cuda_ms):
     """Phase 13: the multi-device modules on a one-rank NCCL mesh.  The
     fleet on ``fleet_mesh(..., pods=True)`` (PPCC and OCC, and PPCC with
     delta) against the unsharded fleet, bit for bit, its launches equal to
     the body iterations; the float32 train golden through the mesh path;
     qwen3-0.6b at full width and depth against the unsharded step; rwkv6-3b
-    at its width, 2 layers; a sharded checkpoint restart.  The group is
-    destroyed at the end, pass or fail.  Returns ``{path: {kernel:
-    launches}}``."""
+    at its width, 2 layers; both models served (prefill and decode) on the
+    mesh against the unsharded model, to the bit; flash and the WKV,
+    forward and backward, at each rank's shapes of ``RANK_MODELS``; a
+    sharded checkpoint restart; then, the group destroyed, a train step on
+    a (1, 2) mesh of two ranks on the card over ``gloo`` against the
+    unsharded step.  Returns (``{path: {kernel: launches}}``, ``{kernel
+    row: [entries at the per-rank shapes]}``)."""
     import shutil
     import tempfile
     import numpy as np
@@ -2877,7 +3141,7 @@ def mesh_phase(torch, dev, smi):
     if dist.is_initialized():
         fail("[13] a process group exists before phase 13")
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
-    paths = {}
+    paths, rank_rows = {}, {}
     try:
         t = time.perf_counter()
         if not sharding.init_distributed(f"file://{root}/store", 1, 0,
@@ -3025,6 +3289,10 @@ def mesh_phase(torch, dev, smi):
             fail(f"[13] qwen3 on the mesh: losses {b['losses']}, unsharded "
                  f"{a['losses']}")
         bits = b["losses"] == a["losses"] and b["digest"] == a["digest"]
+        if not bits:
+            fail(f"[13] qwen3 on the (1, 1) mesh is not the unsharded step's "
+                 f"bits: losses {b['losses']} against {a['losses']}, "
+                 f"parameter digests {b['digest']} and {a['digest']}")
         med = {k: statistics.median(r["walls"][1:]) for k, r in runs.items()}
         paths["qwen3_0p6b training on the (1, 1) mesh, 3 steps"] = {
             "flash_attention_tc": L * MESH_STEPS, kflash.BWD_TC: L * MESH_STEPS}
@@ -3077,7 +3345,97 @@ def mesh_phase(torch, dev, smi):
         del loop, lm, opt, data, batch, make_batch
         torch.cuda.empty_cache()
 
-        # ---- (5) the sharded checkpoint restart
+        # ---- (5) serving on the mesh: qwen3-0.6b at full width and depth
+        # (LM.prefill of 8 x 1,024, then decode steps in its caches) and
+        # rwkv6-3b at its width, 2 layers (make_prefill_step, decode from
+        # fresh caches), each against the same model unsharded, to the bit
+        from repro_torch.launch import steps as steps_mod
+        from repro_torch.models import LM
+        for arch, n_layers in (("qwen3_0p6b", None),
+                               ("rwkv6_3b", MESH_RWKV_LAYERS)):
+            t = time.perf_counter()
+            scfg = configs.get(arch)
+            if n_layers:
+                scfg = scfg.with_(n_layers=n_layers)
+            lm = LM(scfg, device=dev).init(torch.Generator(dev).manual_seed(0))
+            prompt = torch.randint(0, scfg.vocab, (TRAIN_B, TRAIN_S),
+                                   generator=torch.Generator(dev)
+                                   .manual_seed(1), device=dev)
+            plain = serve_bits(lm, prompt, steps_mod, sharding, ops, torch)
+            sharding.shard_params(scfg, lm, mesh11)
+            meshed = serve_bits(lm, prompt, steps_mod, sharding, ops, torch)
+            same = len(plain[0]) == len(meshed[0]) and all(
+                torch.equal(a, b) for a, b in zip(plain[0], meshed[0])) and \
+                all(torch.equal(a, b) for a, b in zip(plain[1], meshed[1]))
+            kernel = "flash_attention_tc" if scfg.family == "dense" \
+                else "wkv_chunked"
+            n_k = scfg.n_layers
+            if not same or meshed[2] != {kernel: n_k} or plain[2] != meshed[2]:
+                fail(f"[13] {arch} serving on the (1, 1) mesh: bits match "
+                     f"{same}; prefill launches {meshed[2]} (unsharded "
+                     f"{plain[2]}), expected {{{kernel!r}: {n_k}}}")
+            paths[f"{arch} prefill of {TRAIN_B} x {TRAIN_S}"
+                  + (f", {n_layers} layers" if n_layers else "")
+                  + " on the (1, 1) mesh"] = {kernel: n_k}
+            med = {k: statistics.median(r[4]) * 1e3 for k, r in
+                   (("mesh", meshed), ("unsharded", plain))}
+            log(f"[13] {arch} at its width"
+                + (f", {n_layers} layers" if n_layers else
+                   f" and depth ({n_k} layers)")
+                + f", bf16, served on the (1, 1) mesh through the TP code "
+                f"(DTensor parameters and caches) against the same model "
+                f"unsharded: "
+                + ("LM.prefill" if scfg.family == "dense"
+                   else "make_prefill_step")
+                + f" of {TRAIN_B} x {TRAIN_S} and {MESH_DECODES} decode steps"
+                + (" in its caches" if scfg.family == "dense"
+                   else " from fresh caches")
+                + f": logits and caches bit-equal; {n_k} {kernel} launches; "
+                f"prefill wall {meshed[3] * 1e3:.2f} ms (unsharded "
+                f"{plain[3] * 1e3:.2f} ms), median decode step "
+                f"{med['mesh']:.2f} ms (unsharded {med['unsharded']:.2f} ms) "
+                f"({time.perf_counter() - t:.1f} s) [{smi}]")
+            del lm, plain, meshed
+            torch.cuda.empty_cache()
+
+        # ---- (6) flash and the WKV, forward and backward, at each rank's
+        # shapes of model = 2, 4, 16 (qwen3-0.6b's training call, its 16
+        # query and 16 effective KV heads split; rwkv6-3b's 48 padded
+        # heads split)
+        t = time.perf_counter()
+        qcfg, rcfg = configs.get("qwen3_0p6b"), configs.get("rwkv6_3b")
+        hq, he = qcfg.n_heads, qcfg.n_kv_heads * qcfg.kv_repeat
+        hw = rcfg.rwkv_pad_heads
+        gen = torch.Generator(dev).manual_seed(30)
+        for m in RANK_MODELS:
+            def rnd(h, d):
+                return torch.randn((TRAIN_B, TRAIN_S, h, d), generator=gen,
+                                   device=dev).to(torch.bfloat16) \
+                    .transpose(1, 2)
+            q, k, v = rnd(hq // m, qcfg.head_dim), \
+                rnd(he // m, qcfg.head_dim), rnd(he // m, qcfg.head_dim)
+            where = f"qwen3-0.6b's training call at model = {m}"
+            e = flash_at_shape(q, k, v, dict(causal=True), where, where, None,
+                               torch, smi, cuda_ms, "[13]")
+            e.pop("launches")
+            rank_rows.setdefault("flash_attention", []).append(e)
+            e = flash_bwd_at_shape(q, k, v, dict(causal=True), torch, smi,
+                                   cuda_ms, "[13]")
+            rank_rows.setdefault("flash_attention_bwd", []).append(
+                {"path": where, **e})
+            del q, k, v
+            where = f"rwkv6-3b's training call at model = {m}"
+            for name, e in zip(("wkv_chunked", "wkv_chunked_bwd"),
+                               wkv_at_shape(TRAIN_B, hw // m, TRAIN_S,
+                                            rcfg.rwkv_head_dim, 128, torch,
+                                            dev, smi, cuda_ms, "[13]")):
+                rank_rows.setdefault(name, []).append({"path": where, **e})
+            torch.cuda.empty_cache()
+        log(f"[13] flash and the WKV, forward and backward, at each rank's "
+            f"shapes of model = {list(RANK_MODELS)}: held to their plain "
+            f"versions and timed ({time.perf_counter() - t:.1f} s)")
+
+        # ---- (7) the sharded checkpoint restart
         t = time.perf_counter()
         cfg2 = cfg.with_(n_layers=2)
         hist = {}
@@ -3108,13 +3466,38 @@ def mesh_phase(torch, dev, smi):
             f"{faulty[-1][1]:.6f}); {n_sharded} of "
             f"{len(manifest['leaves'])} leaves saved as indexed shards "
             f"({time.perf_counter() - t:.1f} s)")
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+        # ---- (8) two ranks on the card over gloo: a (1, 2) train step
+        t = time.perf_counter()
+        torch.cuda.empty_cache()
+        probe = gloo_probe(root, torch)
+        bad = [r_ for r_ in probe if "error" in r_ or
+               not abs(r_["loss"] - r_["loss0"]) <= 1e-5 * abs(r_["loss0"])
+               or not r_["grad_rel_err"] <= 1e-5]
+        if bad:
+            fail(f"[13] the two-rank gloo probe: {probe}")
+        paths["qwen3_0p6b float32 train step, 2 layers, on a (1, 2) gloo "
+              "mesh of two ranks on the card (per rank)"] = \
+            probe[0]["launches"]
+        log(f"[13] two ranks on the card over gloo (CUDA tensors; NCCL "
+            f"refuses two ranks on one card): qwen3-0.6b at full width, "
+            f"{PROBE_LAYERS} layers, float32, one train step on "
+            f"{PROBE_B} x {PROBE_S} on the (1, 2) mesh (8 query and 8 KV "
+            f"heads a rank, half the FFN columns and the vocabulary) against "
+            f"the unsharded step: losses {[r_['loss'] for r_ in probe]} "
+            f"against {probe[0]['loss0']}; each rank's gradient shards "
+            f"within {max(r_['grad_rel_err'] for r_ in probe):.3g} of the "
+            f"largest magnitude (held to 1e-5); launches a rank "
+            f"{probe[0]['launches']} ({time.perf_counter() - t:.1f} s)")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
         shutil.rmtree(root, ignore_errors=True)
     log(f"[13] process group destroyed; phase 13 in "
         f"{time.perf_counter() - t13:.1f} s")
-    return paths
+    return paths, rank_rows
 
 
 def hybrid_int8_phase(torch, dev, smi, cuda_ms):
@@ -4596,7 +4979,9 @@ def main() -> None:
 
     # ---------------- phase 13: the multi-device modules -----------------
     # (after phase 12 has freed its model; walls before any profiler)
-    p13_paths = mesh_phase(torch, dev, smi)
+    p13_paths, p13_ranks = mesh_phase(
+        torch, dev, smi, lambda fn, reps, sleep=True:
+        cuda_times(fn, reps, torch, sleep))
 
     lap("13 mesh")
 
@@ -4899,6 +5284,9 @@ def main() -> None:
                 if row["name"] == row_of.get(counter, counter):
                     row.setdefault("launches_by_path", {})[
                         f"{path} (phase 13, {counter})"] = n_
+    for row in rows:                      # phase 13's per-rank shapes
+        if row["name"] in p13_ranks:
+            row["at_rank_shapes"] = p13_ranks[row["name"]]
     lap("profiles of 7, 9, 10, 11, 12")
     log(f"[done] seconds by phase, in the order run: {dict(laps)}")
     log(f"[done] all thirteen phases in {time.perf_counter() - t_start:.1f} s")

@@ -33,8 +33,9 @@ from . import wkv as _wkv
 
 def _route(t, name: str) -> bool:
     """True for the kernel (CUDA tensor), False for the plain version.  A
-    DTensor raises: the kernels take raw pointers to whole tensors, and
-    a sharded model gathers its parameters before they reach here."""
+    DTensor raises: the kernels take raw pointers to plain tensors, and
+    a sharded model computes on its parameters' local shards
+    (``sharding.local_shards``) before they reach here."""
     if isinstance(t, DTensor):
         raise TypeError(f"{name}: given a DTensor; pass its local or "
                         f"gathered tensor")

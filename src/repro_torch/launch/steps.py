@@ -8,13 +8,16 @@ model, and the train step takes the model in the parameters' place.
 A model whose parameters are DTensors (``sharding.shard_params``) trains
 on their mesh, as the reference's step does under its ambient mesh: each
 rank takes its rows of the batch (a ``make_global_batch`` DTensor's local
-shard, or its block of a whole batch), gathers each block's parameters on
-use, and weights its cross-entropy by its share of the global token
-count, so the loss is the mean over the global batch; each gradient is
+shard, or its block of a whole batch), computes with its shards of each
+block's parameters (its heads, FFN columns, vocabulary slice and experts
+on a ``model`` axis; ``sharding.local_shards``), and weights its
+cross-entropy by its share of the global token count, so the loss is
+the mean over the global batch; each gradient is
 the sum over the data ranks, held on the parameter's shards, and AdamW
-updates the shards.  The MoE load-balance term is the mean of the data
-ranks' (each over its rows), where the reference's is the global
-batch's.
+updates the shards.  The MoE layers dispatch and take their
+load-balance term over the global batch (``moe.moe_apply``), as the
+reference's do, so every data rank's term is the same and each adds its
+``1 / n`` share.
 """
 from __future__ import annotations
 
@@ -138,16 +141,23 @@ def make_prefill_step(lm: LM):
     """Inference forward over the full sequence -> last-token logits
     ``[B, V]``, for every family: the batch holds ``tokens``, and the
     vlm family's ``img [B, T, d]`` or the audio family's ``frames [B, S,
-    d]`` in place of tokens."""
+    d]`` in place of tokens.  A model sharded on a mesh runs there, as
+    ``LM.prefill`` does: each rank its rows and its shards, the logits a
+    DTensor."""
     cfg = lm.cfg
 
     @torch.inference_mode()
     def prefill_step(batch):
-        x = lm._embed(batch)
-        positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = lm._backbone(x, positions, batch)
-        x = layers.rmsnorm(x, lm.ln_f, cfg.norm_eps)
-        return lm._unembed(x[:, -1:, :])[:, 0, :]
+        mesh = sharding.mesh_of(lm.parameters())
+        if mesh is not None:
+            batch = _local_rows(batch, mesh)
+        with sharding.local_shards(lm, recurse=False):
+            x = lm._embed(batch)
+            positions = torch.arange(x.shape[1], device=x.device)
+            x, _ = lm._backbone(x, positions, batch)
+            x = layers.rmsnorm(x, lm.ln_f, cfg.norm_eps)
+            logits = lm._unembed(x[:, -1:, :])[:, 0, :]
+            return logits if mesh is None else lm._mesh_logits(logits, mesh)
 
     return prefill_step
 
@@ -157,7 +167,8 @@ def make_serve_step(lm: LM):
     caches those of ``lm.init_caches`` (a stacked ``KVCache``, bf16,
     float32 or int8 with its scales, of the dense and moe families; the
     vlm family's dict with its cross caches; an ``RWKVCache``; the hybrid
-    family's dict), updated in place.  The audio encoder does not
+    family's dict), updated in place; on a mesh the caches are DTensors
+    and the logits one (``LM.decode_step``).  The audio encoder does not
     decode."""
 
     @torch.inference_mode()

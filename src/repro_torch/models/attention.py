@@ -44,6 +44,11 @@ Query heads can be padded (``pad_q_heads``): the padded heads' rows of
 ``kv_repeat`` times after projection with ``repeat_interleave`` (the
 reference's ``jnp.repeat``), so query head h reads KV head h // g.
 
+On a mesh each rank computes its query heads and the KV heads they read
+(``head_layout``): x enters the model-parallel region (``tp_copy``), the
+flash kernel or the decode's ``_sdpa`` sees the rank's heads, and
+``wo``'s row-parallel product is reduced over ``model``.
+
 The decode branch updates the cache **in place** (the reference returns
 a new cache; its serving loop donates the old one), and returns it.
 """
@@ -157,27 +162,107 @@ def _dequant(q: torch.Tensor, scale: Optional[torch.Tensor], dtype
     return q.to(dtype) * scale.to(dtype)
 
 
+class Heads(NamedTuple):
+    """A rank's share of the heads on a mesh (``head_layout``): the weights
+    it projects with, the effective KV heads it computes (and caches) and,
+    among them, the ones its query heads read.  ``tp`` is ``None`` where
+    the rank computes the block whole."""
+    tp: Optional[sharding.TP]
+    wq: torch.Tensor
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wo: torch.Tensor
+    q_norm: Optional[torch.Tensor]
+    k_norm: Optional[torch.Tensor]
+    kv_heads: slice        # computed effective KV heads, from 0
+    read: slice            # of those, the ones the query heads read
+
+
+def head_layout(p: Attention, cfg: ModelConfig, kv_repeat: int) -> Heads:
+    """The rank's heads under the rules (``wq``/``wk``/``wv`` columns and
+    ``wo`` rows over ``model``).
+
+    Rank ``r`` of ``n`` computes query heads ``[r Hq/n, (r+1) Hq/n)`` (the
+    padded ones land on the last ranks, where ``wo``'s rows are zero) and
+    reads effective KV head ``j // G`` for query head ``j`` (``G = Hq /
+    (Hkv kv_repeat)``).  Where ``n`` divides the effective KV heads, the
+    rank computes and caches its ``1/n`` of them, as ``cache_specs`` places
+    the cache; otherwise it computes them all (the cache's head dim
+    replicates) and reads its own.  The KV weights come from the rank's
+    shard where that shard holds whole heads and exactly the original
+    heads it needs; a shard that does not (qwen3-0.6b's 8 KV heads at
+    ``model`` = 16: half a head a rank, and rank ``r`` needs head ``r //
+    2``) is gathered over ``model`` and cut to those heads
+    (``sharding.gather_over_model``): a layout decision that GSPMD takes
+    too, and the only gather of the block.  Where ``n`` does not divide
+    the query heads the block runs whole on every rank, its weights
+    gathered."""
+    dh = cfg.head_dim
+    qn = getattr(p, "q_norm", None)
+    kn = getattr(p, "k_norm", None)
+    he = cfg.n_kv_heads * kv_repeat
+    tp = sharding.tp_of(p.wq)
+    if tp is None:
+        return Heads(None, p.wq, p.wk, p.wv, p.wo, qn, kn, slice(0, he),
+                     slice(0, he))
+    n, r = tp.size, tp.index
+
+    def whole(w, partial=True):
+        t = sharding.tp_of(w)
+        return sharding.gather_over_model(w, partial) if t.sharded else w
+
+    hq = p.wo.shape[0] * (n if tp.sharded else 1) // dh
+    if not tp.sharded or hq % n:
+        return Heads(None, *(whole(w, False) for w in (p.wq, p.wk, p.wv,
+                                                        p.wo)),
+                     qn, kn, slice(0, he), slice(0, he))
+    g = hq // he                                   # query heads per KV head
+    hl = hq // n
+    e0, e1 = r * hl // g, ((r + 1) * hl - 1) // g + 1
+    if hl % (e1 - e0):
+        raise NotImplementedError(
+            f"{hl} query heads a rank over {e1 - e0} KV heads")
+    c0, c1 = (e0, e1) if he % n == 0 else (0, he)   # computed (cached)
+    o0, o1 = c0 // kv_repeat, (c1 - 1) // kv_repeat + 1   # original heads
+    if cfg.n_kv_heads % n == 0:       # the shard holds heads [o0, o1)
+        wk, wv = p.wk, p.wv
+    else:
+        cols = slice(o0 * dh, o1 * dh)
+        wk, wv = whole(p.wk)[:, cols], whole(p.wv)[:, cols]
+    return Heads(tp, p.wq, wk, wv, p.wo,
+                 None if qn is None else sharding.tp_copy(qn, tp),
+                 None if kn is None else sharding.tp_copy(kn, tp),
+                 slice(c0 - o0 * kv_repeat, c1 - o0 * kv_repeat),
+                 slice(e0 - c0, e1 - c0))
+
+
 def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                  xs: Optional[torch.Tensor], positions: torch.Tensor,
-                 kv_repeat: int
+                 kv_repeat: int, h: Optional[Heads] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns q ``[B,S,Hq,Dh]``, k/v ``[B,T,H_eff,Dh]``: k and v from the
-    cross source ``xs`` if given (and then no RoPE), else from ``x``
-    with RoPE on q and k."""
+    """Returns q ``[B,S,Hq,Dh]``, k/v ``[B,T,H_eff,Dh]`` (on a mesh the
+    rank's heads, ``h`` or ``head_layout``'s): k and v from the cross
+    source ``xs`` if given (and then no RoPE), else from ``x`` with RoPE
+    on q and k."""
+    h = head_layout(p, cfg, kv_repeat) if h is None else h
     dh = cfg.head_dim
-    src = x if xs is None else xs
-    q = (x @ p.wq).unflatten(-1, (-1, dh))
-    k = (src @ p.wk).unflatten(-1, (-1, dh))
-    v = (src @ p.wv).unflatten(-1, (-1, dh))
+    x = sharding.tp_copy(x, h.tp)
+    src = x if xs is None else sharding.tp_copy(xs, h.tp)
+    q = (x @ h.wq).unflatten(-1, (-1, dh))
+    k = (src @ h.wk).unflatten(-1, (-1, dh))
+    v = (src @ h.wv).unflatten(-1, (-1, dh))
     if cfg.qk_norm:
-        q = layers.rmsnorm(q, p.q_norm, cfg.norm_eps)
-        k = layers.rmsnorm(k, p.k_norm, cfg.norm_eps)
+        q = layers.rmsnorm(q, h.q_norm, cfg.norm_eps)
+        k = layers.rmsnorm(k, h.k_norm, cfg.norm_eps)
     if xs is None:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
     if kv_repeat > 1:
         k = k.repeat_interleave(kv_repeat, dim=2)
         v = v.repeat_interleave(kv_repeat, dim=2)
+    if h.tp is not None and (h.kv_heads.start or
+                             h.kv_heads.stop != k.shape[2]):
+        k, v = k[:, :, h.kv_heads], v[:, :, h.kv_heads]
     return q, k, v
 
 
@@ -222,13 +307,15 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
       by q alone with no mask (cross-attention decode against a static
       source).
     """
+    h = head_layout(p, cfg, kv_repeat)
     if kv_override is not None:
-        q = (x @ p.wq).unflatten(-1, (-1, cfg.head_dim))
+        q = (sharding.tp_copy(x, h.tp) @ h.wq).unflatten(
+            -1, (-1, cfg.head_dim))
         if cfg.qk_norm:
-            q = layers.rmsnorm(q, p.q_norm, cfg.norm_eps)
-        out = _sdpa(q, *kv_override, None)
-        return out.to(x.dtype) @ p.wo, None
-    q, k, v = _project_qkv(p, cfg, x, xs, positions, kv_repeat)
+            q = layers.rmsnorm(q, h.q_norm, cfg.norm_eps)
+        out = _sdpa(q, *(_heads(c, h) for c in kv_override), None)
+        return sharding.tp_reduce(out.to(x.dtype) @ h.wo, h.tp), None
+    q, k, v = _project_qkv(p, cfg, x, xs, positions, kv_repeat, h)
     b, s = x.shape[0], x.shape[1]
     cross = xs is not None
     new_cache = None
@@ -253,18 +340,30 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         if cfg.sliding_window:
             valid &= cache.pos > abs_pos - cfg.sliding_window
         mask = valid[None, None, None, None, :]              # [1,1,1,1,T]
-        out = _sdpa(q, _dequant(cache.k, cache.k_scale, q.dtype),
-                    _dequant(cache.v, cache.v_scale, q.dtype), mask)
+        out = _sdpa(q, _dequant(_heads(cache.k, h), _heads(cache.k_scale, h),
+                                q.dtype),
+                    _dequant(_heads(cache.v, h), _heads(cache.v_scale, h),
+                             q.dtype), mask)
     else:
         # --- full sequence: the flash kernel, [B,H,S,D] views -------------
         # no mask at all for cross or non-causal attention, window included
         masked = cfg.causal and not cross
-        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=masked,
+        kr, vr = _heads(k, h), _heads(v, h)
+        o = ops.flash_attention(q.transpose(1, 2), kr.transpose(1, 2),
+                                vr.transpose(1, 2), causal=masked,
                                 window=cfg.sliding_window if masked else 0)
         out = o.transpose(1, 2).reshape(b, s, -1)
         if return_cache:
             new_cache = KVCache(k=k, v=v, pos=positions.to(torch.int32)
                                 .reshape(-1).expand(k.shape[1]).clone())
-    y = out.to(x.dtype) @ p.wo
-    return y, new_cache
+    y = out.to(x.dtype) @ h.wo
+    return sharding.tp_reduce(y, h.tp), new_cache
+
+
+def _heads(t: Optional[torch.Tensor], h: Heads) -> Optional[torch.Tensor]:
+    """The heads of ``t [B, S, H, .]`` that the rank's query heads read:
+    all of them unless the rank computes more KV heads than it reads."""
+    if t is None or h.tp is None or (h.read.start == 0 and
+                                     h.read.stop == t.shape[2]):
+        return t
+    return t[:, :, h.read]

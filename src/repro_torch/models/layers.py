@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import sharding
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -94,10 +96,18 @@ def trainable(module: torch.nn.Module) -> torch.nn.Module:
 
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5
             ) -> torch.Tensor:
-    """RMSNorm over the last axis in float32, cast back to ``x``'s dtype."""
+    """RMSNorm over the last axis in float32, cast back to ``x``'s dtype.
+    A ``g`` sharded over ``model`` (a view of ``sharding.local_view``)
+    means ``x`` holds this rank's columns of a wider axis: the sum of
+    squares is summed over the ranks and divided by the whole width."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    tp = sharding.tp_of(g)
+    if tp is not None and tp.sharded:
+        ss = sharding.tp_sum_stat((x * x).sum(-1, keepdim=True), tp)
+        x = x * torch.rsqrt(ss / (x.shape[-1] * tp.size) + eps)
+    else:
+        x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
     return (x * g.float()).to(dt)
 
 
@@ -149,31 +159,62 @@ class MLP(torch.nn.Module):
         return mlp_apply(self, x)
 
 
-def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
+def model_split(w: torch.Tensor) -> Optional["sharding.TP"]:
+    """``w``'s ``TP`` where the rules shard it over ``model``, else
+    ``None`` (an unsharded model, a one-rank ``model`` axis, or a dim the
+    axis does not divide, which every rank computes whole)."""
+    tp = sharding.tp_of(w)
+    return tp if tp is not None and tp.sharded else None
+
+
+def mlp_apply(p: MLP, x: torch.Tensor, reduce: bool = True) -> torch.Tensor:
+    """SwiGLU; on a mesh the gate and up products are column-parallel and
+    ``wo`` row-parallel, with one reduction over ``model`` (none with
+    ``reduce=False``: the caller adds this rank's part to others first
+    and reduces the sum)."""
+    tp = model_split(p.wi_gate)
+    x = sharding.tp_copy(x, tp)
     g = x @ p.wi_gate
     u = x @ p.wi_up
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ p.wo
+    y = h @ p.wo
+    return sharding.tp_reduce(y, tp) if reduce else y
+
 
 
 # --------------------------------------------------------------------------
 # losses
 # --------------------------------------------------------------------------
 
-def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """``logsumexp(logits) - logits[label]`` in float32."""
+def _nll(logits: torch.Tensor, labels: torch.Tensor, tp=None
+         ) -> torch.Tensor:
+    """``logsumexp(logits) - logits[label]`` in float32.  With a ``tp``
+    the logits are this rank's slice of the vocabulary (rank ``i`` holds
+    ids ``[i V/n, (i+1) V/n)``): the max and the sum of exponentials are
+    reduced over ``model`` and the label's logit comes from the rank that
+    owns it, so the whole ``[..., V]`` logits are never gathered."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels[..., None].long())[..., 0]
+        return lse - ll
+    vl = logits.shape[-1]
+    m = sharding.tp_max(logits.detach().amax(-1, keepdim=True), tp)
+    se = sharding.tp_reduce(torch.exp(logits - m).sum(-1), tp)
+    lse = torch.log(se) + m[..., 0]
+    t = labels.long() - tp.index * vl
+    inside = (t >= 0) & (t < vl)
+    ll = logits.gather(-1, t.clamp(0, vl - 1)[..., None])[..., 0]
+    ll = sharding.tp_reduce(torch.where(inside, ll, torch.zeros_like(ll)), tp)
     return lse - ll
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          mask: Optional[torch.Tensor] = None):
-    """Token-level CE in float32: logits ``[..., V]``, labels ``[...]``;
-    returns (the mean over the tokens the float ``mask`` keeps, the token
-    count)."""
-    nll = _nll(logits, labels)
+                          mask: Optional[torch.Tensor] = None, tp=None):
+    """Token-level CE in float32: logits ``[..., V]`` (a rank's vocabulary
+    slice with a ``tp``, ``_nll``), labels ``[...]``; returns (the mean
+    over the tokens the float ``mask`` keeps, the token count)."""
+    nll = _nll(logits, labels, tp)
     if mask is not None:
         nll = nll * mask
         count = mask.float().sum()
@@ -183,19 +224,20 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _chunk_ce(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
-              mc: torch.Tensor):
-    nll = _nll(xc @ head, lc) * mc
+              mc: torch.Tensor, tp=None):
+    nll = _nll(sharding.tp_copy(xc, tp) @ head, lc, tp) * mc
     return nll.sum(), mc.sum()
 
 
 def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
                           labels: torch.Tensor, chunk: int,
-                          mask: Optional[torch.Tensor] = None):
+                          mask: Optional[torch.Tensor] = None, tp=None):
     """CE over sequence chunks without holding the ``[B, S, V]`` logits:
     x ``[B, S, d]``, head ``[d, V]``.  Each chunk's logits, logsumexp and
     label logit are recomputed in the backward (a checkpoint per chunk, as
     the reference's ``@jax.checkpoint`` scan), so only ``[B, chunk, V]``
-    logits live at once.  Returns (mean loss, token count)."""
+    logits live at once; with a ``tp``, ``head`` is ``[d, V / n]``, this
+    rank's vocabulary (``_nll``).  Returns (mean loss, token count)."""
     b, s, _ = x.shape
     c = min(chunk, s)
     if s % c:
@@ -207,7 +249,8 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
     count = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = torch.is_grad_enabled()
     for i in range(0, s, c):
-        args = (x[:, i:i + c], head, labels[:, i:i + c], mask[:, i:i + c])
+        args = (x[:, i:i + c], head, labels[:, i:i + c], mask[:, i:i + c],
+                tp)
         nll, n = checkpoint(_chunk_ce, *args, use_reentrant=False) \
             if remat else _chunk_ce(*args)
         total = total + nll

@@ -53,7 +53,7 @@ from ..parallel import sharding
 from . import attention as attn_mod
 from . import layers, rwkv as rwkv_mod, ssm as ssm_mod
 from . import transformer as tf
-from .config import ModelConfig
+from .config import ModelConfig, ShapeSpec
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "rwkv", "hybrid")
 
@@ -154,15 +154,39 @@ class LM(torch.nn.Module):
     def _embed(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Token embeddings, or the audio family's frame embeddings
         ``batch["frames"] [B, S, d]`` in the compute dtype times
-        ``in_proj``."""
+        ``in_proj`` (on a mesh, the rank's columns all-gathered)."""
         if self.cfg.family == "audio":
             dt = layers.dtype_of(self.cfg.compute_dtype)
-            return batch["frames"].to(dt) @ self.in_proj
-        return self.embed[batch["tokens"]]
+            return sharding.tp_gather_last(batch["frames"].to(dt) @
+                                           self.in_proj,
+                                           layers.model_split(self.in_proj))
+        return self._lookup(batch["tokens"])
+
+    def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``embed[tokens]``; on a mesh a vocabulary-parallel lookup: the
+        rank's rows give the ids in its range and zeros elsewhere, summed
+        over ``model`` (exact: one term is not zero)."""
+        tp = layers.model_split(self.embed)
+        if tp is None:
+            return self.embed[tokens]
+        vl = self.embed.shape[0]
+        t = tokens.long() - tp.index * vl
+        inside = ((t >= 0) & (t < vl))[..., None]
+        rows = self.embed[t.clamp(0, vl - 1)]
+        return sharding.tp_reduce(
+            torch.where(inside, rows, torch.zeros_like(rows)), tp)
+
+    def _head(self):
+        """(the ``[d, V]`` head, ``embed.T`` with tied embeddings; its
+        ``TP`` where the rank holds a slice of the vocabulary)."""
+        if self.cfg.tie_embeddings:
+            return self.embed.T, layers.model_split(self.embed)
+        return self.lm_head, layers.model_split(self.lm_head)
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
-        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return x @ head
+        """Logits ``[..., V]``, or the rank's vocabulary slice on a mesh."""
+        head, tp = self._head()
+        return sharding.tp_copy(x, tp) @ head
 
     # ------------------------------------------------------------------
     # backbone (full sequence)
@@ -179,7 +203,7 @@ class LM(torch.nn.Module):
 
         def wrap(body):
             def run(x, *blks):
-                with sharding.gathered(*blks):
+                with sharding.local_shards(*blks):
                     return body(x, *blks)
             return tf.remat(run, cfg.remat_policy)
 
@@ -223,7 +247,7 @@ class LM(torch.nn.Module):
             for selfs, cross in zip(self.self_blocks, self.cross_blocks):
                 for blk in selfs:
                     x = self_block(x, blk)
-                with sharding.gathered(cross):
+                with sharding.local_shards(cross):
                     x = tf.cross_block(cross, cfg, x, img, positions)
         elif cfg.family == "rwkv":
             @wrap
@@ -246,7 +270,7 @@ class LM(torch.nn.Module):
             for group in self.mamba_groups:
                 for blk in group:
                     x = mamba(x, blk)
-                with sharding.gathered(self.shared_attn):
+                with sharding.local_shards(self.shared_attn):
                     x, _ = tf.dense_block(self.shared_attn, cfg, x, positions)
             for blk in getattr(self, "mamba_tail", ()):
                 x = mamba(x, blk)
@@ -262,9 +286,11 @@ class LM(torch.nn.Module):
         where given; chunked over the sequence with ``cfg.ce_chunk``) plus
         0.01 times the MoE load-balance loss.  Returns (total, {"ce",
         "aux", "tokens"}), all float32.  Parameters stored as DTensors
-        (``sharding.shard_params``) are gathered on use: the top-level
-        ones for the whole call, each block's around its body."""
-        with sharding.gathered(self, recurse=False):
+        (``sharding.shard_params``) read as their local shards
+        (``sharding.local_shards``): the top-level ones for the whole call,
+        each block's around its body; the vocabulary is split over
+        ``model`` and so is the cross-entropy's sum (``layers._nll``)."""
+        with sharding.local_shards(self, recurse=False):
             return self._loss(batch)
 
     def _loss(self, batch):
@@ -274,13 +300,13 @@ class LM(torch.nn.Module):
         x, aux = self._backbone(x, positions, batch)
         x = layers.rmsnorm(x, self.ln_f, cfg.norm_eps)
         mask = batch.get("loss_mask")
+        head, tp = self._head()
         if cfg.ce_chunk:
-            head = self.embed.T if cfg.tie_embeddings else self.lm_head
             ce, count = layers.chunked_cross_entropy(
-                x, head, batch["labels"], cfg.ce_chunk, mask)
+                x, head, batch["labels"], cfg.ce_chunk, mask, tp=tp)
         else:
             ce, count = layers.softmax_cross_entropy(
-                self._unembed(x), batch["labels"], mask)
+                self._unembed(x), batch["labels"], mask, tp=tp)
         total = ce + 0.01 * aux
         return total, {"ce": ce, "aux": aux, "tokens": count}
 
@@ -298,8 +324,33 @@ class LM(torch.nn.Module):
         """Zeroed decode caches sized for a context of ``seq_len``,
         stacked along the reference's leading axes; the vlm family's
         cross caches are zeros until the caller writes the image tokens'
-        keys and values into them.  The audio encoder raises."""
-        cfg, dev = self.cfg, self.device
+        keys and values into them.  The audio encoder raises.  On a mesh
+        every leaf is a DTensor placed by ``sharding.cache_specs`` (the
+        batch over the data axes, heads and channels over ``model``), and
+        a rank allocates only its shard."""
+        mesh = sharding.mesh_of(self.parameters())
+        if mesh is None:
+            return self._init_caches(batch, seq_len, self.device)
+        _whole_batch(batch, mesh)
+        glob = self._init_caches(batch, seq_len, "meta")
+        specs = sharding.cache_specs(
+            self.cfg, ShapeSpec("decode", seq_len, batch, "decode"), mesh,
+            glob)
+        sizes = sharding.axis_sizes(mesh)
+        fill = {"pos": -1, "k_scale": 1, "v_scale": 1}
+
+        def shard(path, spec):
+            g = sharding._get(glob, path)
+            shape = [d // sharding._axis_size(sizes, ax)
+                     for d, ax in zip(g.shape, spec)]
+            return torch.full(shape, fill.get(path[-1], 0), dtype=g.dtype,
+                              device=self.device)
+
+        return sharding.from_local_tree(sharding._tree_map(shard, specs),
+                                        glob, specs, mesh)
+
+    def _init_caches(self, batch: int, seq_len: int, dev):
+        cfg = self.cfg
 
         def stack(lead, one):
             return _map(lambda a: a.expand(*lead, *a.shape).clone(), one)
@@ -340,12 +391,24 @@ class LM(torch.nn.Module):
         """token ``[B, 1]`` int, pos an int (or a 0-d tensor) -> (logits
         ``[B, V]``, caches).  The caches are updated in place; the
         attention write slot is ``pos``, or ``pos % window`` in a ring
-        (``_slot``)."""
+        (``_slot``).  On a mesh (DTensor parameters and ``init_caches``'
+        DTensor caches) each rank decodes its rows of ``token`` with its
+        heads, writes its shards of the caches, and the logits are a
+        DTensor: rows over the data axes, the vocabulary over ``model``."""
+        if self.cfg.family == "audio":
+            raise ValueError(f"{self.cfg.family} does not decode")
+        mesh = sharding.mesh_of(self.parameters())
+        if mesh is None:
+            return self._decode(caches, token, pos), caches
+        with sharding.local_shards(self):
+            logits = self._decode(sharding.local_tree(caches),
+                                  sharding.local_rows(token, mesh), pos)
+            return self._mesh_logits(logits, mesh), caches
+
+    def _decode(self, caches, token: torch.Tensor, pos) -> torch.Tensor:
         cfg = self.cfg
-        if cfg.family == "audio":
-            raise ValueError(f"{cfg.family} does not decode")
         pos = int(pos)
-        x = self.embed[token]
+        x = self._lookup(token)
         positions = torch.tensor([pos], dtype=torch.int32, device=x.device)
         if cfg.family in ("dense", "moe"):
             slot = self._slot(pos, caches.k.shape[2])
@@ -382,19 +445,26 @@ class LM(torch.nn.Module):
                 h, _ = attn_mod.attention(
                     cross.xattn, cfg,
                     layers.rmsnorm(x, cross.ln1, cfg.norm_eps), positions,
+                    kv_repeat=cfg.kv_repeat,
                     kv_override=(caches["cross_k"][g], caches["cross_v"][g]))
                 x = tf.cross_residuals(cross, cfg, x, h)
         elif cfg.family == "rwkv":
+            # shift windows sharded over model: gathered on use, the
+            # rank's channels kept
+            tp = sharding.tp_of(self.ln_f) \
+                if caches.shift_t.shape[-1] != cfg.d_model else None
             for i, blk in enumerate(self.blocks):
                 h, state, last_t = rwkv_mod.time_mix_decode(
                     blk.time, cfg, layers.rmsnorm(x, blk.ln1, cfg.norm_eps),
-                    caches.shift_t[i], caches.state[i])
+                    sharding.tp_gather_last(caches.shift_t[i], tp),
+                    caches.state[i])
                 y = x + h
                 xn = layers.rmsnorm(y, blk.ln2, cfg.norm_eps)
                 h2, last_c = rwkv_mod.channel_mix_forward(
-                    blk.chan, cfg, xn, cache_shift=caches.shift_c[i])
-                caches.shift_t[i].copy_(last_t)
-                caches.shift_c[i].copy_(last_c)
+                    blk.chan, cfg, xn,
+                    cache_shift=sharding.tp_gather_last(caches.shift_c[i], tp))
+                caches.shift_t[i].copy_(sharding.tp_split_last(last_t, tp))
+                caches.shift_c[i].copy_(sharding.tp_split_last(last_c, tp))
                 caches.state[i].copy_(state)
                 x = y + h2
         else:
@@ -419,8 +489,19 @@ class LM(torch.nn.Module):
             for i, blk in enumerate(getattr(self, "mamba_tail", ())):
                 x = mamba(x, blk, _map(lambda a: a[i], caches["mamba_tail"]))
         x = layers.rmsnorm(x, self.ln_f, cfg.norm_eps)
-        logits = self._unembed(x)[:, 0, :]
-        return logits, caches
+        return self._unembed(x)[:, 0, :]
+
+    def _mesh_logits(self, logits: torch.Tensor, mesh) -> torch.Tensor:
+        """A rank's last-token logits ``[B_local, V_local]`` as the DTensor
+        ``[B, V]``: rows over the data axes, the vocabulary over ``model``
+        where the head splits it (inside ``local_shards``)."""
+        _, tp = self._head()
+        spec = sharding.P(sharding.data_axes(mesh),
+                          sharding.MODEL_AXIS if tp else None)
+        n = sharding.data_shard(mesh)[1]
+        glob = torch.empty((logits.shape[0] * n, self.cfg.vocab),
+                           device="meta")
+        return sharding.from_local_tree([logits], [glob], [spec], mesh)[0]
 
     def _slot(self, pos: int, cache_size: int) -> int:
         """The write slot of position ``pos``: ``pos % cache_size`` in a
@@ -437,12 +518,36 @@ class LM(torch.nn.Module):
         decode).  The dense family only, as in the reference (the others
         raise ``NotImplementedError``); the caches
         hold k and v in the compute dtype even for an int8
-        ``cache_dtype``, as the reference's do."""
+        ``cache_dtype``, as the reference's do.  On a mesh each rank
+        takes its rows of the batch and computes its heads; the logits
+        are a DTensor as ``decode_step``'s and the caches DTensors placed
+        by ``sharding.cache_specs``."""
         cfg = self.cfg
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"prefill for family {cfg.family} lives in "
                 f"examples/serve_batch")
+        mesh = sharding.mesh_of(self.parameters())
+        if mesh is None:
+            return self._prefill(batch)
+        b = next(iter(batch.values())).shape[0]
+        _whole_batch(b, mesh)
+        with sharding.local_shards(self):
+            logits, caches = self._prefill(
+                {k: sharding.local_rows(v, mesh) for k, v in batch.items()})
+            logits = self._mesh_logits(logits, mesh)
+        L, _, s, h, dh = caches.k.shape
+        k = torch.empty((L, b, s, cfg.n_kv_heads * cfg.kv_repeat, dh),
+                        dtype=caches.k.dtype, device="meta")
+        glob = attn_mod.KVCache(k, k, torch.empty(caches.pos.shape,
+                                                  dtype=torch.int32,
+                                                  device="meta"))
+        specs = sharding.cache_specs(cfg, ShapeSpec("prefill", s, b,
+                                                    "prefill"), mesh, glob)
+        return logits, sharding.from_local_tree(caches, glob, specs, mesh)
+
+    def _prefill(self, batch):
+        cfg = self.cfg
         x = self._embed(batch)
         s = x.shape[1]
         positions = torch.arange(s, device=x.device)
@@ -455,6 +560,17 @@ class LM(torch.nn.Module):
         x = layers.rmsnorm(x, self.ln_f, cfg.norm_eps)
         logits = self._unembed(x[:, -1:, :])[:, 0, :]
         return logits, caches
+
+
+def _whole_batch(batch: int, mesh) -> None:
+    """Raise unless the data axes split ``batch`` by rows: a batch that
+    they do not divide shards the sequence (``long_500k``), which the port
+    does not run."""
+    n = sharding.data_shard(mesh)[1]
+    if batch % n:
+        raise NotImplementedError(
+            f"a batch of {batch} over {n} data shards: sequence-sharded "
+            f"attention is not ported")
 
 
 def vlm_layout(cfg: ModelConfig) -> Tuple[int, int]:

@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import sharding
 from . import layers
 from .config import ModelConfig
 
@@ -86,13 +87,32 @@ def experts(p: MoE, xe: torch.Tensor) -> torch.Tensor:
 
 def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x ``[B, S, d]`` -> (y ``[B, S, d]``, aux loss float32 0-d)."""
+    """x ``[B, S, d]`` -> (y ``[B, S, d]``, aux loss float32 0-d).
+
+    On a mesh the experts are split over ``model`` (EP): the router is
+    replicated, so every rank routes every token alike (the capacity from
+    all of them), fills the slots of its ``E / n`` experts only, and
+    combines their outputs into its part of ``y``; the shared expert's
+    part (a column- and row-parallel MLP) is added and the sum reduced
+    once.  Activations are replicated over ``model``, so no all-to-all
+    is needed.
+
+    With more than one data shard (``sharding.dp_of``) the dispatch is the
+    global batch's, as the reference's under GSPMD: the capacity comes
+    from every shard's tokens, an entry's place in its expert counts the
+    entries of the shards before it (one all-reduce of a ``[shards, E]``
+    table of counts), and the load-balance loss is the global batch's
+    (its statistics summed over the shards)."""
     b, s, d = x.shape
     n = b * s
     e, k = cfg.n_experts, cfg.top_k
-    c = capacity(n, cfg)
+    dp = sharding.dp_of(p.router)
+    c = capacity(n * (dp.size if dp else 1), cfg)
     xf = x.reshape(n, d)
     dev = x.device
+    tp = layers.model_split(p.wi_gate)
+    el = p.wi_gate.shape[0]                  # this rank's experts
+    e0 = tp.index * el if tp else 0
 
     logits = xf.float() @ p.router
     probs = torch.softmax(logits, dim=-1)                      # [n, e]
@@ -102,8 +122,12 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
     # Switch-style load-balance aux loss
     top1 = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
         0, expert[:, 0], torch.ones_like(expert[:, 0]))       # no host sync
-    density = top1.float() / n
-    density_proxy = probs.mean(0)
+    if dp is None:
+        density = top1.float() / n
+        density_proxy = probs.mean(0)
+    else:
+        density = sharding.dp_sum(top1, dp).float() / (n * dp.size)
+        density_proxy = sharding.dp_sum(probs.sum(0), dp) / (n * dp.size)
     aux = (density * density_proxy).sum() * (e ** 2) / e
 
     # ---- sort-based dispatch -------------------------------------------
@@ -114,23 +138,35 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
         sorted_expert, torch.arange(e + 1, device=dev, dtype=expert.dtype),
         side="left")                                           # [e+1]
     pos_in_expert = torch.arange(n * k, device=dev) - seg_start[sorted_expert]
-    keep = pos_in_expert < c
-    slot = torch.where(keep, sorted_expert * c + pos_in_expert, e * c)
+    ahead = torch.zeros(e, dtype=seg_start.dtype, device=dev)
+    if dp is not None:           # the earlier shards' entries of each expert
+        table = torch.zeros((dp.size, e), dtype=seg_start.dtype, device=dev)
+        table[dp.index] = seg_start[1:] - seg_start[:-1]
+        ahead = sharding.dp_sum(table, dp)[:dp.index].sum(0)
+    keep = pos_in_expert + ahead[sorted_expert] < c
+    if tp:                            # an entry of another rank's expert
+        keep_here = keep & (sorted_expert >= e0) & (sorted_expert < e0 + el)
+    else:
+        keep_here = keep
+    slot = torch.where(keep_here, (sorted_expert - e0) * c + pos_in_expert,
+                       el * c)
     token_id = order // k                                      # [n*k]
 
     # slot (e, q) holds the sorted entry seg_start[e] + q while q < the
     # expert's count: the reference's scatter of xf[token_id] to slot
-    entry = seg_start[:e, None] + torch.arange(c, device=dev)  # [e, c]
-    filled = entry < seg_start[1:, None]
+    q = torch.arange(c, device=dev)
+    entry = seg_start[e0:e0 + el, None] + q
+    filled = (entry < seg_start[e0 + 1:e0 + el + 1, None]) & \
+        (q + ahead[e0:e0 + el, None] < c)                      # [el, c]
     src = token_id[entry.clamp_max(n * k - 1)]
-    xe = torch.where(filled[..., None], xf[src],
-                     torch.zeros((), dtype=x.dtype, device=dev))  # [e, c, d]
+    xe = torch.where(filled[..., None], sharding.tp_copy(xf, tp)[src],
+                     torch.zeros((), dtype=x.dtype, device=dev))  # [el, c, d]
 
-    ye = experts(p, xe)                                        # [e, c, d]
+    ye = experts(p, xe)                                        # [el, c, d]
 
     # ---- combine ---------------------------------------------------------
-    ye_flat = torch.cat([ye.reshape(e * c, d), ye.new_zeros((1, d))])
-    w = (gate.reshape(-1)[order] * keep).to(x.dtype)           # [n*k]
+    ye_flat = torch.cat([ye.reshape(el * c, d), ye.new_zeros((1, d))])
+    w = sharding.tp_copy((gate.reshape(-1)[order] * keep).to(x.dtype), tp)
     # each token's sorted entries in expert-id order: the order in which
     # the reference's scatter-add meets them
     rank = torch.empty_like(order)
@@ -142,5 +178,11 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
         y = y + parts[:, j]
 
     if hasattr(p, "shared"):
-        y = y + layers.mlp_apply(p.shared, xf)
+        ts = layers.model_split(p.shared.wi_gate)
+        ys = layers.mlp_apply(p.shared, xf, reduce=False)
+        if (ts is None) != (tp is None):     # one part, one whole output
+            y, ys = sharding.tp_reduce(y, tp), sharding.tp_reduce(ys, ts)
+            tp = None
+        y = y + ys
+    y = sharding.tp_reduce(y, tp)
     return y.reshape(b, s, d), aux.float()

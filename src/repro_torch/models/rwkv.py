@@ -145,11 +145,33 @@ def _ddlerp(p: TimeMix, x: torch.Tensor, xx: torch.Tensor) -> torch.Tensor:
     return x[None] + (xx - x)[None] * mu
 
 
-def _decay(p: TimeMix, xw: torch.Tensor) -> torch.Tensor:
-    """log w_t in (-inf, 0): data-dependent per-channel decay, float32."""
+def _decay(p: TimeMix, xw: torch.Tensor, tp=None) -> torch.Tensor:
+    """log w_t in (-inf, 0): data-dependent per-channel decay, float32
+    (the rank's channels with a ``tp``: ``wB`` and ``w0`` split)."""
     lora = torch.tanh((xw @ p.wA).float())
-    dd = lora @ p.wB.float()
+    dd = sharding.tp_copy(lora, tp) @ p.wB.float()
     return -torch.exp(p.w0 + dd)
+
+
+def _mixed(p: TimeMix, x: torch.Tensor, xx: torch.Tensor, tp):
+    """``_ddlerp``'s (xr, xk, xv, xw, xg); with a ``tp`` all but ``xw``
+    (which the replicated decay LoRA reads first) enter the model-parallel
+    region in one collective."""
+    mixed = _ddlerp(p, x, xx)
+    if tp is None:
+        return tuple(mixed)
+    xr, xk, xv, xg = sharding.tp_copy(mixed[[0, 1, 2, 4]], tp)
+    return xr, xk, xv, mixed[3], xg
+
+
+def _split(p: TimeMix, cfg: ModelConfig):
+    """The ``TP`` of a time-mix whose WKV heads split over ``model``."""
+    tp = layers.model_split(p.wr)
+    if tp is not None and n_heads(cfg) % tp.size:
+        raise NotImplementedError(
+            f"{n_heads(cfg)} WKV heads over model = {tp.size}: the shard "
+            f"does not hold whole heads")
+    return tp
 
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -189,10 +211,13 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _gate_out(p: TimeMix, cfg: ModelConfig, out: torch.Tensor,
-              g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+              g: torch.Tensor, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The norm over all of ``dw`` (on a mesh its statistic summed over
+    the ranks' heads, the padded heads' zeros counted), the gate, and the
+    row-parallel ``wo``."""
     out = layers.rmsnorm(out.to(x.dtype), p.ln_g, cfg.norm_eps)
     out = out * F.silu(g.float()).to(x.dtype)
-    return out @ p.wo
+    return sharding.tp_reduce(out @ p.wo, tp)
 
 
 def time_mix_forward(p: TimeMix, cfg: ModelConfig, x: torch.Tensor,
@@ -209,31 +234,34 @@ def time_mix_forward(p: TimeMix, cfg: ModelConfig, x: torch.Tensor,
     def pin_w(t):                    # [B, S, dw]: channel dim over model
         return sharding.constrain_act(t, last_model=True) if use_pins else t
 
+    tp = _split(p, cfg)
     xx = _shift(x, cache_shift)
-    xr, xk, xv, xw, xg = _ddlerp(p, x, xx)
+    xr, xk, xv, xw, xg = _mixed(p, x, xx, tp)
     r = pin_w(xr @ p.wr)
     k = pin_w(xk @ p.wk)
     v = pin_w(xv @ p.wv)
     g = pin_w(xg @ p.wg)
-    log_w = pin_w(_decay(p, xw))
+    log_w = pin_w(_decay(p, xw, tp))
     out, state = wkv_chunked(r, k, v, log_w, p.u, cfg.rwkv_head_dim,
                              state0=state0, pins=use_pins)
-    return _gate_out(p, cfg, out, g, x), state, x[:, -1:]
+    return _gate_out(p, cfg, out, g, x, tp), state, x[:, -1:]
 
 
 def time_mix_decode(p: TimeMix, cfg: ModelConfig, x: torch.Tensor,
                     shift_t: torch.Tensor, state: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """O(1) decode: x ``[B,1,d]``."""
-    h, hd = n_heads(cfg), cfg.rwkv_head_dim
+    """O(1) decode: x ``[B,1,d]``; on a mesh ``state`` holds the rank's
+    heads."""
+    tp = _split(p, cfg)
+    h, hd = n_heads(cfg) // (tp.size if tp else 1), cfg.rwkv_head_dim
     b = x.shape[0]
     xx = shift_t.to(x.dtype)
-    xr, xk, xv, xw, xg = _ddlerp(p, x, xx)
+    xr, xk, xv, xw, xg = _mixed(p, x, xx, tp)
     r = (xr @ p.wr).float()
     k = (xk @ p.wk).float()
     v = (xv @ p.wv).float()
     g = xg @ p.wg
-    w = torch.exp(_decay(p, xw))[:, 0]                     # [b,d]
+    w = torch.exp(_decay(p, xw, tp))[:, 0]                 # [b,d]
     rh = r[:, 0].reshape(b, h, hd)
     kh = k[:, 0].reshape(b, h, hd)
     vh = v[:, 0].reshape(b, h, hd)
@@ -244,17 +272,27 @@ def time_mix_decode(p: TimeMix, cfg: ModelConfig, x: torch.Tensor,
                        state + uh[None, :, :, None] * kv)
     new_state = wh[..., None] * state + kv
     out = out.reshape(b, 1, h * hd)
-    return _gate_out(p, cfg, out, g, x), new_state, x[:, -1:]
+    return _gate_out(p, cfg, out, g, x, tp), new_state, x[:, -1:]
 
 
 def channel_mix_forward(p: ChannelMix, cfg: ModelConfig, x: torch.Tensor,
                         cache_shift: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Squared-ReLU channel mixing with its receptance gate.  On a mesh
+    ``wk`` is column- and ``wv`` row-parallel, and the rules split the
+    gate's ``wr [d, d]`` by columns too (the reference keeps that layout
+    on purpose, ``repro/parallel/sharding.py:201-205``): ``wv``'s partial
+    sums are reduced to the rank's columns, gated there, and the product
+    all-gathered."""
+    tk, tr = layers.model_split(p.wk), layers.model_split(p.wr)
     xx = _shift(x, cache_shift)
     xk = x + (xx - x) * p.mu_k
     xr = x + (xx - x) * p.mu_r
-    k = xk @ p.wk
+    k = sharding.tp_copy(xk, tk) @ p.wk
     k = torch.square(torch.relu(k.float())).to(x.dtype)
-    kv = k @ p.wv
-    rgate = torch.sigmoid(xr @ p.wr)
-    return rgate * kv, x[:, -1:]
+    kv = sharding.tp_reduce(k @ p.wv, tk)
+    rgate = torch.sigmoid(sharding.tp_copy(xr, tr) @ p.wr)
+    if tr is None:
+        return rgate * kv, x[:, -1:]
+    return sharding.tp_gather_last(rgate * sharding.tp_split_last(kv, tr),
+                                   tr), x[:, -1:]

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import sharding
 from . import layers
 from .config import ModelConfig
 
@@ -111,35 +112,65 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, device=None) -> SSMCache:
                           dtype=torch.float32, device=device))
 
 
-def _split_proj(p: Mamba2, x: torch.Tensor):
-    """(z, xBC = [xs, B, C] along the last axis, dt_raw)."""
+class _Local(NamedTuple):
+    """A rank's share of a Mamba2 mixer on a mesh (``_local``): its heads
+    and ``d_inner`` channels (``wz``/``wxs``/``wdt``/``conv_xs``/``A_log``/
+    ``D``/``dt_bias``/``norm_g`` split over ``model``, ``out_proj``
+    row-parallel), and the replicated ``B``/``C`` path (``wBC``,
+    ``conv_BC``) entering the model-parallel region.  ``tp`` is ``None``
+    unsharded."""
+    tp: Optional[sharding.TP]
+    heads: int
+    d_inner: int
+    conv_w: torch.Tensor          # [conv, d_inner_local + 2N]
+    conv_b: torch.Tensor          # [d_inner_local + 2N]
+
+
+def _local(p: Mamba2, sp: SSMSpec) -> _Local:
+    tp = layers.model_split(p.wz)
+    if tp is None:
+        return _Local(None, sp.n_heads, sp.d_inner,
+                      torch.cat([p.conv_xs, p.conv_BC], dim=1), p.conv_b)
+    if sp.n_heads % tp.size or p.wdt.shape[-1] * tp.size != sp.n_heads:
+        raise NotImplementedError(
+            f"{sp.n_heads} Mamba2 heads over model = {tp.size}: the shards "
+            f"do not hold whole heads")
+    di = sp.d_inner // tp.size
+    b = sharding.tp_copy(p.conv_b, tp)
+    return _Local(tp, sp.n_heads // tp.size, di,
+                  torch.cat([p.conv_xs, sharding.tp_copy(p.conv_BC, tp)], 1),
+                  torch.cat([b[tp.index * di:(tp.index + 1) * di],
+                             b[sp.d_inner:]]))
+
+
+def _split_proj(p: Mamba2, x: torch.Tensor, tp=None):
+    """(z, xBC = [xs, B, C] along the last axis, dt_raw); with a ``tp``
+    the rank's heads of z, xs and dt beside the whole B and C."""
+    bc = x @ p.wBC
+    x = sharding.tp_copy(x, tp)
     z = x @ p.wz
-    xBC = torch.cat([x @ p.wxs, x @ p.wBC], dim=-1)
+    xBC = torch.cat([x @ p.wxs, sharding.tp_copy(bc, tp)], dim=-1)
     return z, xBC, x @ p.wdt
 
 
-def _conv_w(p: Mamba2) -> torch.Tensor:
-    return torch.cat([p.conv_xs, p.conv_BC], dim=1)
-
-
-def _conv_with_history(p: Mamba2, xfull: torch.Tensor, s: int, sp: SSMSpec
+def _conv_with_history(lo: _Local, xfull: torch.Tensor, s: int, sp: SSMSpec
                        ) -> torch.Tensor:
     """The depthwise conv over the last ``s`` positions of ``xfull``, given
     ``conv - 1`` positions of history before them: taps summed in the
     reference's order i = 0 .. conv-1, in the input dtype; then the bias
     and SiLU in float32, cast back."""
-    w = _conv_w(p)
+    w = lo.conv_w
     out = xfull[:, 0:s, :] * w[0]
     for i in range(1, sp.conv):
         out = out + xfull[:, i:i + s, :] * w[i]
-    return F.silu((out + p.conv_b).float()).to(xfull.dtype)
+    return F.silu((out + lo.conv_b).float()).to(xfull.dtype)
 
 
-def _causal_conv(p: Mamba2, xBC: torch.Tensor, sp: SSMSpec) -> torch.Tensor:
+def _causal_conv(lo: _Local, xBC: torch.Tensor, sp: SSMSpec) -> torch.Tensor:
     """Depthwise causal conv over ``[B, S, C]`` with kernel ``sp.conv``
     (zero history)."""
     pad = F.pad(xBC, (0, 0, sp.conv - 1, 0))
-    return _conv_with_history(p, pad, xBC.shape[1], sp)
+    return _conv_with_history(lo, pad, xBC.shape[1], sp)
 
 
 def _gates(p: Mamba2, dt_raw: torch.Tensor
@@ -204,11 +235,12 @@ def ssd_chunked(xh: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
 
 
 def _gated_out(p: Mamba2, cfg: ModelConfig, y: torch.Tensor,
-               z: torch.Tensor) -> torch.Tensor:
-    """Gated RMSNorm, then the out-projection."""
+               z: torch.Tensor, tp=None) -> torch.Tensor:
+    """Gated RMSNorm over all of ``d_inner`` (on a mesh its statistic
+    summed over the ranks), then the row-parallel out-projection."""
     y = layers.rmsnorm(y * F.silu(z.float()).to(y.dtype), p.norm_g,
                        cfg.norm_eps)
-    return y @ p.out_proj
+    return sharding.tp_reduce(y @ p.out_proj, tp)
 
 
 def mamba2_forward(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
@@ -218,23 +250,26 @@ def mamba2_forward(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
 
     With ``cache`` the conv window and state start from it and the final
     ones are returned (a prefill); ``S`` must be a multiple of the chunk
-    (or shorter than one)."""
+    (or shorter than one).  On a mesh the rank computes its heads
+    (``_local``)."""
     sp = spec(cfg)
+    lo = _local(p, sp)
     b, s, _ = x.shape
     q = min(sp.chunk, s)
     if s % q:
         raise ValueError(f"seq {s} not divisible by chunk {q}")
-    z, xBC, dt_raw = _split_proj(p, x)
+    z, xBC, dt_raw = _split_proj(p, x, lo.tp)
     if cache is not None:
         full = torch.cat([cache.conv, xBC], dim=1)
-        xBC_conv = _conv_with_history(p, full[:, -(s + sp.conv - 1):], s, sp)
+        xBC_conv = _conv_with_history(lo, full[:, -(s + sp.conv - 1):], s,
+                                      sp)
         new_conv = full[:, -(sp.conv - 1):]
     else:
-        xBC_conv = _causal_conv(p, xBC, sp)
-    h, p_, n = sp.n_heads, sp.head_dim, sp.state
-    xs = xBC_conv[..., :sp.d_inner]
-    B = xBC_conv[..., sp.d_inner:sp.d_inner + n]
-    C = xBC_conv[..., sp.d_inner + n:]
+        xBC_conv = _causal_conv(lo, xBC, sp)
+    h, p_, n, di = lo.heads, sp.head_dim, sp.state, lo.d_inner
+    xs = xBC_conv[..., :di]
+    B = xBC_conv[..., di:di + n]
+    C = xBC_conv[..., di + n:]
     dt, log_a = _gates(p, dt_raw)
     xh = xs.reshape(b, s, h, p_)
     y, final_state = ssd_chunked(
@@ -242,7 +277,7 @@ def mamba2_forward(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
         cache.state if cache is not None else None)
     y = y + p.D[:, None] * xh.float()
     y = y.reshape(b, s, h * p_).to(x.dtype)
-    out = _gated_out(p, cfg, y, z)
+    out = _gated_out(p, cfg, y, z, lo.tp)
     new_cache = None
     if cache is not None:
         new_cache = SSMCache(conv=new_conv, state=final_state)
@@ -252,18 +287,32 @@ def mamba2_forward(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
 def mamba2_decode(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
                   cache: SSMCache) -> Tuple[torch.Tensor, SSMCache]:
     """Single-token decode: x ``[B, 1, d]`` -> (y ``[B, 1, d]``, the new
-    cache; the old one is not modified)."""
+    cache; the old one is not modified).  On a mesh ``cache.state`` holds
+    the rank's heads and ``cache.conv`` the rank's slice of the window's
+    channels, as ``cache_specs`` places them (a contiguous ``1/n`` of
+    ``[xs, B, C]``, not the rank's heads): the window is gathered on use
+    and the rank's slice of the new one kept."""
     sp = spec(cfg)
+    lo = _local(p, sp)
+    tp = lo.tp
     b = x.shape[0]
-    z, xBC, dt_raw = _split_proj(p, x)
-    window = torch.cat([cache.conv, xBC], dim=1)             # [B, conv, C]
+    z, xBC, dt_raw = _split_proj(p, x, tp)
+    di, cdim = lo.d_inner, sp.d_inner + 2 * sp.state
+    conv = cache.conv
+    if tp is not None:
+        if conv.shape[-1] != cdim:
+            conv = sharding.tp_gather_last(conv, tp)
+        r = tp.index
+        conv = torch.cat([conv[..., r * di:(r + 1) * di],
+                          conv[..., sp.d_inner:]], dim=-1)
+    window = torch.cat([conv, xBC], dim=1)                   # [B, conv, C]
     conv_out = torch.einsum("bkc,kc->bc", window.float(),
-                            _conv_w(p).float())
-    xBC_conv = F.silu(conv_out + p.conv_b.float()).to(x.dtype)[:, None, :]
-    h, p_, n = sp.n_heads, sp.head_dim, sp.state
-    xs = xBC_conv[..., :sp.d_inner]
-    B = xBC_conv[:, 0, sp.d_inner:sp.d_inner + n].float()
-    C = xBC_conv[:, 0, sp.d_inner + n:].float()
+                            lo.conv_w.float())
+    xBC_conv = F.silu(conv_out + lo.conv_b.float()).to(x.dtype)[:, None, :]
+    h, p_, n = lo.heads, sp.head_dim, sp.state
+    xs = xBC_conv[..., :di]
+    B = xBC_conv[:, 0, di:di + n].float()
+    C = xBC_conv[:, 0, di + n:].float()
     dt, log_a = _gates(p, dt_raw)                            # [b,1,h]
     xh = xs.reshape(b, h, p_).float()
     a = torch.exp(log_a[:, 0, :])                            # [b,h]
@@ -272,5 +321,11 @@ def mamba2_decode(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     y = torch.einsum("bhpn,bn->bhp", state, C)
     y = y + p.D[:, None] * xh
     y = y.reshape(b, 1, h * p_).to(x.dtype)
-    return _gated_out(p, cfg, y, z), SSMCache(conv=window[:, 1:],
-                                              state=state)
+    new_conv = window[:, 1:]
+    if tp is not None:           # back to the cache's layout and shard
+        xs_all = sharding.tp_gather_last(new_conv[..., :di], tp)
+        new_conv = torch.cat([xs_all, new_conv[..., di:]], dim=-1)
+        if cache.conv.shape[-1] != cdim:
+            new_conv = sharding.tp_split_last(new_conv, tp)
+    return _gated_out(p, cfg, y, z, tp), SSMCache(conv=new_conv,
+                                                  state=state)

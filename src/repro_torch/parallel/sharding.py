@@ -30,15 +30,25 @@ spec into DTensor placements: a dim over ``("pod", "data")`` is
 ``Shard(d)`` on both mesh dims, pod-major, the order of a
 ``PartitionSpec``.
 
-Compute gathers on use (``gathered``): a module's DTensor parameters are
-all-gathered to full local tensors just before it runs and dropped
-after, as FSDP does, so the kernels' ``autograd.Function``s get plain
-tensors.  The gradient of a gathered tensor is summed over the data
-axes and cut back to the parameter's shards in the backward.  The pins
-(``constrain_act``, ``pin``) return their input without an ambient mesh
-(``use_mesh``), as the reference's do; under one they redistribute a
-DTensor to the pinned placements and return a local tensor as it is:
-they never change a value.
+Compute runs on each rank's shards (``local_shards``), as GSPMD runs the
+reference's step under these rules: a module's DTensor parameters read
+as their local ``model`` shards (``local_view``; dims over the data axes,
+``cfg.fsdp``, gathered on use and dropped after, as FSDP does), so the
+kernels' ``autograd.Function``s get plain tensors holding the rank's
+heads, FFN columns, vocabulary slice or experts.  The model code puts the
+collectives of the model-parallel region where the rules imply them
+(``tp_copy`` into it, ``tp_reduce`` out of a row-parallel product,
+``tp_sum_stat`` for a norm over a sharded width, ``tp_gather_last`` /
+``tp_split_last`` for sharded columns, ``tp_max``), each the identity on
+an unsharded model or a one-rank ``model`` axis.  The one leaf that is
+gathered over ``model`` is one whose shard does not hold the heads its
+rank computes (``gather_over_model``).  A gradient is summed over the
+data axes and lands on the parameter's shards.
+
+The pins (``constrain_act``, ``pin``) return their input without an
+ambient mesh (``use_mesh``), as the reference's do; under one they
+redistribute a DTensor to the pinned placements and return a local
+tensor as it is: they never change a value.
 """
 from __future__ import annotations
 
@@ -553,22 +563,111 @@ def mesh_of(tensors) -> Optional[DeviceMesh]:
     return None
 
 
-def gather(p: DTensor) -> torch.Tensor:
-    """``p`` whole on this rank, differentiably: its gradient is summed
-    over the mesh's data axes (each data rank saw other rows) and cut
-    back to ``p``'s shards in the backward."""
+# --------------------------------------------------------------------------
+# tensor parallelism over ``model``
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """A local view's place on the ``model`` axis (``local_view``): the
+    axis's process group, its size, this rank's index on it, the tensor
+    dim the rule shards over it (``None``: replicated over ``model``), and
+    the DTensor the view is of."""
+    group: Any
+    size: int
+    index: int
+    dim: Optional[int]
+    src: Any = dataclasses.field(default=None, repr=False, compare=False)
+
+    @property
+    def sharded(self) -> bool:
+        return self.dim is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class DP:
+    """A local view's data axes (``local_view``), where they hold more
+    than one rank: their process groups in the mesh's order, the number
+    of data shards, and this rank's index among them (pod-major, the
+    order of the global batch's rows)."""
+    groups: Tuple[Any, ...]
+    size: int
+    index: int
+
+
+def dp_of(t) -> Optional[DP]:
+    """The ``DP`` of a local view on a mesh with more than one data
+    shard; ``None`` otherwise."""
+    return getattr(t, "_dp", None)
+
+
+def dp_sum(x, dp: Optional[DP]):
+    """``x`` summed over the data shards, all-reduced both ways (every
+    shard uses the sum); the identity without a ``dp``."""
+    return x if dp is None else _SumStat.apply(x, dp.groups)
+
+
+def tp_of(t) -> Optional[TP]:
+    """The ``TP`` of a local view on a mesh whose ``model`` axis has more
+    than one rank; ``None`` for anything else (a plain tensor, a view on
+    a one-rank ``model`` axis), which then computes unsharded."""
+    return getattr(t, "_tp", None)
+
+
+def local_view(p: DTensor) -> torch.Tensor:
+    """``p``'s local ``model`` shard as a plain tensor, differentiably.
+    Dims sharded over the data axes (``cfg.fsdp``) are gathered first, so
+    the view holds this rank's whole slice of ``model``; without fsdp the
+    rules replicate over the data axes and no collective runs.  Its
+    gradient is ``Partial`` over the data axes (each data rank saw other
+    rows) and placed over ``model`` as ``p`` is.  On a ``model`` axis of
+    more than one rank the view carries its ``TP`` (``tp_of``), and with
+    more than one data shard its ``DP`` (``dp_of``)."""
+    mesh = p.device_mesh
+    names = mesh.mesh_dim_names
+    keep = tuple(pl if a == MODEL_AXIS else Replicate()
+                 for a, pl in zip(names, p.placements))
+    src = p if keep == tuple(p.placements) else p.redistribute(mesh, keep)
+    grad = [Partial() if a in DATA_AXES else pl
+            for a, pl in zip(names, keep)]
+    t = src.to_local(grad_placements=grad)
+    k, n = data_shard(mesh)
+    if n > 1:
+        sizes = axis_sizes(mesh)
+        t._dp = DP(tuple(mesh.get_group(a) for a in names
+                         if a in DATA_AXES and sizes[a] > 1), n, k)
+    if MODEL_AXIS in names:
+        m = names.index(MODEL_AXIS)
+        if mesh.shape[m] > 1:
+            pl = keep[m]
+            t._tp = TP(mesh.get_group(MODEL_AXIS), mesh.shape[m],
+                       mesh.get_local_rank(MODEL_AXIS),
+                       pl.dim if isinstance(pl, Shard) else None, p)
+    return t
+
+
+def gather_over_model(t: torch.Tensor, partial: bool) -> torch.Tensor:
+    """The whole parameter behind the local view ``t``, all-gathered over
+    ``model`` (and the data axes).  Only for a leaf whose shard does not
+    hold the heads its rank computes (``models.attention.head_layout``):
+    GSPMD reshards such a leaf too.  ``partial``: each rank uses its own
+    part of it (its heads), so its gradient is summed over ``model`` on
+    the way back to the shards; otherwise every rank computes the same
+    whole block and the gradient is already whole on each."""
+    p = tp_of(t).src
     mesh = p.device_mesh
     full = p.redistribute(mesh, [Replicate()] * mesh.ndim)
-    grad = [Partial() if a in DATA_AXES else Replicate()
-            for a in mesh.mesh_dim_names]
-    return full.to_local(grad_placements=grad)
+    return full.to_local(grad_placements=[
+        Partial() if a in DATA_AXES or partial else Replicate()
+        for a in mesh.mesh_dim_names])
 
 
 @contextlib.contextmanager
-def gathered(*modules: torch.nn.Module, recurse: bool = True):
+def local_shards(*modules: torch.nn.Module, recurse: bool = True):
     """Inside the block, the DTensor parameters of ``modules`` (and of
-    their submodules, unless ``recurse=False``) read as whole local
-    tensors (``gather``); a module with none is left alone."""
+    their submodules, unless ``recurse=False``) read as their local views
+    (``local_view``); a module with none is left alone, so the block
+    nests."""
     swaps = []
     for m in modules:
         for mod in (m.modules() if recurse else (m,)):
@@ -576,12 +675,171 @@ def gathered(*modules: torch.nn.Module, recurse: bool = True):
                 if isinstance(p, DTensor):
                     swaps.append((mod, name, p))
     for mod, name, p in swaps:
-        mod._parameters[name] = gather(p)
+        mod._parameters[name] = local_view(p)
     try:
         yield
     finally:
         for mod, name, p in swaps:
             mod._parameters[name] = p
+
+
+# The collectives of the model-parallel region, each with its adjoint.  An
+# activation is replicated over ``model`` outside the region, so its
+# gradient is the same on every rank there; inside, each rank holds its
+# heads, columns, vocabulary slice or experts.  Each takes the ``TP`` of a
+# weight of the block and is the identity without one.
+
+class _Copy(torch.autograd.Function):
+    """Into the region: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Reduce(torch.autograd.Function):
+    """Out of the region: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumStat(torch.autograd.Function):
+    """A statistic summed over the ranks' parts (over each of ``groups``)
+    and used by every rank's part: all-reduce both ways."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        x = x.clone()
+        for g in groups:
+            dist.all_reduce(x, group=g)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        for grp in ctx.groups:
+            dist.all_reduce(g, group=grp)
+        return g, None
+
+
+def _gather_last(x, tp: TP):
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    dist.all_gather(parts, x.contiguous(), group=tp.group)
+    return torch.cat(parts, dim=-1)
+
+
+def _part_last(x, tp: TP):
+    n = x.shape[-1] // tp.size
+    return x[..., tp.index * n:(tp.index + 1) * n].contiguous()
+
+
+class _GatherLast(torch.autograd.Function):
+    """Out of the region along the last dim: all-gather forward, this
+    rank's columns of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _gather_last(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _part_last(g, ctx.tp), None
+
+
+class _SplitLast(torch.autograd.Function):
+    """A replicated tensor's columns of this rank: the slice forward, an
+    all-gather of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _part_last(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_last(g, ctx.tp), None
+
+
+def tp_copy(x, tp: Optional[TP]):
+    return x if tp is None else _Copy.apply(x, tp.group)
+
+
+def tp_reduce(x, tp: Optional[TP]):
+    return x if tp is None else _Reduce.apply(x, tp.group)
+
+
+def tp_sum_stat(x, tp: Optional[TP]):
+    return x if tp is None else _SumStat.apply(x, (tp.group,))
+
+
+def tp_gather_last(x, tp: Optional[TP]):
+    return x if tp is None else _GatherLast.apply(x, tp)
+
+
+def tp_split_last(x, tp: Optional[TP]):
+    return x if tp is None else _SplitLast.apply(x, tp)
+
+
+def tp_max(x, tp: Optional[TP]):
+    """The element-wise max over the ranks (no gradient)."""
+    if tp is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=tp.group)
+    return x
+
+
+def from_local_tree(local_tree, global_tree, specs, mesh: DeviceMesh):
+    """Each leaf of ``local_tree`` as a DTensor on ``mesh`` with the
+    placements of its spec in ``specs`` and the shape of its leaf in
+    ``global_tree`` (tensors on any device, ``meta`` included); a local
+    shard of another shape raises."""
+    sizes = axis_sizes(mesh)
+
+    def leaf(path, spec):
+        loc = _get(local_tree, path)
+        glob = tuple(_get(global_tree, path).shape)
+        want = tuple(d // _axis_size(sizes, ax) for d, ax in zip(glob, spec))
+        if tuple(loc.shape) != want:
+            raise ValueError(f"{'/'.join(path)}: local shard "
+                             f"{tuple(loc.shape)} where {spec} on {sizes} "
+                             f"cuts {glob} to {want}")
+        stride = torch.empty(glob, device="meta").stride()
+        return DTensor.from_local(loc, mesh, to_placements(spec, mesh),
+                                  run_check=False, shape=glob, stride=stride)
+
+    return _tree_map(leaf, specs)
+
+
+def _get(tree, path):
+    for k in path:
+        tree = (tree[k] if isinstance(tree, dict) else
+                getattr(tree, k) if hasattr(tree, "_fields") else
+                tree[int(k)])
+    return tree
+
+
+def local_tree(tree):
+    """Each DTensor leaf of ``tree`` as its local shard (sharing storage, so
+    writes land in the DTensor)."""
+    return _tree_map(lambda _, x: local(x), tree)
 
 
 def local_rows(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
@@ -590,6 +848,8 @@ def local_rows(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     if isinstance(x, DTensor):
         return x.to_local()
     k, n = data_shard(mesh)
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} rows over {n} data shards")
     b = x.shape[0] // n
     return x[k * b:(k + 1) * b]
 
